@@ -1,0 +1,369 @@
+"""TPC-H-pattern queries over the mini engine (the paper's DBMS workload).
+
+Q1  — scan-heavy group-by aggregate over lineitem;
+Q6  — the predicate-pushdown filter+aggregate;
+Q12 — join lineitem x orders + grouped conditional counts.
+
+Each query is a Table -> dict[str, Tensor] function.  The ``*_fused``
+variants (FUSED_QUERIES) run the same queries as ONE ``group_filter_agg``
+kernel pass each: the predicate program evaluates the WHERE clause in
+registers, derived columns (Q1's disc_price/charge) are term products
+computed in flight, and the grouped sums/counts accumulate on chip —
+instead of the unfused graph's one-pass-per-aggregate plan.  Counts and
+integer-valued aggregates match the unfused results exactly; float sums
+agree to accumulation-order tolerance.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.engine import datagen, ops
+from repro_torch.engine.table import Table
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.group_filter_agg import encode_aggregates, encode_predicates
+
+
+def _le_bound(cutoff: float) -> float:
+    """The exclusive f32 upper bound equivalent to ``col <= cutoff``."""
+    return float(np.nextafter(np.float32(cutoff), np.float32(np.inf)))
+
+
+def _averages(agg: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    cnt = agg["count"].clamp(min=1.0)
+    agg["avg_qty"] = agg["sum_qty"] / cnt
+    agg["avg_price"] = agg["sum_base_price"] / cnt
+    agg["avg_disc"] = agg["sum_disc"] / cnt
+    return agg
+
+
+def q1(lineitem: Table, delta_days: float = 90.0) -> dict[str, torch.Tensor]:
+    """Pricing summary report: 6 (returnflag x linestatus) groups."""
+    cutoff = datagen.date(1998, 12, 1) - delta_days
+    mask = lineitem["l_shipdate"] <= cutoff
+    keys = lineitem["l_returnflag"] * 2 + lineitem["l_linestatus"]  # 6 groups
+    disc_price = lineitem["l_extendedprice"] * (1.0 - lineitem["l_discount"])
+    charge = disc_price * (1.0 + lineitem["l_tax"])
+    agg = ops.group_aggregate(
+        keys,
+        {
+            "sum_qty": lineitem["l_quantity"],
+            "sum_base_price": lineitem["l_extendedprice"],
+            "sum_disc_price": disc_price,
+            "sum_charge": charge,
+            "sum_disc": lineitem["l_discount"],
+        },
+        mask,
+        num_groups=6,
+    )
+    return _averages(agg)
+
+
+def q6(lineitem: Table, year: int = 1994, discount: float = 0.06, qty: float = 24.0):
+    """Forecasting revenue change: one filtered product-sum."""
+    lo = datagen.date(year)
+    hi = datagen.date(year + 1)
+    mask = ops.filter_mask(
+        lineitem,
+        lambda t: ops.pred_between(t["l_shipdate"], lo, hi),
+        lambda t: ops.pred_between(t["l_discount"], discount - 0.011, discount + 0.011),
+        lambda t: t["l_quantity"] < qty,
+    )
+    revenue = ops.masked_sum(lineitem["l_extendedprice"] * lineitem["l_discount"], mask)
+    return {"revenue": revenue, "rows": ops.masked_count(mask)}
+
+
+# Q12's shipmode IN-list, resolved against the dictionary order once so the
+# fused and unfused plans can't drift apart.
+Q12_SHIPMODES = tuple(datagen.SHIPMODE.index(m) for m in ("MAIL", "SHIP"))
+
+
+def q12(lineitem: Table, orders: Table, year: int = 1994):
+    """Shipping modes & order priority: join + grouped conditional counts."""
+    lo = datagen.date(year)
+    hi = datagen.date(year + 1)
+    joined = ops.fk_index_join(lineitem, "l_orderkey", orders, "o_orderkey", ("o_orderpriority",))
+    mask = ops.filter_mask(
+        joined,
+        lambda t: ops.pred_in(t["l_shipmode"], Q12_SHIPMODES),
+        lambda t: t["l_commitdate"] < t["l_receiptdate"],
+        lambda t: t["l_shipdate"] < t["l_commitdate"],
+        lambda t: ops.pred_between(t["l_receiptdate"], lo, hi),
+    )
+    high = (joined["o_orderpriority"] <= 1) & mask  # 1-URGENT, 2-HIGH
+    low = (joined["o_orderpriority"] > 1) & mask
+    return ops.group_aggregate(
+        joined["l_shipmode"],
+        {"high_line_count": high.to(torch.float32), "low_line_count": low.to(torch.float32)},
+        mask,
+        num_groups=len(datagen.SHIPMODE),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Fused variants: each query as one group_filter_agg pass.  The kernel
+# programs are built by per-query ``*_program`` functions so that constants
+# can also be stacked into batch inputs for the scan-sharing serving path
+# (``fused_query_batch``).
+def q1_program(delta_days: float = 90.0):
+    """Q1's kernel program: (pred_ops, pred_consts, agg_ops, agg_consts)."""
+    cutoff = datagen.date(1998, 12, 1) - delta_days
+    pred = encode_predicates([("range", 0, None, _le_bound(cutoff))])  # shipdate <= cutoff
+    agg = encode_aggregates(
+        [
+            [("col", 1)],  # sum_qty
+            [("col", 2)],  # sum_base_price
+            [("col", 2), ("one_minus", 3)],  # sum_disc_price
+            [("col", 2), ("one_minus", 3), ("one_plus", 4)],  # sum_charge
+            [("col", 3)],  # sum_disc
+        ]
+    )
+    return (*pred, *agg)
+
+
+def _q1_layout(lineitem: Table) -> tuple[torch.Tensor, torch.Tensor]:
+    cols = torch.stack(
+        [
+            lineitem["l_shipdate"],  # 0: predicate
+            lineitem["l_quantity"],  # 1
+            lineitem["l_extendedprice"],  # 2
+            lineitem["l_discount"],  # 3
+            lineitem["l_tax"],  # 4
+        ]
+    )
+    keys = lineitem["l_returnflag"] * 2 + lineitem["l_linestatus"]
+    return cols, keys
+
+
+def _q1_demux(out: torch.Tensor) -> dict[str, torch.Tensor]:
+    """Q1 result dict from one [6, 6] kernel output row-block."""
+    agg = {
+        "sum_qty": out[:, 0],
+        "sum_base_price": out[:, 1],
+        "sum_disc_price": out[:, 2],
+        "sum_charge": out[:, 3],
+        "sum_disc": out[:, 4],
+        "count": out[:, 5],
+    }
+    return _averages(agg)
+
+
+def q1_fused(lineitem: Table, delta_days: float = 90.0, use_kernel: bool = True) -> dict[str, torch.Tensor]:
+    """Q1 as a single kernel pass: 6 groups x 5 aggregates + count, with
+    disc_price/charge evaluated in-register by the term program."""
+    cols, keys = _q1_layout(lineitem)
+    pred_ops, pred_consts, agg_ops, agg_consts = q1_program(delta_days)
+    out = kops.group_filter_agg(
+        cols, keys, pred_ops, pred_consts, agg_ops, agg_consts,
+        num_groups=6, use_kernel=use_kernel,
+    )
+    return _q1_demux(out)
+
+
+def q6_program(year: int = 1994, discount: float = 0.06, qty: float = 24.0):
+    """Q6's kernel program: three range predicates + one product-sum."""
+    lo = datagen.date(year)
+    hi = datagen.date(year + 1)
+    pred = encode_predicates(
+        [
+            ("range", 0, lo, hi),
+            ("range", 1, discount - 0.011, discount + 0.011),
+            ("range", 2, None, qty),  # quantity < qty
+        ]
+    )
+    agg = encode_aggregates([[("col", 3), ("col", 1)]])
+    return (*pred, *agg)
+
+
+def _q6_layout(lineitem: Table) -> tuple[torch.Tensor, torch.Tensor]:
+    cols = torch.stack(
+        [
+            lineitem["l_shipdate"],  # 0
+            lineitem["l_discount"],  # 1
+            lineitem["l_quantity"],  # 2
+            lineitem["l_extendedprice"],  # 3
+        ]
+    )
+    keys = torch.zeros(lineitem.num_rows, dtype=torch.int32, device=cols.device)
+    return cols, keys
+
+
+def _q6_demux(out: torch.Tensor) -> dict[str, torch.Tensor]:
+    return {"revenue": out[0, 0], "rows": out[0, 1].to(torch.int32)}
+
+
+def q6_fused(
+    lineitem: Table,
+    year: int = 1994,
+    discount: float = 0.06,
+    qty: float = 24.0,
+    use_kernel: bool = True,
+):
+    """Q6 as a 1-group program: three range predicates + one product-sum;
+    the row count matches ``q6`` exactly."""
+    cols, keys = _q6_layout(lineitem)
+    pred_ops, pred_consts, agg_ops, agg_consts = q6_program(year, discount, qty)
+    out = kops.group_filter_agg(
+        cols, keys, pred_ops, pred_consts, agg_ops, agg_consts,
+        num_groups=1, use_kernel=use_kernel,
+    )
+    return _q6_demux(out)
+
+
+def q12_program(year: int = 1994):
+    """Q12's kernel program over the joined layout."""
+    lo = datagen.date(year)
+    hi = datagen.date(year + 1)
+    pred = encode_predicates(
+        [
+            ("lt", 0, 1),  # commitdate < receiptdate
+            ("lt", 2, 0),  # shipdate < commitdate
+            ("range", 1, lo, hi),  # receiptdate in the year window
+        ]
+    )
+    agg = encode_aggregates(
+        [
+            [("le", 3, 1.0)],  # high priority: 1-URGENT, 2-HIGH
+            [("gt", 3, 1.0)],  # low priority
+        ]
+    )
+    return (*pred, *agg)
+
+
+def _q12_layout(lineitem: Table, orders: Table) -> tuple[torch.Tensor, torch.Tensor]:
+    """Join once; the join does not depend on the predicate constants, so
+    the serving path amortizes it across every request of the batch."""
+    joined = ops.fk_index_join(lineitem, "l_orderkey", orders, "o_orderkey", ("o_orderpriority",))
+    cols = torch.stack(
+        [
+            joined["l_commitdate"],  # 0
+            joined["l_receiptdate"],  # 1
+            joined["l_shipdate"],  # 2
+            joined["o_orderpriority"].to(torch.float32),  # 3
+        ]
+    )
+    return cols, joined["l_shipmode"]
+
+
+def _q12_demux(out: torch.Tensor) -> dict[str, torch.Tensor]:
+    sel = torch.zeros(len(datagen.SHIPMODE), dtype=torch.float32, device=out.device)
+    sel[list(Q12_SHIPMODES)] = 1.0
+    return {
+        "high_line_count": out[:, 0] * sel,
+        "low_line_count": out[:, 1] * sel,
+        "count": out[:, 2] * sel,
+    }
+
+
+def q12_fused(lineitem: Table, orders: Table, year: int = 1994, use_kernel: bool = True):
+    """Q12 as join-gather + one kernel pass over all 7 shipmode groups.
+
+    The ``shipmode IN (MAIL, SHIP)`` predicate selects groups of the full
+    grouped result, so it becomes a post-kernel group mask instead of a row
+    predicate — counts stay integer-exact.
+    """
+    cols, keys = _q12_layout(lineitem, orders)
+    pred_ops, pred_consts, agg_ops, agg_consts = q12_program(year)
+    out = kops.group_filter_agg(
+        cols, keys, pred_ops, pred_consts, agg_ops, agg_consts,
+        num_groups=len(datagen.SHIPMODE), use_kernel=use_kernel,
+    )
+    return _q12_demux(out)
+
+
+QUERIES = {"q1": q1, "q6": q6, "q12": q12}
+FUSED_QUERIES = {"q1": q1_fused, "q6": q6_fused, "q12": q12_fused}
+
+
+# ---------------------------------------------------------------------------
+# Serving plans: the query-shape contract behind scan-sharing micro-batches.
+@dataclasses.dataclass(frozen=True)
+class ServingPlan:
+    """One query shape, ready to serve requests whose constants arrive at
+    run time.
+
+    ``cols``/``keys`` are the parameter-independent column layout (for Q12
+    including the join, computed once); ``pred_ops``/``agg_ops`` the shared
+    opcode structure; ``program(params)`` builds one request's constant
+    tables; ``demux(out)`` turns one ``[G, A + 1]`` kernel output slot back
+    into the query's result dict.
+    """
+
+    name: str
+    cols: torch.Tensor
+    keys: torch.Tensor
+    pred_ops: torch.Tensor
+    agg_ops: torch.Tensor
+    num_groups: int
+    program: Callable[[dict[str, Any]], tuple[torch.Tensor, torch.Tensor]]
+    demux: Callable[[torch.Tensor], dict[str, torch.Tensor]]
+
+
+def _plan_program(program_fn) -> Callable[[dict[str, Any]], tuple[torch.Tensor, torch.Tensor]]:
+    def consts(params: dict[str, Any]) -> tuple[torch.Tensor, torch.Tensor]:
+        _, pred_consts, _, agg_consts = program_fn(**params)
+        return pred_consts, agg_consts
+
+    return consts
+
+
+def make_serving_plans(lineitem: Table, orders: Table | None = None) -> dict[str, ServingPlan]:
+    """Serving plans for every fused query servable over these tables.
+
+    Q12 needs ``orders`` for its join; without it only Q1/Q6 are planned.
+    """
+    specs: list[tuple[str, tuple[torch.Tensor, torch.Tensor], Any, int, Any]] = [
+        ("q1", _q1_layout(lineitem), q1_program, 6, _q1_demux),
+        ("q6", _q6_layout(lineitem), q6_program, 1, _q6_demux),
+    ]
+    if orders is not None:
+        specs.append(
+            ("q12", _q12_layout(lineitem, orders), q12_program, len(datagen.SHIPMODE), _q12_demux)
+        )
+    plans: dict[str, ServingPlan] = {}
+    for name, (cols, keys), program_fn, num_groups, demux in specs:
+        pred_ops, _, agg_ops, _ = program_fn()
+        plans[name] = ServingPlan(
+            name=name,
+            cols=cols,
+            keys=keys,
+            pred_ops=pred_ops,
+            agg_ops=agg_ops,
+            num_groups=num_groups,
+            program=_plan_program(program_fn),
+            demux=demux,
+        )
+    return plans
+
+
+def fused_query_serial(
+    plan: ServingPlan, params: dict[str, Any], *, use_kernel: bool = True
+) -> dict[str, torch.Tensor]:
+    """One request through the single-program kernel — the serving oracle."""
+    pred_consts, agg_consts = plan.program(params)
+    out = kops.group_filter_agg(
+        plan.cols, plan.keys, plan.pred_ops, pred_consts, plan.agg_ops, agg_consts,
+        num_groups=plan.num_groups, use_kernel=use_kernel,
+    )
+    return plan.demux(out)
+
+
+def fused_query_batch(
+    plan: ServingPlan, param_list: list[dict[str, Any]], *, use_kernel: bool = True
+) -> list[dict[str, torch.Tensor]]:
+    """Scan sharing: N same-shape requests, ONE kernel pass over the data.
+
+    Results demultiplex per request and are bit-equal to
+    ``fused_query_serial`` on the same constants.
+    """
+    consts = [plan.program(p) for p in param_list]
+    pred_consts = torch.stack([c[0] for c in consts])
+    agg_consts = torch.stack([c[1] for c in consts])
+    out = kops.group_filter_agg_multi(
+        plan.cols, plan.keys, plan.pred_ops, pred_consts, plan.agg_ops, agg_consts,
+        num_groups=plan.num_groups, use_kernel=use_kernel,
+    )
+    return [plan.demux(out[b]) for b in range(len(param_list))]

@@ -1,0 +1,102 @@
+"""Build the port's CUDA sources and load them through ``ctypes``.
+
+Each ``csrc/<name>.cu`` is compiled at first use with ``nvcc`` for Hopper
+(``sm_90a``) into a shared library with a plain C interface, under
+``build/repro_torch/`` at the root of the checkout.  The library's file name
+carries the source's content hash, so a source is rebuilt only when it
+changes.  PyTorch's own extension builder is not used: a source that includes
+PyTorch's headers takes minutes to compile, a plain C interface seconds.
+
+Nothing here runs at import time; :func:`load` builds on demand.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_LOCK = threading.Lock()
+_LOADED: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """The ``nvcc`` on PATH, else the one under ``$CUDA_HOME`` or /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.is_file():
+        return str(candidate)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` lives for the source as it is now."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def nvcc_command(name: str, out: Path) -> list[str]:
+    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
+
+
+def start_build(name: str) -> subprocess.Popen | None:
+    """Start compiling ``name`` unless its library is up to date; returns the process."""
+    out = library_path(name)
+    if out.is_file():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.Popen(
+        nvcc_command(name, tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    )
+    proc.tmp_path = tmp  # type: ignore[attr-defined]
+    proc.out_path = out  # type: ignore[attr-defined]
+    return proc
+
+
+def finish_build(proc: subprocess.Popen | None) -> str:
+    """Wait for a build from :func:`start_build`; returns nvcc's output, raises on failure."""
+    if proc is None:
+        return ""
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    os.replace(proc.tmp_path, proc.out_path)  # type: ignore[attr-defined]
+    return log
+
+
+def build_all() -> dict[str, str]:
+    """Compile every source of ``csrc/`` that is not up to date, in parallel.
+
+    Returns ``{name: nvcc output}``; the output holds ptxas's register and
+    shared-memory report for each kernel.
+    """
+    procs = {name: start_build(name) for name in sorted(p.stem for p in CSRC.glob("*.cu"))}
+    return {name: finish_build(proc) for name, proc in procs.items()}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            finish_build(start_build(name))
+            lib = ctypes.CDLL(str(library_path(name)))
+            _LOADED[name] = lib
+        return lib

@@ -1,0 +1,83 @@
+"""Plain PyTorch versions of the port's kernels.
+
+The CPU tests run these, and ``chip_smoke.py`` holds each CUDA kernel against
+them on the card.  They repeat the kernels' arithmetic, not their speed.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _program_mask(cols: torch.Tensor, pred_ops: torch.Tensor, pred_consts: torch.Tensor) -> torch.Tensor:
+    """Row mask [N] from a group_filter_agg predicate program."""
+    mask = torch.ones(cols.shape[1], dtype=torch.bool, device=cols.device)
+    consts = pred_consts.to(cols.device, torch.float32)
+    for k, (kind, a, b) in enumerate(pred_ops.tolist()):
+        ca, lo, hi = cols[a], consts[k, 0], consts[k, 1]
+        mask &= ((ca >= lo) & (ca < hi)) if kind == 0 else (ca < cols[b])
+    return mask
+
+
+def _term(mode: int, c: torch.Tensor, const: torch.Tensor) -> torch.Tensor | float:
+    if mode == 1:
+        return c
+    if mode == 2:
+        return 1.0 - c
+    if mode == 3:
+        return 1.0 + c
+    if mode == 4:
+        return (c <= const).to(torch.float32)
+    if mode == 5:
+        return (c > const).to(torch.float32)
+    return 1.0
+
+
+def _program_values(cols: torch.Tensor, agg_ops: torch.Tensor, agg_consts: torch.Tensor) -> torch.Tensor:
+    """Per-row aggregate values [A, N] from a group_filter_agg term program."""
+    consts = agg_consts.to(cols.device, torch.float32)
+    vals = []
+    for a, row in enumerate(agg_ops.tolist()):
+        v = torch.ones(cols.shape[1], dtype=torch.float32, device=cols.device)
+        for t in range(consts.shape[1]):
+            v = v * _term(row[2 * t], cols[row[2 * t + 1]].to(torch.float32), consts[a, t])
+        vals.append(v)
+    return torch.stack(vals)
+
+
+def group_filter_agg_ref(
+    cols: torch.Tensor,  # [C, N] f32
+    keys: torch.Tensor,  # [1, N] or [N] i32 group ids (outside [0, G) = dropped)
+    pred_ops: torch.Tensor,  # [K, 3] i32
+    pred_consts: torch.Tensor,  # [K, 2] f32
+    agg_ops: torch.Tensor,  # [A, 2*MAX_TERMS] i32
+    agg_consts: torch.Tensor,  # [A, MAX_TERMS] f32
+    num_groups: int,
+) -> torch.Tensor:
+    """Grouped filter+aggregate.  Returns [G, A + 1] f32: per-group masked
+    aggregate sums, then the masked row count."""
+    keys = keys.reshape(-1)
+    w = _program_mask(cols, pred_ops, pred_consts).to(torch.float32)
+    # Out-of-range keys contribute nothing.
+    w = w * ((keys >= 0) & (keys < num_groups)).to(torch.float32)
+    seg = keys.clamp(0, num_groups - 1).long()
+    vals = _program_values(cols, agg_ops, agg_consts)
+    zeros = torch.zeros(num_groups, dtype=torch.float32, device=cols.device)
+    parts = [zeros.clone().index_add_(0, seg, vals[a] * w) for a in range(vals.shape[0])]
+    parts.append(zeros.clone().index_add_(0, seg, w))
+    return torch.stack(parts, dim=1)
+
+
+def group_filter_agg_multi_ref(
+    cols: torch.Tensor,  # [C, N] f32
+    keys: torch.Tensor,  # [1, N] or [N] i32
+    pred_ops: torch.Tensor,  # [K, 3] i32, shared across programs
+    pred_consts: torch.Tensor,  # [B, K, 2] f32 per-program constants
+    agg_ops: torch.Tensor,  # [A, 2*MAX_TERMS] i32, shared
+    agg_consts: torch.Tensor,  # [B, A, MAX_TERMS] f32 per-program constants
+    num_groups: int,
+) -> torch.Tensor:
+    """Per program slot, exactly the single-program version.  Returns [B, G, A + 1]."""
+    return torch.stack([
+        group_filter_agg_ref(cols, keys, pred_ops, pred_consts[b], agg_ops, agg_consts[b], num_groups)
+        for b in range(pred_consts.shape[0])
+    ])
