@@ -7,8 +7,10 @@ Run from the root of a checkout on a machine with one CUDA card:
 
 It builds every CUDA kernel of the port from ``src/repro_torch/csrc``, holds
 each kernel against its plain PyTorch version on the card, drives the main
-path (the ``dbms_torch`` and ``serving_torch`` tasks, then a ``QueryServer``
-over TPC-H scale factor 1 under open-loop load), and prints:
+paths (the ``dbms_torch`` and ``serving_torch`` tasks and a ``QueryServer``
+over TPC-H scale factor 1 under open-loop load; the whole ``pushdown_torch``
+parameter space, with its plans held to one another; the whole
+``accel_torch`` parameter space), and prints:
 
   * the card's name and power limit, as nvidia-smi reports them;
   * one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
@@ -38,11 +40,16 @@ SF1_ROWS = 6_001_215
 SUM_RTOL = 1e-4  # float sums, kernel vs the plain version summed in float64
 SUM_QTY_RTOL = 1e-6  # Q1 sum_qty (~25M per group, above 2^24): the same, tighter
 QUERY_RTOL = 1e-3  # fused vs unfused plans (benchmarks/query_smoke.py's bound)
+FILTER_RTOL = 2e-5  # filter_agg sums (tests/test_query_fusion.py's bound)
+# Kernel against plain version (tests/test_kernels.py's tolerances).
+ATTN_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (2e-2, 2e-2)}
+GMM_TOL = {torch.float32: (2e-4, 2e-3), torch.bfloat16: (3e-2, 0.5)}
 TIMING_REPS = 25
 TIMING_WARMUP = 5
 
 # Published H100-family peaks (NVIDIA data sheets): memory bytes/s and
-# float32 FLOP/s outside the tensor cores.
+# float32 FLOP/s outside the tensor cores (the only rates the kernels of
+# this script use: none of them takes the tensor cores).
 PEAKS = {
     "H100 PCIe": (2.0e12, 51e12),
     "H100 NVL": (3.9e12, 60e12),
@@ -234,6 +241,162 @@ def kernel_phase(plans, dev):
     return errs
 
 
+# K3-K6 against their plain versions.
+def compare_k3(label, cols, mask, cap):
+    """K3 and its plain version: torch.equal, exact count, a repeated launch equal."""
+    from repro_torch.kernels import ops as kops
+
+    got, cnt = kops.block_compact(cols, mask, cap)
+    want, wcnt = kops.block_compact(cols, mask, cap, use_kernel=False)
+    again, cnt2 = kops.block_compact(cols, mask, cap)
+    torch.cuda.synchronize()
+    total = int((mask.reshape(-1) != 0).sum())
+    check(cnt.dtype == torch.int32 and cnt.dim() == 0 and cnt.device == cols.device, f"k3 {label}: count tensor")
+    check(int(cnt) == int(wcnt) == int(cnt2) == total, f"k3 {label}: count {int(cnt)} != {total}")
+    check(torch.equal(got, want), f"k3 {label}: kernel != plain version")
+    check(torch.equal(got, again), f"k3 {label}: a repeated launch must give the same bits")
+    print(f"[k3] {label}: C={cols.shape[0]} N={cols.shape[1]} cap={cap} count={total} torch.equal, "
+          f"repeat equal", flush=True)
+    return float((got - want).abs().max())
+
+
+def k3_phase(tables, dev):
+    """K3 on the pushdown plan's data at every selectivity and cap, then edge
+    shapes; returns the max abs error at the main path's shape (sel 0.5)."""
+    from repro_torch.engine import ops
+    from repro_torch.kernels import ops as kops
+    from repro_torch.tasks.pushdown import SCANNED, _pred_bounds, capacity
+
+    table = tables["1.0"]
+    n = table.num_rows
+    cols = torch.stack([table[c] for c in sorted(SCANNED)])
+    for sel in (0.01, 0.1, 0.5):
+        lo, hi = _pred_bounds(sel)
+        mask = ops.pred_between(table["l_shipdate"], lo, hi)
+        count = int(mask.sum())
+        caps = [capacity(sel, n)]
+        if sel == 0.1:
+            caps += [count // 2, count + 1_000, 1, 1_529]
+        for cap in caps:
+            main_err = compare_k3(f"scale 1.0 sel {sel}", cols, mask, cap)  # last: sel 0.5, the task's cap
+    idx = torch.arange(n, device=dev)
+    compare_k3("empty mask", cols, torch.zeros(n, dtype=torch.bool, device=dev), 4_096)
+    compare_k3("all-pass mask, cap < N", cols, torch.ones(n, dtype=torch.int32, device=dev), 4_500_000)
+    compare_k3("all-pass mask, cap > N", cols, torch.ones(n, dtype=torch.float32, device=dev), n + 7)
+    compare_k3("alternating full/empty 2048-row tiles", cols, (idx // 2048) % 2 == 0, 3_100_000)
+    compare_k3("alternating 1000-row runs", cols, ((idx // 1000) % 2).to(torch.uint8), 2_000_000)
+    m = 1_024
+    zcols = torch.stack([torch.zeros(m, device=dev), torch.arange(m, dtype=torch.float32, device=dev)])
+    zmask = torch.arange(m, device=dev) % 3 == 0
+    compare_k3("zero-valued qualifying rows", zcols, zmask, int(zmask.sum()) + 16)
+    got, _ = kops.block_compact(zcols, zmask, 400)
+    check(float(got[1, 0]) == 0.0 and float(got[1, 1]) == 3.0 and float(got[0, 0]) == 0.0,
+          "k3: a zero-valued qualifying row keeps its slot")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    n2 = 100_003  # not a multiple of the kernel's tile
+    for c in (1, 4, 7):
+        rcols = torch.randn((c, n2), generator=gen, device=dev)
+        rmask = torch.rand(n2, generator=gen, device=dev) < 0.3
+        compare_k3(f"ragged N, C={c}", rcols, rmask.reshape(1, -1), 40_000)
+        compare_k3(f"ragged N, C={c}, overflow", rcols, rmask, 5_000)
+    return main_err
+
+
+def filter64(cols, lo, hi, lo2, hi2):
+    """The plain version's per-row products, summed in float64, and the count."""
+    c0, c1, c2, c3 = cols
+    mask = (c0 >= lo) & (c0 < hi) & (c1 >= lo2) & (c1 < hi2)
+    return float(torch.where(mask, c2 * c3, 0.0).double().sum()), int(mask.sum())
+
+
+def compare_k4(label, cols, lo, hi, lo2, hi2):
+    from repro_torch.kernels import ops as kops
+
+    got = kops.filter_agg(cols, lo, hi, lo2, hi2)
+    again = kops.filter_agg(cols, lo, hi, lo2, hi2)
+    plain = kops.filter_agg(cols, lo, hi, lo2, hi2, use_kernel=False)
+    s64, n64 = filter64(cols, lo, hi, lo2, hi2)
+    check(got.shape == (2,) and got.dtype == torch.float32 and bool(torch.isfinite(got).all()), f"k4 {label}: shape")
+    check(torch.equal(got, again), f"k4 {label}: a repeated launch must give the same bits")
+    check(int(got[1]) == n64 == int(plain[1]), f"k4 {label}: count {float(got[1])} != {n64}")
+    err = abs(float(got[0]) - s64)
+    rel, plain_rel = (x / max(abs(s64), 1e-30) for x in (err, abs(float(plain[0]) - s64)))
+    check(rel <= FILTER_RTOL, f"k4 {label}: sum rel err {rel} > {FILTER_RTOL}")
+    print(f"[k4] {label}: N={cols.shape[1]} count {n64} exact, sum rel err {rel:.3g} "
+          f"(plain f32 {plain_rel:.3g}), repeat equal", flush=True)
+    return err
+
+
+def k4_phase(tables, dev):
+    """K4 on the fused plan's columns at every selectivity, then ragged and
+    empty; returns the max abs error at the main path's shape (sel 0.5)."""
+    from repro_torch.tasks.pushdown import _pred_bounds, kernel_scan_columns
+
+    colmat = kernel_scan_columns(tables["1.0"])
+    for sel in (0.01, 0.1, 0.5):
+        lo, hi = _pred_bounds(sel)
+        main_err = compare_k4(f"scale 1.0 sel {sel}", colmat, lo, hi, -1.0, 1.0)  # last: sel 0.5
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for n in (100_003, 1_001, 5):
+        compare_k4(f"uniform ragged N={n}", torch.rand((4, n), generator=gen, device=dev), 0.2, 0.8, 0.1, 0.9)
+    compare_k4("empty", torch.rand((4, 4_096), generator=gen, device=dev), 2.0, 1.0, 0.0, 1.0)
+    return main_err
+
+
+def close(label, got, want, rtol, atol):
+    """numpy's allclose on the card; returns the max absolute error."""
+    check(got.shape == want.shape and got.dtype == want.dtype, f"{label}: shape/dtype")
+    g, w = got.float(), want.float()
+    check(bool(torch.isfinite(g).all()), f"{label}: non-finite output")
+    excess = float(((g - w).abs() - (atol + rtol * w.abs())).max())
+    check(excess <= 0.0, f"{label}: outside rtol {rtol} / atol {atol} by {excess}")
+    return float((g - w).abs().max())
+
+
+def compare_k5(label, e, c, d, f, dtype, gen, dev):
+    from repro_torch.kernels import ops as kops
+
+    lhs = torch.randn((e, c, d), generator=gen, device=dev).to(dtype)
+    rhs = torch.randn((e, d, f), generator=gen, device=dev).to(dtype)
+    err = close(f"k5 {label}", kops.gmm(lhs, rhs), kops.gmm(lhs, rhs, use_kernel=False), *GMM_TOL[dtype])
+    print(f"[k5] {label}: E={e} C={c} d={d} f={f} {dtype} max_abs_err {err:.3g}", flush=True)
+    return err
+
+
+def compare_k6(label, b, sq, sk, hq, hkv, dh, dtype, causal, gen, dev):
+    from repro_torch.kernels import ops as kops
+
+    q = torch.randn((b, sq, hq, dh), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, sk, hkv, dh), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, sk, hkv, dh), generator=gen, device=dev).to(dtype)
+    got = kops.flash_attention(q, k, v, causal=causal)
+    err = close(f"k6 {label}", got, kops.flash_attention(q, k, v, causal=causal, use_kernel=False), *ATTN_TOL[dtype])
+    print(f"[k6] {label}: B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} dh={dh} {dtype} causal={causal} "
+          f"max_abs_err {err:.3g}", flush=True)
+    return err
+
+
+def k5_k6_phase(dev):
+    """K5 and K6 at accel_torch's sizes, the reference's sweep shapes and ragged shapes."""
+    from repro_torch.tasks.plugins.accel import _SIZES
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    errs = {}
+    f32, bf16 = torch.float32, torch.bfloat16
+    for size, s in _SIZES.items():
+        errs[f"gmm_{size}"] = compare_k5(f"accel {size}", 4, s, 256, 256, f32, gen, dev)
+        errs[f"attn_{size}"] = compare_k6(f"accel {size}", 1, s, s, 4, 2, 64, f32, True, gen, dev)
+    for dtype in (f32, bf16):
+        for e, c, d, f in [(2, 128, 128, 128), (4, 256, 512, 256), (8, 128, 256, 384), (3, 100, 72, 136)]:
+            compare_k5("sweep" if c != 100 else "ragged", e, c, d, f, dtype, gen, dev)
+        for b, s, hq, hkv, dh in [(1, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 512, 4, 1, 128),
+                                  (2, 256, 6, 2, 32), (2, 300, 6, 2, 64), (1, 300, 4, 2, 128)]:
+            compare_k6("sweep" if s != 300 else "ragged", b, s, s, hq, hkv, dh, dtype, True, gen, dev)
+        compare_k6("non-causal", 2, 128, 256, 4, 2, 64, dtype, False, gen, dev)
+        compare_k6("non-causal ragged", 2, 100, 300, 6, 3, 32, dtype, False, gen, dev)
+    return errs
+
+
 # ---------------------------------------------------------------------------
 # Main path.
 def dbms_phase(dev):
@@ -357,6 +520,73 @@ def verify_server(plans, trace, report):
     print(f"[server] {checked} shared-scan results + 8 of a full batch torch.equal to serial", flush=True)
 
 
+def pushdown_phase(task, ctx):
+    """The whole pushdown_torch parameter space (54 points)."""
+    rows = []
+    space = task.param_space
+    for scale in space["scale"]:
+        for sel in space["selectivity"]:
+            for plan in space["plan"]:
+                for impl in space["impl"]:
+                    params = {"scale": scale, "selectivity": sel, "plan": plan, "impl": impl}
+                    m = task.execute_test(ctx, params).metrics
+                    check(m["items_per_s"] > 0 and m["moved_bytes"] >= m["moved_bytes_exact"] > 0,
+                          f"pushdown_torch {params}: {m}")
+                    rows.append(f"{scale}/{sel}/{plan}/{impl}={m['items_per_s']:.4g}")
+    check(len(rows) == 54, f"pushdown_torch ran {len(rows)} points")
+    print(f"[pushdown_torch] {len(rows)} points, rows/s " + " ".join(rows), flush=True)
+
+
+def pushdown_plans_agree(tables):
+    """At each (scale, selectivity): every plan counts the same rows, the two
+    compact routes give equal tables and the fused sum is within 2e-5 of the
+    baseline's (tests/test_query_fusion.py's checks)."""
+    from repro_torch.engine import ops
+    from repro_torch.tasks.pushdown import SCANNED, _pred_bounds, capacity, make_plan
+
+    for scale, table in tables.items():
+        for sel in (0.01, 0.1, 0.5):
+            base_sum, base_cnt = make_plan(table, "baseline", sel, False)()
+            pt_sum, pt_cnt = make_plan(table, "pushdown", sel, False)()
+            pk_sum, pk_cnt = make_plan(table, "pushdown", sel, True)()
+            fused_sum, fused_cnt = make_plan(table, "pushdown_kernel", sel, True)()
+            counts = [int(base_cnt), int(pt_cnt), int(pk_cnt), int(fused_cnt)]
+            check(len(set(counts)) == 1, f"pushdown {scale}/{sel}: plan counts differ {counts}")
+            check(torch.equal(pt_sum, pk_sum), f"pushdown {scale}/{sel}: compact routes' sums differ")
+            e = abs(float(fused_sum) - float(base_sum)) / abs(float(base_sum))
+            check(e <= FILTER_RTOL, f"pushdown {scale}/{sel}: fused sum rel err {e} > {FILTER_RTOL}")
+            lo, hi = _pred_bounds(sel)
+            scanned = table.select(*SCANNED)
+            mask = ops.pred_between(scanned["l_shipdate"], lo, hi)
+            cap = capacity(sel, table.num_rows)
+            out_t, cnt_t = ops.compact(scanned, mask, cap)
+            out_k, cnt_k = ops.compact(scanned, mask, cap, use_kernel=True)
+            check(int(cnt_t) == int(cnt_k) == counts[0], f"pushdown {scale}/{sel}: compact counts")
+            for name in SCANNED:
+                check(torch.equal(out_t[name], out_k[name]), f"pushdown {scale}/{sel}: compact {name} differs")
+            print(f"[pushdown] scale {scale} sel {sel}: count {counts[0]} in all four plans, compact routes "
+                  f"torch.equal, fused sum rel err {e:.3g}", flush=True)
+
+
+def accel_phase(dev):
+    """The whole accel_torch parameter space (18 points)."""
+    from repro_torch.core.task import TaskContext
+    from repro_torch.tasks import TASKS
+
+    task = TASKS["accel_torch"]()
+    ctx = TaskContext(iters=5, warmup=2, device=dev)
+    rows = []
+    space = task.param_space
+    for wl in space["workload"]:
+        for size in space["size"]:
+            for impl in space["impl"]:
+                m = task.execute_test(ctx, {"workload": wl, "size": size, "impl": impl}).metrics
+                check(m["ops_per_s"] > 0 and m["avg_latency_us"] > 0, f"accel_torch {wl}/{size}/{impl}: {m}")
+                rows.append(f"{wl}/{size}/{impl}={m['ops_per_s']:.4g}ops/s,{m['avg_latency_us']:.1f}us")
+    check(len(rows) == 18, f"accel_torch ran {len(rows)} points")
+    print(f"[accel_torch] {len(rows)} points " + " ".join(rows), flush=True)
+
+
 # ---------------------------------------------------------------------------
 # Times and bounds.
 def compares_per_row(pred_ops) -> int:
@@ -437,27 +667,123 @@ def per_query_times(plans):
     return out
 
 
+def new_kernel_entries(tables, name, launches, errs):
+    """K3-K6 at the main path's shapes: pushdown scale 1.0, selectivity 0.5
+    for K3 and K4, accel_torch large (f32) for K5 and K6."""
+    from repro_torch.engine import ops
+    from repro_torch.kernels import ops as kops
+    from repro_torch.tasks.plugins.accel import _SIZES
+    from repro_torch.tasks.pushdown import SCANNED, _pred_bounds, capacity, kernel_scan_columns
+
+    bw, flops = peaks(name)
+    dev = "cuda"
+
+    def per_call(kname, fn):
+        kops.reset_launches()
+        fn()
+        return kops.LAUNCHES[kname]
+
+    def entry(kname, replaces, run, run_plain, nbytes, nops, err, library, shape):
+        bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * nops / flops
+        return {
+            "name": kname,
+            "route": "cuda",
+            "source": f"src/repro_torch/csrc/{kname}.cu",
+            "replaces": replaces,
+            "launches": launches[kname],
+            "launches_per_call": per_call(kname, run),
+            "max_abs_err": err,
+            "ms": time_ms(run),
+            "plain_ms": time_ms(run_plain, reps=20, warmup=2),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None if library is None else time_ms(library),
+            "shape": shape,
+        }
+
+    sel = 0.5
+    table = tables["1.0"]
+    n = table.num_rows
+    lo, hi = _pred_bounds(sel)
+    scanned = table.select(*SCANNED)
+    cols = torch.stack([scanned[c] for c in scanned.names])
+    mask = ops.pred_between(table["l_shipdate"], lo, hi)
+    cap = capacity(sel, n)
+    c = cols.shape[0]
+    k3 = lambda: kops.block_compact(cols, mask, cap)  # noqa: E731
+    k3p = lambda: kops.block_compact(cols, mask, cap, use_kernel=False)  # noqa: E731
+    colmat = kernel_scan_columns(table)
+    k4 = lambda: kops.filter_agg(colmat, lo, hi, -1.0, 1.0)  # noqa: E731
+    k4p = lambda: kops.filter_agg(colmat, lo, hi, -1.0, 1.0, use_kernel=False)  # noqa: E731
+    passing = int(k4()[1])
+
+    s = _SIZES["large"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    e, d, f = 4, 256, 256
+    lhs = torch.randn((e, s, d), generator=gen, device=dev)
+    rhs = torch.randn((e, d, f), generator=gen, device=dev)
+    k5 = lambda: kops.gmm(lhs, rhs)  # noqa: E731
+    k5p = lambda: kops.gmm(lhs, rhs, use_kernel=False)  # noqa: E731
+    k5lib = lambda: torch.bmm(lhs, rhs)  # noqa: E731
+    b, hq, hkv, dh = 1, 4, 2, 64
+    q = torch.randn((b, s, hq, dh), generator=gen, device=dev)
+    k = torch.randn((b, s, hkv, dh), generator=gen, device=dev)
+    v = torch.randn((b, s, hkv, dh), generator=gen, device=dev)
+    k6 = lambda: kops.flash_attention(q, k, v, causal=True)  # noqa: E731
+    k6p = lambda: kops.flash_attention(q, k, v, causal=True, use_kernel=False)  # noqa: E731
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))  # SDPA's [B, H, S, dh]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    k6lib = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)  # noqa: E731
+    lib_err = float((k6lib().transpose(1, 2) - k6()).abs().max())
+    print(f"[times] sdpa vs flash_attention kernel at accel large: max_abs_err {lib_err:.3g}", flush=True)
+
+    compact_t = time_ms(lambda: ops.compact(scanned, mask, cap))
+    compact_k = time_ms(lambda: ops.compact(scanned, mask, cap, use_kernel=True))
+    print(f"[times] compact at scale 1.0 sel 0.5 (cap {cap}): nonzero+gather route {compact_t:.4f} ms, "
+          f"block_compact route {compact_k:.4f} ms", flush=True)
+
+    visible_pairs = b * hq * s * (s + 1) // 2
+    return [
+        entry("block_compact", "src/repro/kernels/block_compact.py:113", k3, k3p,
+              n + c * n * 4 + c * cap * 4 + 4, 0, errs["k3"], None,
+              f"pushdown scale 1.0 sel 0.5: C={c} N={n} cap={cap}"),
+        entry("filter_agg", "src/repro/kernels/filter_scan.py:45", k4, k4p,
+              16 * n + 8, 4 * n + 2 * passing, errs["k4"], None,
+              f"pushdown scale 1.0 sel 0.5: [4, {n}] f32, {passing} rows pass"),
+        entry("gmm", "src/repro/kernels/moe_gmm.py:43", k5, k5p,
+              4 * (e * s * d + e * d * f + e * s * f), 2 * e * s * d * f, errs["gmm_large"], k5lib,
+              f"accel large: E={e} C={s} d={d} f={f} f32"),
+        entry("flash_attention", "src/repro/kernels/flash_attention.py:76", k6, k6p,
+              4 * (q.numel() + k.numel() + v.numel() + q.numel()), 4 * dh * visible_pairs, errs["attn_large"],
+              k6lib, f"accel large: B={b} S={s} Hq={hq} Hkv={hkv} dh={dh} f32 causal"),
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
         return 1
+    from repro_torch.core.task import TaskContext
     from repro_torch.engine import datagen, queries
     from repro_torch.kernels import build
     from repro_torch.kernels import ops as kops
+    from repro_torch.tasks import TASKS
 
     t_start = time.perf_counter()
     dev = "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False  # gmm's plain version and torch.bmm in full f32
     card = card_line()
     name = torch.cuda.get_device_name(0)
     print(f"[card] {card}", flush=True)
-    print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
+          f"allow_tf32 {torch.backends.cuda.matmul.allow_tf32}", flush=True)
 
     t0 = time.perf_counter()
     logs = build.build_all()
     print(f"[build] {len(logs)} source(s) in {time.perf_counter() - t0:.2f}s", flush=True)
     for src, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"[build] {src}: {line.strip()}", flush=True)
 
     t0 = time.perf_counter()
@@ -465,25 +791,48 @@ def main() -> int:
     li = datagen.lineitem(gen, scale=1.0, device=dev)
     od = datagen.orders(gen, scale=1.0, device=dev)
     plans = queries.make_serving_plans(li, od)
+    pd_task = TASKS["pushdown_torch"]()
+    pd_ctx = TaskContext(iters=5, warmup=2, device=dev)
+    pd_task.prepare(pd_ctx)
     torch.cuda.synchronize()
     check(li.num_rows == SF1_ROWS and od.num_rows == 1_500_000, "SF 1 table sizes")
     print(f"[data] sf1 lineitem {li.num_rows} rows, orders {od.num_rows} rows, "
-          f"{(li.nbytes() + od.nbytes()) / 1e6:.1f} MB on the card in {time.perf_counter() - t0:.2f}s", flush=True)
+          f"{(li.nbytes() + od.nbytes()) / 1e6:.1f} MB on the card; pushdown lineitem "
+          f"{ {k: t.num_rows for k, t in pd_ctx.scratch.items()} } rows; {time.perf_counter() - t0:.2f}s", flush=True)
 
     errs = kernel_phase(plans, dev)
+    errs["k3"] = k3_phase(pd_ctx.scratch, dev)
+    errs["k4"] = k4_phase(pd_ctx.scratch, dev)
+    errs.update(k5_k6_phase(dev))
 
-    # The main path, with every launch counter at 0 just before it.
-    kops.reset_launches()
-    dbms_phase(dev)
-    fused_vs_unfused(li, od)
-    serving_task_phase(dev)
-    trace, report, per_step = server_phase(plans)
-    launches = dict(kops.LAUNCHES)
-    print(f"[launches] main path: {json.dumps(launches)}", flush=True)
-    for kname, count in launches.items():
-        check(count > 0, f"{kname} was not launched on the main path")
+    # The main paths, each with every launch counter at 0 just before it.
+    path_kernels = {
+        "query": ("group_filter_agg", "group_filter_agg_multi"),
+        "pushdown": ("block_compact", "filter_agg"),
+        "accel": ("filter_agg", "gmm", "flash_attention"),
+    }
+    launches = dict.fromkeys(kops.LAUNCHES, 0)
+    for path, kernels in path_kernels.items():
+        kops.reset_launches()
+        if path == "query":
+            dbms_phase(dev)
+            fused_vs_unfused(li, od)
+            serving_task_phase(dev)
+            trace, report, per_step = server_phase(plans)
+        elif path == "pushdown":
+            pushdown_phase(pd_task, pd_ctx)
+        else:
+            accel_phase(dev)
+        counts = dict(kops.LAUNCHES)
+        print(f"[launches] {path} path: {json.dumps(counts)}", flush=True)
+        for kname in kernels:
+            check(counts[kname] > 0, f"{kname} was not launched on the {path} path")
+        for kname, count in counts.items():
+            launches[kname] += count
+    print(f"[launches] main paths: {json.dumps(launches)}", flush=True)
 
     verify_server(plans, trace, report)
+    pushdown_plans_agree(pd_ctx.scratch)
     per_query = {}
     kops.reset_launches()
     queries.q1_fused(li)
@@ -493,7 +842,9 @@ def main() -> int:
     per_query["group_filter_agg_multi"] = kops.LAUNCHES["group_filter_agg_multi"]
 
     entries = kernel_entries(plans, name, launches, per_query, per_step, errs)
+    entries += new_kernel_entries(pd_ctx.scratch, name, launches, errs)
     print(f"[times] per query at sf1 (ms): {json.dumps(per_query_times(plans))}", flush=True)
+    pd_task.clean(pd_ctx)
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)

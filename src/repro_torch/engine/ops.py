@@ -12,6 +12,7 @@ from typing import Callable
 import torch
 
 from repro_torch.engine.table import Table
+from repro_torch.kernels import ops as kops
 
 
 # ---------------------------------------------------------------------------
@@ -34,12 +35,27 @@ def filter_mask(table: Table, *preds: Callable[[Table], torch.Tensor]) -> torch.
     return mask
 
 
-def compact(table: Table, mask: torch.Tensor, max_rows: int) -> tuple[Table, torch.Tensor]:
-    """Gather qualifying rows into a fixed-size buffer (``nonzero`` + gather).
+def compact(
+    table: Table, mask: torch.Tensor, max_rows: int, use_kernel: bool = False
+) -> tuple[Table, torch.Tensor]:
+    """Gather qualifying rows into a fixed-size buffer.
 
     Rows beyond ``max_rows`` are dropped and the slots past the real count
-    are zero; returns (table, count).
+    are zero; returns (table, count).  This is the 'return qualified tuples'
+    half of predicate pushdown: the payload is ``max_rows``-bounded.
+
+    By default ``nonzero`` + one gather per column (``nonzero`` waits for
+    the card to learn its length).  ``use_kernel=True`` routes through
+    ``kernels.ops.block_compact`` (one kernel for all columns; the count
+    stays on the device).  Its column matrix is float32, so only 1-D
+    columns whose values are exact in f32 survive it: the caller selects
+    the scanned columns first, as the pushdown plan does.
     """
+    if use_kernel:
+        names = table.names
+        colmat = torch.stack([table[n].to(torch.float32) for n in names])
+        packed, cnt = kops.block_compact(colmat, mask, max_rows)
+        return Table({n: packed[i].to(table[n].dtype) for i, n in enumerate(names)}), cnt
     idx = torch.nonzero(mask.reshape(-1)).reshape(-1)[:max_rows]
     safe = torch.zeros(max_rows, dtype=torch.long, device=mask.device)
     safe[: idx.numel()] = idx

@@ -100,3 +100,25 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _LOADED[name] = lib
         return lib
+
+
+def bind(name: str, signatures: dict[str, tuple[list, object]]) -> ctypes.CDLL:
+    """:func:`load`, with ``{function: (argtypes, restype)}`` declared on first use.
+
+    Declare every pointer and the stream as ``ctypes.c_void_p``: an
+    undeclared argument goes through as a 32-bit int and cuts the pointer.
+    """
+    lib = load(name)
+    if not getattr(lib, "_bound", False):
+        for fn, (argtypes, restype) in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        lib._bound = True
+    return lib
+
+
+def check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:
+    """Raise when a launch returned a CUDA error (``<name>_error_string`` names it)."""
+    if err != 0:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({err})")

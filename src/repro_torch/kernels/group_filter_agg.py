@@ -113,20 +113,12 @@ def encode_aggregates(aggs) -> tuple[torch.Tensor, torch.Tensor]:
 
 # ---------------------------------------------------------------------------
 # Launch.
-def _lib() -> ctypes.CDLL:
-    lib = build.load("group_filter_agg")
-    if not getattr(lib, "_declared", False):
-        i64, i32, ptr = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
-        lib.group_filter_agg_blocks.argtypes = [i64, i64]
-        lib.group_filter_agg_blocks.restype = i64
-        lib.group_filter_agg_error_string.argtypes = [i32]
-        lib.group_filter_agg_error_string.restype = ctypes.c_char_p
-        lib.group_filter_agg_launch.argtypes = [
-            ptr, ptr, i64, ptr, i32, i32, i32, i32, ptr, i64, ptr, ptr,
-        ]
-        lib.group_filter_agg_launch.restype = i32
-        lib._declared = True
-    return lib
+_I64, _I32, _PTR = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
+_SIGNATURES = {
+    "group_filter_agg_blocks": ([_I64, _I64], _I64),
+    "group_filter_agg_error_string": ([_I32], ctypes.c_char_p),
+    "group_filter_agg_launch": ([_PTR, _PTR, _I64, _PTR, _I32, _I32, _I32, _I32, _PTR, _I64, _PTR, _PTR], _I32),
+}
 
 
 def check_program(
@@ -196,7 +188,7 @@ def launch(
         agg_consts.reshape(-1).view(torch.int32),
     ]).to(cols.device)
 
-    lib = _lib()
+    lib = build.bind("group_filter_agg", _SIGNATURES)
     slots = num_groups * (a + 1)
     blocks = int(lib.group_filter_agg_blocks(n, slots))
     partials = torch.empty(blocks * b * slots, dtype=torch.float32, device=cols.device)
@@ -206,7 +198,5 @@ def launch(
         cols.data_ptr(), keys.data_ptr(), n, prog.data_ptr(), k, a, num_groups, b,
         partials.data_ptr(), blocks, out.data_ptr(), stream,
     )
-    if err != 0:
-        msg = lib.group_filter_agg_error_string(err).decode()
-        raise RuntimeError(f"group_filter_agg launch failed: {msg} ({err})")
+    build.check_launch(lib, "group_filter_agg", err)
     return out

@@ -10,10 +10,15 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import block_compact as bc
+from repro_torch.kernels import filter_scan, moe_gmm, ref
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import group_filter_agg as gfa
 
-LAUNCHES: dict[str, int] = {"group_filter_agg": 0, "group_filter_agg_multi": 0}
+LAUNCHES: dict[str, int] = {
+    "group_filter_agg": 0, "group_filter_agg_multi": 0,
+    "block_compact": 0, "filter_agg": 0, "gmm": 0, "flash_attention": 0,
+}
 
 
 def reset_launches() -> None:
@@ -69,4 +74,62 @@ def group_filter_agg_multi(
         )
     out = gfa.launch(cols, keys, pred_ops, pred_consts, agg_ops, agg_consts, num_groups)
     LAUNCHES["group_filter_agg_multi"] += 1
+    return out
+
+
+def block_compact(
+    cols: torch.Tensor, mask: torch.Tensor, cap: int, *, use_kernel: bool = True
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Compact the rows of a [C, N] f32 block that ``mask`` selects.
+
+    ``mask`` is [N] or [1, N] of any type; nonzero selects a row.  Returns
+    (out [C, cap] f32, count 0-d int32): ``out[:, j]`` is the j-th
+    qualifying row for ``j < min(count, cap)`` and zero beyond; ``count`` is
+    the total number of qualifying rows.  The count stays on the device.
+    """
+    if not _route(cols, use_kernel):
+        return ref.block_compact_ref(cols, mask, cap)
+    out = bc.launch(cols, mask, cap)
+    LAUNCHES["block_compact"] += 1
+    return out
+
+
+def filter_agg(cols: torch.Tensor, lo, hi, lo2, hi2, *, use_kernel: bool = True) -> torch.Tensor:
+    """Fused filter+aggregate on a [4, N] f32 block (TPC-H Q6 pattern).
+
+    Returns [2] f32: (SUM(cols[2] * cols[3]), COUNT) over rows with
+    ``lo <= cols[0] < hi`` and ``lo2 <= cols[1] < hi2``.
+    """
+    if not _route(cols, use_kernel):
+        return ref.filter_agg_ref(cols, lo, hi, lo2, hi2)
+    out = filter_scan.launch(cols, lo, hi, lo2, hi2)
+    LAUNCHES["filter_agg"] += 1
+    return out
+
+
+def gmm(lhs: torch.Tensor, rhs: torch.Tensor, *, use_kernel: bool = True) -> torch.Tensor:
+    """Grouped matmul [E, C, d] x [E, d, f] -> [E, C, f]; f32 accumulator,
+    output in ``lhs.dtype``."""
+    if not _route(lhs, use_kernel):
+        return ref.gmm_ref(lhs, rhs)
+    out = moe_gmm.launch(lhs, rhs)
+    LAUNCHES["gmm"] += 1
+    return out
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, use_kernel: bool = True
+) -> torch.Tensor:
+    """GQA attention [B, Sq, Hq, dh] x [B, Sk, Hkv, dh]^2 -> [B, Sq, Hq, dh].
+
+    Causal attention needs Sq == Sk on every device, as the kernel does;
+    ``use_kernel=False`` takes the plain version, which also handles the
+    causal offset Sk - Sq.
+    """
+    if not _route(q, use_kernel):
+        if use_kernel:
+            fa.check_shapes(q, k, v, causal)
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+    out = fa.launch(q, k, v, causal)
+    LAUNCHES["flash_attention"] += 1
     return out

@@ -7,6 +7,10 @@ from __future__ import annotations
 
 import torch
 
+#: Score of a masked key in attention: large and finite, never -inf, so no
+#: softmax row turns NaN (the JAX package's value).
+NEG_INF = -1e30
+
 
 def _program_mask(cols: torch.Tensor, pred_ops: torch.Tensor, pred_consts: torch.Tensor) -> torch.Tensor:
     """Row mask [N] from a group_filter_agg predicate program."""
@@ -81,3 +85,56 @@ def group_filter_agg_multi_ref(
         group_filter_agg_ref(cols, keys, pred_ops, pred_consts[b], agg_ops, agg_consts[b], num_groups)
         for b in range(pred_consts.shape[0])
     ])
+
+
+def block_compact_ref(
+    cols: torch.Tensor,  # [C, N] f32
+    mask: torch.Tensor,  # [1, N] or [N]; nonzero selects the row
+    cap: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Compaction: (out [C, cap] holding the first min(count, cap) qualifying
+    rows in order, then zeros; the total count as a 0-d int32 tensor,
+    whatever ``cap`` is)."""
+    mask = mask.reshape(-1) != 0
+    idx = torch.nonzero(mask).reshape(-1)[:cap]
+    out = torch.zeros((cols.shape[0], cap), dtype=cols.dtype, device=cols.device)
+    out[:, : idx.numel()] = cols[:, idx]
+    return out, mask.sum(dtype=torch.int32)
+
+
+def filter_agg_ref(cols: torch.Tensor, lo, hi, lo2, hi2) -> torch.Tensor:
+    """TPC-H Q6 pattern on [4, N] f32: (SUM(cols[2] * cols[3]), COUNT) over
+    rows with lo <= cols[0] < hi and lo2 <= cols[1] < hi2.  Returns [2] f32."""
+    c0, c1, c2, c3 = cols
+    mask = (c0 >= lo) & (c0 < hi) & (c1 >= lo2) & (c1 < hi2)
+    s = torch.where(mask, c2.to(torch.float32) * c3.to(torch.float32), 0.0).sum()
+    return torch.stack([s, mask.sum().to(torch.float32)])
+
+
+def gmm_ref(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """Grouped (per-expert) matmul [E, C, d] x [E, d, f] -> [E, C, f]: products
+    in float32 (TF32 stays off: ``torch.backends.cuda.matmul.allow_tf32``),
+    output in ``lhs.dtype``."""
+    return torch.matmul(lhs.to(torch.float32), rhs.to(torch.float32)).to(lhs.dtype)
+
+
+def flash_attention_ref(
+    q: torch.Tensor,  # [B, Sq, Hq, dh]
+    k: torch.Tensor,  # [B, Sk, Hkv, dh]
+    v: torch.Tensor,  # [B, Sk, Hkv, dh]
+    *,
+    causal: bool = True,
+) -> torch.Tensor:
+    """f32 softmax attention with GQA head grouping (query head h reads KV
+    head h // (Hq / Hkv)); masked scores are -1e30 with the causal offset
+    Sk - Sq.  Output [B, Sq, Hq, dh] in ``q.dtype``."""
+    b, sq, hq, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    qg = q.to(torch.float32).reshape(b, sq, hkv, hq // hkv, dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(torch.float32)) * (dh**-0.5)
+    if causal:
+        mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device).tril(sk - sq)
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(torch.float32))
+    return o.reshape(b, sq, hq, dh).to(q.dtype)

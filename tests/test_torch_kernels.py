@@ -1,0 +1,236 @@
+"""The plain versions of the port's K3-K6 kernels (``block_compact``,
+``filter_agg``, ``gmm``, ``flash_attention``) against the JAX package on the
+CPU: its oracles (``repro.kernels.ref``) and its Pallas kernels in interpret
+mode (``repro.kernels.ops``, as ``tests/test_kernels.py`` runs them), plus the
+wrappers' routing, their launch checks and the build of the new sources."""
+from __future__ import annotations
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels import ops as jkops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import block_compact as bc  # noqa: E402
+from repro_torch.kernels import build, filter_scan, moe_gmm  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _tol(dtype: str) -> dict:
+    return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else dict(rtol=2e-4, atol=2e-4)
+
+
+def _gmm_tol(dtype: str) -> dict:
+    return _tol(dtype) if dtype == "bfloat16" else dict(rtol=2e-4, atol=2e-3)
+
+
+def both(x: np.ndarray, dtype: str = "float32"):
+    """One numpy array as a JAX array and a torch tensor of the same type (a
+    float32 -> bfloat16 cast rounds to nearest even on both sides)."""
+    jd, td = DTYPES[dtype]
+    return jnp.asarray(x, jd), torch.from_numpy(np.array(x)).to(td)
+
+
+def f32(x) -> np.ndarray:
+    return x.to(torch.float32).numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+
+
+# -- K3 block_compact ----------------------------------------------------------
+@pytest.mark.parametrize("n,c,sel,cap_slack", [
+    (512, 4, 0.3, 2.0),
+    (2_048, 1, 0.5, 0.5),  # capacity overflow
+    (5_000, 4, 0.1, 1.0),  # ragged tail
+    (20_000, 7, 0.9, 0.25),
+    (3_000, 3, 0.0, 1.0),  # empty mask
+    (3_000, 3, 1.0, 1.0),  # all-pass mask
+])
+def test_block_compact_plain_equals_reference(n, c, sel, cap_slack):
+    rng = np.random.default_rng(n + c)
+    cols = rng.standard_normal((c, n), dtype=np.float32)
+    mask = rng.random(n) < sel
+    cap = max(1, int(cap_slack * max(int(mask.sum()), 8)))
+    jc, tc = both(cols)
+    out, cnt = kops.block_compact(tc, torch.from_numpy(mask), cap)
+    assert out.shape == (c, cap) and out.dtype == torch.float32
+    assert cnt.dtype == torch.int32 and cnt.dim() == 0 and int(cnt) == int(mask.sum())
+    for jout, jcnt in (jref.block_compact_ref(jc, jnp.asarray(mask), cap),
+                       jkops.block_compact(jc, jnp.asarray(mask), cap, block_n=2048)):
+        assert int(jcnt) == int(cnt)
+        np.testing.assert_array_equal(out.numpy(), np.asarray(jout))
+
+
+@pytest.mark.parametrize("dtype", [torch.bool, torch.int32, torch.uint8, torch.float32])
+def test_block_compact_takes_any_mask_type_and_shape(dtype):
+    rng = np.random.default_rng(3)
+    cols = torch.from_numpy(rng.random((2, 300), dtype=np.float32))
+    m = rng.random(300) < 0.4
+    want, wcnt = ref.block_compact_ref(cols, torch.from_numpy(m), 200)
+    for mask in (torch.from_numpy(m).to(dtype), torch.from_numpy(m).to(dtype).reshape(1, -1)):
+        out, cnt = kops.block_compact(cols, mask, 200)
+        assert torch.equal(out, want) and int(cnt) == int(wcnt)
+
+
+def test_block_compact_keeps_zero_valued_rows():
+    n = 1_024
+    cols = np.stack([np.zeros(n, np.float32), np.arange(n, dtype=np.float32)])
+    mask = np.arange(n) % 3 == 0
+    cap = int(mask.sum()) + 16
+    out, cnt = kops.block_compact(torch.from_numpy(cols), torch.from_numpy(mask), cap)
+    jout, jcnt = jkops.block_compact(jnp.asarray(cols), jnp.asarray(mask), cap, block_n=512)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(jout))
+    assert int(cnt) == int(jcnt) and float(out[1, 0]) == 0.0 and float(out[1, 1]) == 3.0
+
+
+# -- K4 filter_agg ---------------------------------------------------------------
+@pytest.mark.parametrize("n,bounds", [
+    (4_096, (0.2, 0.8, 0.1, 0.9)),
+    (20_000, (0.0, 0.5, 0.25, 1.0)),  # two reference blocks of 16384, ragged tail
+    (16_384 * 2 + 5, (0.3, 0.31, 0.0, 1.0)),
+    (1_000, (2.0, 1.0, 0.0, 1.0)),  # empty
+])
+def test_filter_agg_plain_equals_reference(n, bounds):
+    cols = np.random.default_rng(n).random((4, n), dtype=np.float32)
+    jc, tc = both(cols)
+    got = kops.filter_agg(tc, *bounds)
+    assert got.shape == (2,) and got.dtype == torch.float32
+    for want in (jref.filter_agg_ref(jc, *bounds), jkops.filter_agg(jc, *bounds)):
+        assert float(got[1]) == float(want[1])
+        np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-4, atol=1e-4)
+
+
+# -- K5 gmm ----------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("e,c,d,f,bc_,bf_,bd_", [
+    (2, 128, 128, 128, 128, 128, 128),
+    (4, 256, 512, 256, 128, 128, 256),
+    (8, 128, 256, 384, 64, 128, 128),
+])
+def test_gmm_plain_equals_reference(dtype, e, c, d, f, bc_, bf_, bd_):
+    rng = np.random.default_rng(e * c)
+    jl, tl = both(rng.standard_normal((e, c, d), dtype=np.float32), dtype)
+    jr, tr = both(rng.standard_normal((e, d, f), dtype=np.float32), dtype)
+    got = kops.gmm(tl, tr)
+    assert got.shape == (e, c, f) and got.dtype == tl.dtype
+    for want in (jref.gmm_ref(jl, jr), jkops.gmm(jl, jr, block_c=bc_, block_f=bf_, block_d=bd_)):
+        np.testing.assert_allclose(f32(got), f32(want), **_gmm_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_gmm_plain_takes_ragged_shapes(dtype):
+    rng = np.random.default_rng(5)
+    jl, tl = both(rng.standard_normal((3, 100, 72), dtype=np.float32), dtype)
+    jr, tr = both(rng.standard_normal((3, 72, 136), dtype=np.float32), dtype)
+    np.testing.assert_allclose(f32(kops.gmm(tl, tr)), f32(jref.gmm_ref(jl, jr)), **_gmm_tol(dtype))
+
+
+# -- K6 flash_attention ----------------------------------------------------------
+def _qkv(seed, b, sq, sk, hq, hkv, dh, dtype):
+    rng = np.random.default_rng(seed)
+    shapes = ((b, sq, hq, dh), (b, sk, hkv, dh), (b, sk, hkv, dh))
+    return [both(rng.standard_normal(s, dtype=np.float32), dtype) for s in shapes]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("b,s,hq,hkv,dh,bq,bk", [
+    (1, 128, 4, 4, 64, 128, 128),  # MHA single block
+    (2, 256, 8, 2, 64, 128, 128),  # GQA group 4
+    (1, 512, 4, 1, 128, 128, 256),  # MQA, rectangular blocks
+    (2, 256, 6, 2, 32, 64, 64),  # head_dim 32, 3-way groups
+])
+def test_flash_attention_plain_equals_reference(dtype, b, s, hq, hkv, dh, bq, bk):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(s + hq, b, s, s, hq, hkv, dh, dtype)
+    got = kops.flash_attention(tq, tk, tv, causal=True)
+    assert got.shape == tq.shape and got.dtype == tq.dtype
+    for want in (jref.flash_attention_ref(jq, jk, jv, causal=True),
+                 jkops.flash_attention(jq, jk, jv, causal=True, block_q=bq, block_k=bk)):
+        np.testing.assert_allclose(f32(got), f32(want), **_tol(dtype))
+
+
+@pytest.mark.parametrize("causal,sq,sk", [(False, 128, 256), (False, 100, 300), (True, 300, 300)])
+def test_flash_attention_plain_non_causal_and_ragged(causal, sq, sk):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(sq + sk, 2, sq, sk, 4, 2, 64, "float32")
+    got = kops.flash_attention(tq, tk, tv, causal=causal)
+    want = jref.flash_attention_ref(jq, jk, jv, causal=causal)
+    np.testing.assert_allclose(f32(got), f32(want), **_tol("float32"))
+    if sq % 64 == 0 and sk % 64 == 0:
+        kern = jkops.flash_attention(jq, jk, jv, causal=causal, block_q=64, block_k=128)
+        np.testing.assert_allclose(f32(got), f32(kern), **_tol("float32"))
+
+
+def test_flash_attention_plain_keeps_the_causal_offset():
+    """With use_kernel=False, causal Sq != Sk follows the reference's offset Sk - Sq."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(9, 1, 64, 192, 4, 2, 32, "float32")
+    got = kops.flash_attention(tq, tk, tv, causal=True, use_kernel=False)
+    want = jref.flash_attention_ref(jq, jk, jv, causal=True)
+    np.testing.assert_allclose(f32(got), f32(want), **_tol("float32"))
+
+
+# -- routing, launch checks, build ---------------------------------------------
+def _calls(device="cpu"):
+    rng = np.random.default_rng(0)
+    t = lambda *s: torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(device)  # noqa: E731
+    return {
+        "block_compact": lambda **kw: kops.block_compact(t(3, 50), t(50) > 0, 20, **kw),
+        "filter_agg": lambda **kw: kops.filter_agg(t(4, 50), -0.5, 0.5, -1.0, 1.0, **kw),
+        "gmm": lambda **kw: kops.gmm(t(2, 5, 6), t(2, 6, 7), **kw),
+        "flash_attention": lambda **kw: kops.flash_attention(t(1, 9, 4, 32), t(1, 9, 2, 32), t(1, 9, 2, 32), **kw),
+    }
+
+
+@pytest.mark.parametrize("name", ["block_compact", "filter_agg", "gmm", "flash_attention"])
+def test_cpu_tensors_take_the_plain_version_and_launch_nothing(name):
+    kops.reset_launches()
+    got = _calls()[name]()
+    want = _calls()[name](use_kernel=False)
+    for g, w in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(g, w)
+    assert set(kops.LAUNCHES.values()) == {0}
+
+
+@pytest.mark.parametrize("name", ["block_compact", "filter_agg", "gmm", "flash_attention"])
+def test_other_devices_raise(name):
+    with pytest.raises(ValueError):
+        _calls("meta")[name]()
+
+
+def test_launches_refuse_cpu_tensors_before_building():
+    x = torch.zeros((4, 8))
+    with pytest.raises(ValueError):
+        bc.launch(x, torch.ones(8, dtype=torch.bool), 4)
+    with pytest.raises(ValueError):
+        filter_scan.launch(x, 0.0, 1.0, 0.0, 1.0)
+    with pytest.raises(ValueError):
+        moe_gmm.launch(torch.zeros((1, 2, 3)), torch.zeros((1, 3, 4)))
+    with pytest.raises(ValueError):
+        fa.launch(torch.zeros((1, 8, 2, 32)), torch.zeros((1, 8, 2, 32)), torch.zeros((1, 8, 2, 32)), True)
+
+
+@pytest.mark.parametrize("q,k,causal", [
+    ((1, 8, 4, 32), (1, 16, 2, 32), True),  # causal needs Sq == Sk
+    ((1, 8, 3, 32), (1, 8, 2, 32), False),  # Hkv must divide Hq
+    ((1, 8, 4, 32), (1, 8, 2, 64), False),  # head dims differ
+])
+def test_flash_attention_rejects_what_the_kernel_cannot_take(q, k, causal):
+    with pytest.raises(ValueError):
+        kops.flash_attention(torch.zeros(q), torch.zeros(k), torch.zeros(k), causal=causal)
+
+
+@pytest.mark.parametrize("name,module", [
+    ("block_compact", bc), ("filter_agg", filter_scan), ("gmm", moe_gmm), ("flash_attention", fa),
+])
+def test_build_covers_every_new_source(monkeypatch, name, module):
+    monkeypatch.setattr(build, "nvcc_path", lambda: "nvcc")
+    cmd = build.nvcc_command(name, build.library_path(name))
+    assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
+    assert cmd[-1].endswith(f"csrc/{name}.cu")
+    # Every function the binding declares is defined by the source's C interface.
+    c_interface = (build.CSRC / f"{name}.cu").read_text().split('extern "C" {')[1]
+    for fn in module._SIGNATURES:
+        assert f" {fn}(" in c_interface, fn

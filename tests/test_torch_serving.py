@@ -211,4 +211,4 @@ def test_serving_torch_task_reports_latency_and_saturation():
     assert vals["saturation_qps"] > 0 and vals["shed_requests"] == 0
     assert len(s.times_s) == int(vals["completed_requests"]) == 9
     assert vals["kernel_calls"] >= 1
-    assert kops.LAUNCHES == {"group_filter_agg": 0, "group_filter_agg_multi": 0}  # CPU: plain version
+    assert set(kops.LAUNCHES.values()) == {0}  # CPU: plain version
