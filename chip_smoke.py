@@ -10,7 +10,10 @@ each kernel against its plain PyTorch version on the card, drives the main
 paths (the ``dbms_torch`` and ``serving_torch`` tasks and a ``QueryServer``
 over TPC-H scale factor 1 under open-loop load; the whole ``pushdown_torch``
 parameter space, with its plans held to one another; the whole
-``accel_torch`` parameter space), and prints:
+``accel_torch`` parameter space; LM serving through ``launch.serve`` for
+Granite-3-8B and Mamba2-2.7B at full width and depth, then at long context,
+with the kernel route held to the plain one and to the plain route computed
+in float32), and prints:
 
   * the card's name and power limit, as nvidia-smi reports them;
   * one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
@@ -24,6 +27,8 @@ it fails at once.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import random
 import subprocess
@@ -44,17 +49,30 @@ FILTER_RTOL = 2e-5  # filter_agg sums (tests/test_query_fusion.py's bound)
 # Kernel against plain version (tests/test_kernels.py's tolerances).
 ATTN_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (2e-2, 2e-2)}
 GMM_TOL = {torch.float32: (2e-4, 2e-3), torch.bfloat16: (3e-2, 0.5)}
+SSD_TOL = (2e-4, 2e-4)  # K8 computes in f32 from either input type
 TIMING_REPS = 25
 TIMING_WARMUP = 5
 
-# Published H100-family peaks (NVIDIA data sheets): memory bytes/s and
-# float32 FLOP/s outside the tensor cores (the only rates the kernels of
-# this script use: none of them takes the tensor cores).
+# The LM kernel route against the plain route on the same weights, relative
+# L2 of the logits.  In bf16 both routes sit ~e from the plain route in f32
+# (e = 1.5e-2 for Granite-3-8B, 5.0e-2 for Mamba2-2.7B on an H100), so they
+# are held to that f32 answer; in f32 the kernels' own error shows (1.7e-6).
+LM_F32_RTOL = 1e-4  # f32 compute: kernel route vs plain route
+LM_EXACT_RATIO = 1.25  # bf16 kernel route's distance from the f32 answer over the bf16 plain route's (read 0.99-1.01)
+LM_ROUTE_RATIO = 2.0  # bf16 kernel vs plain route, over e: two routes within e of one answer are within 2e (read 1.03)
+LM_LAYERS = {"granite-3-8b": 40, "mamba2-2.7b": 64}
+
+# Published H100-family peaks (NVIDIA data sheets): memory bytes/s, float32
+# FLOP/s outside the tensor cores and dense bf16 FLOP/s on the tensor cores.
+# A bound counts an operation at the rate of its inputs' type: attention on
+# bf16 inputs (K6 and K7 in the LM path) at the bf16 rate, though the
+# kernels compute in float32 on the CUDA cores; K8's M x product takes an
+# f32 M whatever the input type, so K8 counts at the float32 rate.
 PEAKS = {
-    "H100 PCIe": (2.0e12, 51e12),
-    "H100 NVL": (3.9e12, 60e12),
-    "H200": (4.8e12, 67e12),
-    "H100": (3.35e12, 67e12),  # SXM ("NVIDIA H100 80GB HBM3")
+    "H100 PCIe": (2.0e12, 51e12, 756e12),
+    "H100 NVL": (3.9e12, 60e12, 835e12),
+    "H200": (4.8e12, 67e12, 989e12),
+    "H100": (3.35e12, 67e12, 989e12),  # SXM ("NVIDIA H100 80GB HBM3")
 }
 
 
@@ -71,7 +89,7 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
-def peaks(name: str) -> tuple[float, float]:
+def peaks(name: str) -> tuple[float, float, float]:
     for key, val in PEAKS.items():
         if key in name:
             return val
@@ -394,6 +412,75 @@ def k5_k6_phase(dev):
             compare_k6("sweep" if s != 300 else "ragged", b, s, s, hq, hkv, dh, dtype, True, gen, dev)
         compare_k6("non-causal", 2, 128, 256, 4, 2, 64, dtype, False, gen, dev)
         compare_k6("non-causal ragged", 2, 100, 300, 6, 3, 32, dtype, False, gen, dev)
+        # Granite-3-8B's prefills: launch.serve's 4-31-token prompts and the 2,048-token one.
+        for s in (4, 17, 31):
+            compare_k6("granite short prefill", 1, s, s, 32, 8, 128, dtype, True, gen, dev)
+        err = compare_k6("granite prefill", 1, 2048, 2048, 32, 8, 128, dtype, True, gen, dev)
+        if dtype == bf16:
+            errs["attn_granite"] = err
+    return errs
+
+
+def compare_k7(label, b, s, hq, hkv, dh, lens, dtype, gen, dev):
+    """K7 against its plain version; cache contents past kv_len (inf keys, NaN
+    values) change no bit; each slot alone equals the slot in the batch."""
+    from repro_torch.kernels import ops as kops
+
+    q = torch.randn((b, hq, dh), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, s, hkv, dh), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, s, hkv, dh), generator=gen, device=dev).to(dtype)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = kops.decode_attention(q, k, v, kv_len)
+    err = close(f"k7 {label}", got, kops.decode_attention(q, k, v, kv_len, use_kernel=False), *ATTN_TOL[dtype])
+    check(torch.equal(got, kops.decode_attention(q, k, v, kv_len)), f"k7 {label}: a repeated launch must give the same bits")
+    k2, v2 = k.clone(), v.clone()
+    for i, n in enumerate(lens):
+        k2[i, n:] = float("inf")
+        v2[i, n:] = float("nan")
+    check(torch.equal(got, kops.decode_attention(q, k2, v2, kv_len)), f"k7 {label}: the cache past kv_len changed the output")
+    for i in range(b):
+        alone = kops.decode_attention(q[i : i + 1], k[i : i + 1], v[i : i + 1], kv_len[i : i + 1])
+        check(torch.equal(alone, got[i : i + 1]), f"k7 {label}: slot {i} alone != slot {i} in the batch")
+    print(f"[k7] {label}: B={b} S={s} Hq={hq} Hkv={hkv} dh={dh} kv_len={list(lens)} {dtype} max_abs_err {err:.3g}; "
+          f"tail ignored, each slot alone == in the batch, repeat equal (torch.equal)", flush=True)
+    return err
+
+
+def compare_k8(label, b, s, h, p, n, chunk, dtype, gen, dev):
+    """K8 against its plain version: y and the chunk states within 2e-4."""
+    from repro_torch.kernels import ops as kops
+
+    x = torch.randn((b, s, h, p), generator=gen, device=dev).to(dtype)
+    bm = (0.5 * torch.randn((b, s, n), generator=gen, device=dev)).to(dtype)
+    cm = (0.5 * torch.randn((b, s, n), generator=gen, device=dev)).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device=dev))
+    a = -torch.exp(torch.linspace(0.0, 1.5, h, device=dev))
+    y, st = kops.ssd_intra(x, bm, cm, dt, a, chunk=chunk)
+    ye, ste = kops.ssd_intra(x, bm, cm, dt, a, chunk=chunk, use_kernel=False)
+    err = max(close(f"k8 {label} y", y, ye, *SSD_TOL), close(f"k8 {label} states", st, ste, *SSD_TOL))
+    print(f"[k8] {label}: B={b} S={s} H={h} P={p} N={n} Q={min(chunk, s)} {dtype} max_abs_err {err:.3g}", flush=True)
+    return err
+
+
+def k7_k8_phase(dev):
+    """K7 at Granite-3-8B's decode shape and K8 at Mamba2-2.7B's prefill shape,
+    then the reference's sweep shapes and ragged ones, in bf16 and f32."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        errs[f"k7_{tag}"] = compare_k7("granite decode", 8, 4096, 32, 8, 128,
+                                       (1, 17, 4095, 4096, 2048, 2064, 64, 65), dtype, gen, dev)
+        for b, s, hq, hkv, dh, lens in [(2, 256, 8, 4, 64, (100, 256)), (1, 512, 4, 1, 128, (1,)),
+                                        (3, 128, 6, 2, 32, (128, 64, 17)), (4, 300, 32, 8, 128, (5, 300, 299, 1))]:
+            compare_k7("sweep" if s != 300 else "ragged S", b, s, hq, hkv, dh, lens, dtype, gen, dev)
+        errs[f"k8_{tag}"] = compare_k8("mamba2 prefill", 1, 2048, 80, 64, 128, 64, dtype, gen, dev)
+        for b, s, h, p, n, chunk in [(1, 128, 2, 16, 16, 128), (2, 256, 4, 32, 16, 128), (1, 256, 2, 64, 32, 256)]:
+            compare_k8("sweep", b, s, h, p, n, chunk, dtype, gen, dev)
+        compare_k8("Q=17", 2, 17, 3, 8, 16, 64, dtype, gen, dev)
+        for s in (4, 17, 31):  # launch.serve's prompts: one chunk of Q = S at Mamba2's width
+            compare_k8("mamba2 short prefill", 1, s, 80, 64, 128, 64, dtype, gen, dev)
+        compare_k8("ragged P/N", 1, 96, 5, 128, 200, 48, dtype, gen, dev)
     return errs
 
 
@@ -587,6 +674,215 @@ def accel_phase(dev):
     print(f"[accel_torch] {len(rows)} points " + " ".join(rows), flush=True)
 
 
+def free_card() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_serve_phase(arch):
+    """``launch.serve`` with the reference's defaults (16 requests, 4 slots,
+    max_len 256, 16 new tokens) at full width and depth; each decode step is
+    one K7 launch a layer, each prefill one K6 (attention) or K8 (SSM) a layer."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve
+
+    layers = LM_LAYERS[arch]
+    before = dict(kops.LAUNCHES)
+    res = serve.serve(serve.parse_args(["--arch", arch]))
+    delta = {k: kops.LAUNCHES[k] - before[k] for k in before}
+    check(len(res.completions) == 16 and all(len(c.tokens) == 16 for c in res.completions),
+          f"{arch}: every request completes with 16 tokens")
+    check(all(0 <= t < res.cfg.padded_vocab for c in res.completions for t in c.tokens), f"{arch}: token ids")
+    check(res.prefill_calls == 16, f"{arch}: one prefill a request")
+    if res.cfg.is_attention_free:
+        want = {"ssd_intra": res.prefill_calls * layers}
+    else:
+        want = {"decode_attention": res.decode_calls * layers, "flash_attention": res.prefill_calls * layers}
+    for kname in ("decode_attention", "ssd_intra", "flash_attention"):
+        check(delta[kname] == want.get(kname, 0), f"{arch} serve: {kname} launched {delta[kname]}, want {want.get(kname, 0)}")
+    print(f"[lm] {arch} serve ({layers} layers, full width): {len(res.completions)}/16 completed, "
+          f"{res.decode_calls} decode steps, {res.prefill_calls} prefills, {res.new_tokens} tokens in "
+          f"{res.seconds:.3f}s ({res.new_tokens / res.seconds:.1f} tok/s); launches "
+          f"{json.dumps({k: v for k, v in delta.items() if v})}", flush=True)
+    return {"seconds": res.seconds, "tokens_per_s": res.new_tokens / res.seconds, "decode_calls": res.decode_calls}
+
+
+def device_share(label, fn, calls=3):
+    """The card's busy share of the wall time over ``calls`` calls of fn, and
+    its busiest kernels, from torch.profiler (the profiler's own host cost
+    lowers the share).  Prints "not measured" if the trace has no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy_us = sum(e.self_device_time_total for e in kernels)
+    except (RuntimeError, AttributeError) as exc:  # the profiler is untried on this machine
+        print(f"[profile] {label}: device share not measured ({exc})", flush=True)
+        return None
+    if busy_us <= 0:
+        print(f"[profile] {label}: device share not measured (no device time in the trace)", flush=True)
+        return None
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    tops = "; ".join(f"{e.key[:48]} {e.self_device_time_total / calls / 1e3:.3f} ms" for e in top)
+    print(f"[profile] {label}: wall {wall_us / calls / 1e3:.2f} ms a call, card busy "
+          f"{busy_us / calls / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}%); top kernels a call: {tops}", flush=True)
+    return busy_us / wall_us
+
+
+def lm_long_phase(arch, dev):
+    """Long context: Granite with 8 slots of 2,048-token prompts, Mamba2 with
+    one (32 chunks), max_len 4096, 32 new tokens each."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.serve_loop import Request, SlotServer
+
+    cfg = get_arch(arch)
+    slots, plen, max_len, new = (1 if cfg.is_attention_free else 8), 2048, 4096, 32
+    model = Model(cfg, device=dev)
+    params = model.init(0)
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    prompts = [torch.randint(0, cfg.vocab_size, (plen,), generator=gen, dtype=torch.int32).to(dev) for _ in range(slots)]
+
+    def prefill_once():
+        model.prefill(params, {"inputs": prompts[0][None]}, model.init_cache(1, max_len))
+
+    prefill_once()  # warm-up at this shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill_once()
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+
+    server = SlotServer(model, n_slots=slots, max_len=max_len)
+    server.load(params)
+    for uid, prompt in enumerate(prompts):
+        server.submit(Request(uid=uid, prompt=prompt, max_new_tokens=new))
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(kops.LAUNCHES)
+    steps = []
+    t0 = time.perf_counter()
+    while server.queue or any(r is not None for r in server.slot_req):
+        ts = time.perf_counter()
+        server.step()  # ends in a read of the next tokens, so the card is done
+        steps.append(time.perf_counter() - ts)
+    total = time.perf_counter() - t0
+    delta = {k: kops.LAUNCHES[k] - before[k] for k in before}
+    done = server.completed
+    check(len(done) == slots and all(len(c.tokens) == new for c in done), f"{arch} long: every request completes")
+    layers = LM_LAYERS[arch]
+    kname = "ssd_intra" if cfg.is_attention_free else "decode_attention"
+    want = server.prefill_calls * layers if cfg.is_attention_free else server.decode_calls * layers
+    check(delta[kname] == want, f"{arch} long: {kname} launched {delta[kname]}, want {want}")
+    decode_ms = 1e3 * sorted(steps[1:])[len(steps[1:]) // 2]
+    tokens = sum(len(c.tokens) for c in done)
+    # Where a step's time goes: one more decode step on the filled cache, and a prefill.
+    index = torch.tensor(server.lengths, dtype=torch.int32, device=dev)
+    last = torch.zeros((slots, 1), dtype=torch.int32, device=dev)
+    device_share(f"{arch} decode step, {slots} slot(s) at ~{plen + new} keys",
+                 lambda: model.decode(params, {"tokens": last}, server.cache, index))
+    device_share(f"{arch} prefill of {plen} tokens", prefill_once, calls=1)
+    out = {"prefill_ms": prefill_ms, "decode_step_ms": decode_ms, "tokens_per_s": tokens / total,
+           "first_step_ms": 1e3 * steps[0], "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"[lm] {arch} long context: {slots} slot(s) x {plen}-token prompt, max_len {max_len}, {new} new tokens: "
+          f"prefill {prefill_ms:.2f} ms a prompt, decode step {decode_ms:.2f} ms (median of {len(steps) - 1}), "
+          f"first step (prefills + decode) {1e3 * steps[0]:.1f} ms, {tokens} tokens in {total:.3f}s "
+          f"({tokens / total:.1f} tok/s), peak {out['peak_gb']:.1f} GB", flush=True)
+    del server, params, model
+    free_card()
+    return out
+
+
+def lm_path(dev):
+    """LM serving for both models, each freed before the next."""
+    out = {}
+    for arch in LM_LAYERS:
+        out[f"{arch} serve"] = lm_serve_phase(arch)
+        free_card()
+        out[f"{arch} long"] = lm_long_phase(arch, dev)
+    return out
+
+
+def lm_route_phase(arch, dev):
+    """The kernel route against use_kernel=False on the same weights and
+    prompt (B=2, 100 tokens): the prefill's last logits and the first decode
+    step's.  A third route, the plain one computing in float32 on the same
+    (bf16-stored) weights, is the answer without activation rounding: the
+    kernel route in bf16 must be no farther from it than the plain route in
+    bf16, and the kernel route in float32 must be close to it.  For Granite,
+    K6 alone on and K7 alone on tell the two kernels' shares apart."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.model import Model
+
+    cfg = get_arch(arch)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    params = Model(cfg, device=dev).init(0)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 100), generator=gen, dtype=torch.int32).to(dev)
+    index = torch.tensor([100, 100], dtype=torch.int32, device=dev)
+    kernels = ("flash_attention", "decode_attention") if not cfg.is_attention_free else ("ssd_intra",)
+    routes = {"f32 plain": (cfg32, ()), "f32 kernel": (cfg32, kernels), "bf16 plain": (cfg, ()),
+              "bf16 kernel": (cfg, kernels)}
+    if len(kernels) == 2:
+        routes.update({"bf16 K6 only": (cfg, ("flash_attention",)), "bf16 K7 only": (cfg, ("decode_attention",))})
+    logits = {}
+    for label, (c, on) in routes.items():
+        off = {k: getattr(kops, k) for k in kernels if k not in on}
+        for k, fn in off.items():  # this kernel's plain version on this route
+            setattr(kops, k, lambda *a, _fn=fn, **kw: _fn(*a, **{**kw, "use_kernel": False}))
+        try:
+            m = Model(c, device=dev, use_kernel=bool(on))
+            cache = m.init_cache(2, 256)
+            kops.reset_launches()
+            lp, cache = m.prefill(params, {"inputs": prompt}, cache)
+            ld, cache = m.decode(params, {"tokens": prompt[:, :1]}, cache, index)
+            launched = {k: n for k, n in kops.LAUNCHES.items() if n}
+        finally:
+            for k, fn in off.items():
+                setattr(kops, k, fn)
+        check(set(launched) == set(on), f"{arch} {label}: launched {launched}, want {on}")
+        for lg in (lp, ld):
+            check(bool(torch.isfinite(lg).all()) and lg.shape == (2, cfg.padded_vocab), f"{arch} {label}: logits")
+        logits[label] = (lp, ld)
+        del m, cache
+
+    def rel(a, b, step):
+        got, want = logits[a][step], logits[b][step]
+        return float((got - want).norm() / want.norm())
+
+    out, fails = {}, []
+    for step, sname in enumerate(("prefill", "decode")):
+        r = {f"{a} vs {b}": rel(a, b, step) for a in routes
+             for b in ("f32 plain",) + (("bf16 plain",) if a.startswith("bf16") else ()) if a != b}
+        out[sname] = r
+        print(f"[lm] {arch} {sname} logits, rel L2 between routes: "
+              + "; ".join(f"{k} {v:.4g}" for k, v in r.items())
+              + f" (max |logit| {float(logits['f32 plain'][step].abs().max()):.3g})", flush=True)
+        plain_err = r["bf16 plain vs f32 plain"]
+        if r["f32 kernel vs f32 plain"] > LM_F32_RTOL:
+            fails.append(f"{sname}: f32 kernel route {r['f32 kernel vs f32 plain']} from f32 plain > {LM_F32_RTOL}")
+        if r["bf16 kernel vs f32 plain"] > LM_EXACT_RATIO * plain_err:
+            fails.append(f"{sname}: bf16 kernel route {r['bf16 kernel vs f32 plain']} from f32 plain > "
+                         f"{LM_EXACT_RATIO} x the bf16 plain route's {plain_err}")
+        if r["bf16 kernel vs bf16 plain"] > LM_ROUTE_RATIO * plain_err:
+            fails.append(f"{sname}: bf16 kernel vs plain route {r['bf16 kernel vs bf16 plain']} > "
+                         f"{LM_ROUTE_RATIO} x {plain_err}")
+    check(not fails, f"{arch} route: " + "; ".join(fails))
+    del params, logits
+    free_card()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Times and bounds.
 def compares_per_row(pred_ops) -> int:
@@ -604,7 +900,7 @@ def kernel_entries(plans, name, launches, per_query, per_step, errs):
     from repro_torch.kernels import ops as kops
     from repro_torch.runtime.loadgen import sample_params
 
-    bw, flops = peaks(name)
+    bw, flops, _ = peaks(name)
     plan = plans["q1"]  # the widest scan of the main path: 5 columns x 6,001,215 rows
     cols, keys, po, ao = plan.cols, plan.keys, plan.pred_ops, plan.agg_ops
     n = cols.shape[1]
@@ -667,39 +963,46 @@ def per_query_times(plans):
     return out
 
 
+def kernel_entry(kname, source, replaces, launches, run, run_plain, bytes_ms, ops_ms, err, library, shape):
+    """One entry of the kernels line: times by CUDA events, the bound from
+    the bytes and operations the call needs."""
+    from repro_torch.kernels import ops as kops
+
+    kops.reset_launches()
+    run()
+    return {
+        "name": kname,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": launches,
+        "launches_per_call": kops.LAUNCHES[kname],
+        "max_abs_err": err,
+        "ms": time_ms(run),
+        "plain_ms": time_ms(run_plain, reps=20, warmup=2),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None if library is None else time_ms(library),
+        "shape": shape,
+    }
+
+
 def new_kernel_entries(tables, name, launches, errs):
-    """K3-K6 at the main path's shapes: pushdown scale 1.0, selectivity 0.5
-    for K3 and K4, accel_torch large (f32) for K5 and K6."""
+    """K3-K6 at the main paths' shapes: pushdown scale 1.0, selectivity 0.5
+    for K3 and K4, accel_torch large (f32) for K5, Granite-3-8B's 2,048-token
+    prefill (bf16) for K6, where its time on the main paths goes; K6 at
+    accel large goes to a ``[times]`` line."""
     from repro_torch.engine import ops
     from repro_torch.kernels import ops as kops
     from repro_torch.tasks.plugins.accel import _SIZES
     from repro_torch.tasks.pushdown import SCANNED, _pred_bounds, capacity, kernel_scan_columns
 
-    bw, flops = peaks(name)
+    bw, flops, bf16_flops = peaks(name)
     dev = "cuda"
 
-    def per_call(kname, fn):
-        kops.reset_launches()
-        fn()
-        return kops.LAUNCHES[kname]
-
-    def entry(kname, replaces, run, run_plain, nbytes, nops, err, library, shape):
-        bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * nops / flops
-        return {
-            "name": kname,
-            "route": "cuda",
-            "source": f"src/repro_torch/csrc/{kname}.cu",
-            "replaces": replaces,
-            "launches": launches[kname],
-            "launches_per_call": per_call(kname, run),
-            "max_abs_err": err,
-            "ms": time_ms(run),
-            "plain_ms": time_ms(run_plain, reps=20, warmup=2),
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None if library is None else time_ms(library),
-            "shape": shape,
-        }
+    def entry(kname, replaces, run, run_plain, nbytes, nops, err, library, shape, rate=flops):
+        return kernel_entry(kname, f"src/repro_torch/csrc/{kname}.cu", replaces, launches[kname],
+                            run, run_plain, 1e3 * nbytes / bw, 1e3 * nops / rate, err, library, shape)
 
     sel = 0.5
     table = tables["1.0"]
@@ -725,24 +1028,39 @@ def new_kernel_entries(tables, name, launches, errs):
     k5 = lambda: kops.gmm(lhs, rhs)  # noqa: E731
     k5p = lambda: kops.gmm(lhs, rhs, use_kernel=False)  # noqa: E731
     k5lib = lambda: torch.bmm(lhs, rhs)  # noqa: E731
-    b, hq, hkv, dh = 1, 4, 2, 64
-    q = torch.randn((b, s, hq, dh), generator=gen, device=dev)
-    k = torch.randn((b, s, hkv, dh), generator=gen, device=dev)
-    v = torch.randn((b, s, hkv, dh), generator=gen, device=dev)
-    k6 = lambda: kops.flash_attention(q, k, v, causal=True)  # noqa: E731
-    k6p = lambda: kops.flash_attention(q, k, v, causal=True, use_kernel=False)  # noqa: E731
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))  # SDPA's [B, H, S, dh]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    k6lib = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)  # noqa: E731
-    lib_err = float((k6lib().transpose(1, 2) - k6()).abs().max())
-    print(f"[times] sdpa vs flash_attention kernel at accel large: max_abs_err {lib_err:.3g}", flush=True)
+
+    def k6_calls(b, sq, hq, hkv, dh, dtype):
+        """K6, its plain version and SDPA on one causal shape, with the bytes
+        (q, k, v, out once) and the operations (q.k and p.v on the visible
+        pairs) of the call."""
+        q = torch.randn((b, sq, hq, dh), generator=gen, device=dev).to(dtype)
+        k = torch.randn((b, sq, hkv, dh), generator=gen, device=dev).to(dtype)
+        v = torch.randn((b, sq, hkv, dh), generator=gen, device=dev).to(dtype)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))  # SDPA's [B, H, S, dh]
+        run = lambda: kops.flash_attention(q, k, v, causal=True)  # noqa: E731
+        lib = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)  # noqa: E731
+        lib_err = float((lib().transpose(1, 2).float() - run().float()).abs().max())
+        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        nops = 4 * dh * b * hq * sq * (sq + 1) // 2
+        return run, lambda: kops.flash_attention(q, k, v, causal=True, use_kernel=False), lib, lib_err, nbytes, nops
+
+    # K6 at accel_torch large (f32), the accel path's shape.
+    run, plain, lib, lib_err, nbytes, nops = k6_calls(1, s, 4, 2, 64, torch.float32)
+    accel = {"ms": time_ms(run), "plain_ms": time_ms(plain, reps=20, warmup=2), "library_ms": time_ms(lib),
+             "bound_ms": max(1e3 * nbytes / bw, 1e3 * nops / flops)}
+    print(f"[times] flash_attention at accel large (B=1 S={s} Hq=4 Hkv=2 dh=64 f32 causal): "
+          f"{json.dumps(accel)}; sdpa vs kernel max_abs_err {lib_err:.3g}", flush=True)
+    # K6 at Granite-3-8B's 2,048-token prefill, bf16: the entry.
+    b, sg, hq, hkv, dh = 1, 2048, 32, 8, 128
+    k6, k6p, k6lib, lib_err, k6_bytes, k6_ops = k6_calls(b, sg, hq, hkv, dh, torch.bfloat16)
+    print(f"[times] sdpa vs flash_attention kernel at granite prefill: max_abs_err {lib_err:.3g}", flush=True)
 
     compact_t = time_ms(lambda: ops.compact(scanned, mask, cap))
     compact_k = time_ms(lambda: ops.compact(scanned, mask, cap, use_kernel=True))
     print(f"[times] compact at scale 1.0 sel 0.5 (cap {cap}): nonzero+gather route {compact_t:.4f} ms, "
           f"block_compact route {compact_k:.4f} ms", flush=True)
 
-    visible_pairs = b * hq * s * (s + 1) // 2
     return [
         entry("block_compact", "src/repro/kernels/block_compact.py:113", k3, k3p,
               n + c * n * 4 + c * cap * 4 + 4, 0, errs["k3"], None,
@@ -753,9 +1071,58 @@ def new_kernel_entries(tables, name, launches, errs):
         entry("gmm", "src/repro/kernels/moe_gmm.py:43", k5, k5p,
               4 * (e * s * d + e * d * f + e * s * f), 2 * e * s * d * f, errs["gmm_large"], k5lib,
               f"accel large: E={e} C={s} d={d} f={f} f32"),
-        entry("flash_attention", "src/repro/kernels/flash_attention.py:76", k6, k6p,
-              4 * (q.numel() + k.numel() + v.numel() + q.numel()), 4 * dh * visible_pairs, errs["attn_large"],
-              k6lib, f"accel large: B={b} S={s} Hq={hq} Hkv={hkv} dh={dh} f32 causal"),
+        entry("flash_attention", "src/repro/kernels/flash_attention.py:76", k6, k6p, k6_bytes, k6_ops,
+              errs["attn_granite"], k6lib, f"granite prefill: B={b} S={sg} Hq={hq} Hkv={hkv} dh={dh} bf16 causal",
+              rate=bf16_flops),
+    ]
+
+
+def lm_kernel_entries(name, launches, errs):
+    """K7 at the long-context decode shape of Granite-3-8B (8 slots, a
+    4096-slot cache, 2,064 valid keys each, bf16) and K8 at Mamba2-2.7B's
+    2,048-token prefill (bf16 x/B/C)."""
+    from repro_torch.kernels import ops as kops
+
+    bw, flops, bf16_flops = peaks(name)
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(15)
+    bf16 = torch.bfloat16
+    b, s, hq, hkv, dh, kvl = 8, 4096, 32, 8, 128, 2064
+    q = torch.randn((b, hq, dh), generator=gen, device=dev).to(bf16)
+    k = torch.randn((b, s, hkv, dh), generator=gen, device=dev).to(bf16)
+    v = torch.randn((b, s, hkv, dh), generator=gen, device=dev).to(bf16)
+    kv_len = torch.full((b,), kvl, dtype=torch.int32, device=dev)
+    k7 = lambda: kops.decode_attention(q, k, v, kv_len)  # noqa: E731
+    k7p = lambda: kops.decode_attention(q, k, v, kv_len, use_kernel=False)  # noqa: E731
+    qt, kt, vt = q[:, :, None], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()  # SDPA's [B, H, S, dh]
+    mask = (torch.arange(s, device=dev)[None] < kv_len[:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    k7lib = lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
+    lib_err = float((k7lib()[:, :, 0].float() - k7().float()).abs().max())
+    print(f"[times] sdpa vs decode_attention kernel at the long-context decode shape: max_abs_err {lib_err:.3g}", flush=True)
+    k7_bytes = 2 * (2 * q.numel() + 2 * b * kvl * hkv * dh)  # q, out, and the valid keys and values once
+    k7_ops = 4 * dh * hq * kvl * b  # q.k and p.v for every valid key of every query head
+
+    b8, s8, h, p, n, chunk = 1, 2048, 80, 64, 128, 64
+    nc, pairs = s8 // chunk, chunk * (chunk + 1) // 2
+    x = torch.randn((b8, s8, h, p), generator=gen, device=dev).to(bf16)
+    bm = (0.5 * torch.randn((b8, s8, n), generator=gen, device=dev)).to(bf16)
+    cm = (0.5 * torch.randn((b8, s8, n), generator=gen, device=dev)).to(bf16)
+    dt = torch.nn.functional.softplus(torch.randn((b8, s8, h), generator=gen, device=dev))
+    a = -torch.exp(torch.linspace(0.0, 2.77, h, device=dev))
+    k8 = lambda: kops.ssd_intra(x, bm, cm, dt, a, chunk=chunk)  # noqa: E731
+    k8p = lambda: kops.ssd_intra(x, bm, cm, dt, a, chunk=chunk, use_kernel=False)  # noqa: E731
+    k8_bytes = 2 * (x.numel() + bm.numel() + cm.numel()) + 4 * (dt.numel() + h) + 4 * (x.numel() + b8 * nc * h * p * n)
+    # C B^T on the causal pairs, M = C B^T * decay * dt, M x, and the state x * seg then (x) B.
+    k8_ops = b8 * nc * (pairs * 2 * n + h * pairs * (3 + 2 * p) + h * chunk * p * (1 + 2 * n))
+    return [
+        kernel_entry("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+                     "src/repro/kernels/decode_attention.py:67", launches["decode_attention"], k7, k7p,
+                     1e3 * k7_bytes / bw, 1e3 * k7_ops / bf16_flops, errs["k7_bf16"], k7lib,
+                     f"granite long-context decode: B={b} S={s} Hq={hq} Hkv={hkv} dh={dh} kv_len={kvl} bf16"),
+        kernel_entry("ssd_intra", "src/repro_torch/csrc/ssd_intra.cu", "src/repro/kernels/ssd_scan.py:57",
+                     launches["ssd_intra"], k8, k8p, 1e3 * k8_bytes / bw, 1e3 * k8_ops / flops, errs["k8_bf16"],
+                     None, f"mamba2 prefill: B={b8} S={s8} H={h} P={p} N={n} Q={chunk} bf16 x/B/C"),
     ]
 
 
@@ -804,12 +1171,14 @@ def main() -> int:
     errs["k3"] = k3_phase(pd_ctx.scratch, dev)
     errs["k4"] = k4_phase(pd_ctx.scratch, dev)
     errs.update(k5_k6_phase(dev))
+    errs.update(k7_k8_phase(dev))
 
     # The main paths, each with every launch counter at 0 just before it.
     path_kernels = {
         "query": ("group_filter_agg", "group_filter_agg_multi"),
         "pushdown": ("block_compact", "filter_agg"),
         "accel": ("filter_agg", "gmm", "flash_attention"),
+        "lm": ("decode_attention", "ssd_intra", "flash_attention"),
     }
     launches = dict.fromkeys(kops.LAUNCHES, 0)
     for path, kernels in path_kernels.items():
@@ -821,8 +1190,10 @@ def main() -> int:
             trace, report, per_step = server_phase(plans)
         elif path == "pushdown":
             pushdown_phase(pd_task, pd_ctx)
-        else:
+        elif path == "accel":
             accel_phase(dev)
+        else:
+            lm = lm_path(dev)
         counts = dict(kops.LAUNCHES)
         print(f"[launches] {path} path: {json.dumps(counts)}", flush=True)
         for kname in kernels:
@@ -833,6 +1204,7 @@ def main() -> int:
 
     verify_server(plans, trace, report)
     pushdown_plans_agree(pd_ctx.scratch)
+    lm_route = {arch: lm_route_phase(arch, dev) for arch in LM_LAYERS}
     per_query = {}
     kops.reset_launches()
     queries.q1_fused(li)
@@ -843,7 +1215,9 @@ def main() -> int:
 
     entries = kernel_entries(plans, name, launches, per_query, per_step, errs)
     entries += new_kernel_entries(pd_ctx.scratch, name, launches, errs)
+    entries += lm_kernel_entries(name, launches, errs)
     print(f"[times] per query at sf1 (ms): {json.dumps(per_query_times(plans))}", flush=True)
+    print(f"[lm] summary: {json.dumps({'paths': lm, 'route_rel_l2': lm_route})}", flush=True)
     pd_task.clean(pd_ctx)
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(card, flush=True)

@@ -1,0 +1,86 @@
+"""Flash-decoding attention (K7): launch of ``csrc/decode_attention.cu``.
+
+One query token per sequence, ``q [B, Hq, dh]``, against its KV cache
+``k, v [B, S, Hkv, dh]`` up to a per-sequence ``kv_len [B]``; float32 or
+bfloat16, output in q's type.  Counterpart of the JAX package's
+``kernels/decode_attention.py``.  The kernel masks the ragged tail of S
+itself, so no shape is padded; the keys are cut into splits whose size
+depends on S alone (:func:`split_size`), never on B, so a sequence's result
+has the same bits in any batch.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+_I32, _PTR, _F32 = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+_SIGNATURES = {
+    "decode_attention_error_string": ([_I32], ctypes.c_char_p),
+    "decode_attention_launch": (
+        [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+         _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _F32, _PTR], _I32
+    ),
+}
+#: The kernel's input types and their codes in ``decode_attention_launch``.
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (32, 64, 128)
+MAX_GROUP = 16  # query heads of one KV head
+TILE = 64  # keys a block stages at a time
+MAX_SPLITS = 32
+
+
+def split_size(s: int) -> int:
+    """Keys of one split: whole 64-key tiles, at most 32 splits over S."""
+    tiles = -(-s // TILE)
+    return TILE * -(-tiles // MAX_SPLITS)
+
+
+def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: torch.Tensor) -> None:
+    """Raise on shapes the kernel does not take (any device)."""
+    if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"need q [B, Hq, dh] and k, v [B, S, Hkv, dh], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, hq, dh = q.shape
+    _, s, hkv, dk = k.shape
+    if k.shape[0] != b or dk != dh or hkv < 1 or hq % hkv:
+        raise ValueError(f"batch and head dim must match and Hkv divide Hq: q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if tuple(kv_len.shape) != (b,):
+        raise ValueError(f"kv_len must be [B] = [{b}], got {tuple(kv_len.shape)}")
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: torch.Tensor) -> torch.Tensor:
+    """Run the CUDA kernel; returns [B, Hq, dh] in q's type on q's device."""
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"the kernel runs on CUDA tensors of one device, got {q.device}, {k.device}, {v.device}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k and v must all be float32 or bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    check_shapes(q, k, v, kv_len)
+    b, hq, dh = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head dim must be one of {HEAD_DIMS}, got {dh}")
+    if hq // hkv > MAX_GROUP or min(b, s) < 1 or max(b, hkv) > 65535:
+        raise ValueError(f"shape out of the kernel's range: B={b} S={s} Hq={hq} Hkv={hkv}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("k and v must start on a 16-byte boundary (the kernel loads four values at a time)")
+    kv_len = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
+
+    split = split_size(s)
+    nsplit = -(-s // split)
+    lib = build.bind("decode_attention", _SIGNATURES)
+    ws_m = torch.empty((b, hq, nsplit), dtype=torch.float32, device=q.device)
+    ws_l = torch.empty_like(ws_m)
+    ws_acc = torch.empty((b, hq, nsplit, dh), dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.decode_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), ws_m.data_ptr(), ws_l.data_ptr(),
+        ws_acc.data_ptr(), out.data_ptr(), b, s, hq, hkv, dh, split, nsplit, DTYPES[q.dtype],
+        dh**-0.5, stream,
+    )
+    build.check_launch(lib, "decode_attention", err)
+    return out

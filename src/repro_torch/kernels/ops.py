@@ -11,13 +11,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import block_compact as bc
-from repro_torch.kernels import filter_scan, moe_gmm, ref
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import filter_scan, moe_gmm, ref, ssd_scan
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import group_filter_agg as gfa
 
 LAUNCHES: dict[str, int] = {
     "group_filter_agg": 0, "group_filter_agg_multi": 0,
     "block_compact": 0, "filter_agg": 0, "gmm": 0, "flash_attention": 0,
+    "decode_attention": 0, "ssd_intra": 0,
 }
 
 
@@ -132,4 +134,39 @@ def flash_attention(
         return ref.flash_attention_ref(q, k, v, causal=causal)
     out = fa.launch(q, k, v, causal)
     LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def decode_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len, *, use_kernel: bool = True
+) -> torch.Tensor:
+    """One query token per sequence against its cache: q [B, Hq, dh],
+    k, v [B, S, Hkv, dh], ``kv_len`` [B] (or a number for every sequence)
+    valid slots -> [B, Hq, dh] in q's type.  Slots at or past ``kv_len`` are
+    never read; ``kv_len = 0`` gives zeros."""
+    kv_len = torch.as_tensor(kv_len, dtype=torch.int32, device=q.device)
+    if kv_len.dim() == 0:
+        kv_len = kv_len.expand(q.shape[0])
+    if not _route(q, use_kernel):
+        if use_kernel:
+            da.check_shapes(q, k, v, kv_len)
+        return ref.decode_attention_ref(q, k, v, kv_len)
+    out = da.launch(q, k, v, kv_len)
+    LAUNCHES["decode_attention"] += 1
+    return out
+
+
+def ssd_intra(
+    x: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+    *, chunk: int = 128, use_kernel: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD intra-chunk step over chunks of Q = min(chunk, S) steps (S
+    a multiple of Q): x [B, S, H, P], B and C [B, S, N], dt [B, S, H] f32,
+    a [H] f32 -> (y [B, S, H, P] f32, chunk states [B, S / Q, H, P, N] f32)."""
+    if not _route(x, use_kernel):
+        if use_kernel:
+            ssd_scan.check_shapes(x, bmat, cmat, dt, a, chunk)
+        return ref.ssd_intra_ref(x, bmat, cmat, dt, a, chunk)
+    out = ssd_scan.launch(x, bmat, cmat, dt, a, chunk)
+    LAUNCHES["ssd_intra"] += 1
     return out

@@ -138,3 +138,59 @@ def flash_attention_ref(
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(torch.float32))
     return o.reshape(b, sq, hq, dh).to(q.dtype)
+
+
+def decode_attention_ref(
+    q: torch.Tensor,  # [B, Hq, dh] — one query token per sequence
+    k: torch.Tensor,  # [B, S, Hkv, dh]
+    v: torch.Tensor,  # [B, S, Hkv, dh]
+    kv_len: torch.Tensor,  # [B] int — valid cache length per sequence
+) -> torch.Tensor:
+    """One query token per sequence against its first ``kv_len`` cache slots,
+    GQA (query head h reads KV head h // (Hq / Hkv)), f32 softmax, masked
+    scores -1e30.  Output [B, Hq, dh] in ``q.dtype``.  A sequence with
+    ``kv_len = 0`` gives zeros, as the TPU kernel does (the JAX oracle gives
+    the mean of V there)."""
+    b, hq, dh = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    qg = q.to(torch.float32).reshape(b, hkv, hq // hkv, dh)
+    scores = torch.einsum("bhgd,bkhd->bhgk", qg, k.to(torch.float32)) * (dh**-0.5)
+    kv_len = kv_len.to(q.device).reshape(-1, 1)
+    valid = torch.arange(s, device=q.device)[None] < kv_len  # [B, S]
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1) * (kv_len > 0).reshape(-1, 1, 1, 1)
+    o = torch.einsum("bhgk,bkhd->bhgd", p, v.to(torch.float32))
+    return o.reshape(b, hq, dh).to(q.dtype)
+
+
+def ssd_intra_ref(
+    x: torch.Tensor,  # [B, S, H, P]
+    bmat: torch.Tensor,  # [B, S, N]
+    cmat: torch.Tensor,  # [B, S, N]
+    dt: torch.Tensor,  # [B, S, H] (post-softplus)
+    a: torch.Tensor,  # [H] (negative)
+    chunk: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD intra-chunk step over every chunk of Q = min(chunk, S) steps
+    (S a multiple of Q), all in f32: y = (C B^T * decay * dt) x, causal within
+    the chunk, and each chunk's outgoing state sum_k exp(l_last - l_k) dt_k
+    B_k (x) x_k.  Returns (y [B, S, H, P], states [B, nc, H, P, N])."""
+    bsz, s, h, p = x.shape
+    n = bmat.shape[-1]
+    q = min(chunk, s)
+    nc = s // q
+    xc = x.to(torch.float32).reshape(bsz, nc, q, h, p)
+    bc = bmat.to(torch.float32).reshape(bsz, nc, q, n)
+    cc = cmat.to(torch.float32).reshape(bsz, nc, q, n)
+    dtc = dt.to(torch.float32).reshape(bsz, nc, q, h)
+    lcum = torch.cumsum(dtc * a.to(torch.float32), dim=2)  # [B,nc,Q,H]
+    l_last = lcum[:, :, -1]  # [B,nc,H]
+    cb = torch.einsum("bcqn,bckn->bcqk", cc, bc)
+    causal = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()[None, None, :, :, None]
+    ldiff = lcum[:, :, :, None, :] - lcum[:, :, None, :, :]  # [B,nc,Q,K,H]
+    decay = torch.where(causal, torch.exp(torch.where(causal, ldiff, 0.0)), 0.0)
+    m = cb[..., None] * decay * dtc[:, :, None, :, :]
+    y = torch.einsum("bcqkh,bckhp->bcqhp", m, xc)
+    seg = torch.exp(l_last[:, :, None, :] - lcum) * dtc  # [B,nc,Q,H]
+    states = torch.einsum("bckh,bckn,bckhp->bchpn", seg, bc, xc)
+    return y.reshape(bsz, s, h, p), states

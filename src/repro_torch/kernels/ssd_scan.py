@@ -1,0 +1,72 @@
+"""Mamba2 SSD intra-chunk step (K8): launch of ``csrc/ssd_intra.cu``.
+
+For every chunk of Q steps: ``y = (C B^T * decay * dt) x`` (causal within
+the chunk) and the chunk's outgoing state ``[P, N]``, in float32 from x/B/C
+in float32 or bfloat16.  Counterpart of the JAX package's
+``kernels/ssd_scan.py``; the inter-chunk recurrence stays with the caller
+(``models/ssm.ssd_chunked``), as it stays outside the Pallas kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+_I32, _PTR = ctypes.c_int, ctypes.c_void_p
+_SIGNATURES = {
+    "ssd_intra_error_string": ([_I32], ctypes.c_char_p),
+    "ssd_intra_launch": (
+        [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _PTR], _I32
+    ),
+}
+#: The kernel's input types (x, B and C alike) and their codes in ``ssd_intra_launch``.
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_CHUNK = 256
+MAX_HEAD_DIM = 128
+
+
+def check_shapes(x, bmat, cmat, dt, a, chunk: int) -> int:
+    """Raise on shapes the kernel does not take (any device); returns Q."""
+    if x.dim() != 4 or bmat.dim() != 3 or bmat.shape != cmat.shape:
+        raise ValueError(f"need x [B, S, H, P] and B, C [B, S, N], got "
+                         f"{tuple(x.shape)}, {tuple(bmat.shape)}, {tuple(cmat.shape)}")
+    b, s, h, _ = x.shape
+    if tuple(bmat.shape[:2]) != (b, s) or tuple(dt.shape) != (b, s, h) or tuple(a.shape) != (h,):
+        raise ValueError(f"B/C [B, S, N], dt [B, S, H] and a [H] must match x {tuple(x.shape)}: "
+                         f"{tuple(bmat.shape)}, {tuple(dt.shape)}, {tuple(a.shape)}")
+    q = min(chunk, s)
+    if q < 1 or s % q:
+        raise ValueError(f"S = {s} must be a multiple of the chunk Q = {q}")
+    return q
+
+
+def launch(x, bmat, cmat, dt, a, chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run the CUDA kernel; returns (y [B, S, H, P] f32, states [B, nc, H, P, N] f32)."""
+    dev = x.device
+    if dev.type != "cuda" or any(t.device != dev for t in (bmat, cmat, dt, a)):
+        raise ValueError(f"the kernel runs on CUDA tensors of one device, got {x.device}, "
+                         f"{bmat.device}, {cmat.device}, {dt.device}, {a.device}")
+    if x.dtype not in DTYPES or bmat.dtype != x.dtype or cmat.dtype != x.dtype:
+        raise ValueError(f"x, B and C must all be float32 or bfloat16, got {x.dtype}, {bmat.dtype}, {cmat.dtype}")
+    if dt.dtype != torch.float32 or a.dtype != torch.float32:
+        raise ValueError(f"dt and a must be float32, got {dt.dtype}, {a.dtype}")
+    q = check_shapes(x, bmat, cmat, dt, a, chunk)
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
+    if q > MAX_CHUNK or p > MAX_HEAD_DIM or s // q > 65535 or b > 65535:
+        raise ValueError(f"shape out of the kernel's range: Q={q} (<= {MAX_CHUNK}), P={p} (<= {MAX_HEAD_DIM}), "
+                         f"S={s}, B={b}")
+    x, bmat, cmat, dt, a = (t.contiguous() for t in (x, bmat, cmat, dt, a))
+
+    lib = build.bind("ssd_intra", _SIGNATURES)
+    y = torch.empty((b, s, h, p), dtype=torch.float32, device=dev)
+    states = torch.empty((b, s // q, h, p, n), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.ssd_intra_launch(
+        x.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), dt.data_ptr(), a.data_ptr(), y.data_ptr(),
+        states.data_ptr(), b, s, h, p, n, q, DTYPES[x.dtype], stream,
+    )
+    build.check_launch(lib, "ssd_intra", err)
+    return y, states

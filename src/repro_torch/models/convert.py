@@ -1,0 +1,41 @@
+"""Parameters of the JAX package's models, brought into the port.
+
+The port keeps the reference's parameter tree (the same keys, the body's
+leaves stacked over the pattern's repeats, the same layouts), so converting
+is a leaf-by-leaf copy.  Give the reference's tree with its leaves as numpy
+arrays (``jax.tree_util.tree_map(numpy.asarray, params)``); both packages
+then compute the same function.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+
+
+def _tensor(x: Any, device) -> torch.Tensor:
+    if not isinstance(x, np.ndarray):
+        raise TypeError(f"expected a numpy array leaf, got {type(x).__name__}")
+    if x.dtype.name == "bfloat16":  # numpy has no bfloat16 of its own: widen exactly, then narrow
+        return torch.from_numpy(x.astype(np.float32)).to(device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(x)).to(device)  # a writable copy
+
+
+def params_from_jax(cfg: ArchConfig, tree: dict[str, Any], device="cpu") -> dict[str, Any]:
+    """The port's parameters from the reference's tree of numpy arrays."""
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return _tensor(node, device)
+
+    expected = {"embed", "first", "body", "final_norm"} | ({"lm_head"} if not cfg.tie_embeddings else set())
+    if set(tree) != expected:
+        raise ValueError(f"{cfg.name}: expected the parameter groups {sorted(expected)}, got {sorted(tree)}")
+    if len(tree["first"]) != cfg.first_k_dense or set(tree["body"]) != {f"l{i}" for i in range(len(cfg.pattern))}:
+        raise ValueError(f"{cfg.name}: the tree's layers do not match the config's")
+    return walk(tree)

@@ -1,0 +1,102 @@
+"""Shared model layers: RMSNorm, rotary embeddings, the SwiGLU MLP, init.
+
+The port's copy of the JAX package's ``models/layers.py``.  Parameters are
+plain dicts of tensors (``Params``), in the reference's layouts.  Norms
+accumulate in float32 and return the input's type; weights are cast to the
+activations' type at each use, as in the reference.  The init functions
+store the matmul weights in the compute type (``weight_dtype``): the casts
+at each use then cost nothing and give the products the reference's
+float32 weights give.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+Params = dict[str, Any]
+
+
+def truncated_normal(gen: torch.Generator, shape, scale: float, dtype: torch.dtype) -> torch.Tensor:
+    """Standard normal truncated to [-2, 2], times ``scale``, drawn in float32
+    on ``gen``'s device and cast to ``dtype`` (the reference's distribution;
+    the two packages' generators give different numbers)."""
+    x = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return x.mul_(scale).to(dtype)
+
+
+def weight_dtype(cfg) -> torch.dtype:
+    """The type the init functions store matmul weights in: the compute
+    type, which the forward casts every weight to at each use.  Other
+    leaves (norm scales, the SSM's conv) keep ``param_dtype``."""
+    return getattr(torch, cfg.compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms — accumulate in fp32, return in input dtype.
+def init_norm(cfg, dim: int, dtype: torch.dtype, device) -> Params:
+    if cfg.norm != "rmsnorm":
+        raise ValueError(f"the port has no {cfg.norm!r} norm yet")
+    return {"scale": torch.ones(dim, dtype=dtype, device=device)}
+
+
+def apply_norm(cfg, p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm (the one norm of the configurations the port runs)."""
+    xf = x.to(torch.float32)
+    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (y * p["scale"].to(torch.float32)).to(x.dtype)
+
+
+def gated_rmsnorm(scale: torch.Tensor, x: torch.Tensor, z: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Mamba2's norm: RMSNorm(x * silu(z)). fp32 accumulation."""
+    xf = x.to(torch.float32) * F.silu(z.to(torch.float32))
+    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (y * scale.to(torch.float32)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings.
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    """[head_dim//2] inverse frequencies."""
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x [..., S, H, D]; positions [..., S] (int). Rotates the pairs
+    (x_i, x_{i+D/2}): the split-halves pairing of the reference."""
+    d = x.shape[-1]
+    ang = positions[..., None].to(torch.float32) * rope_freqs(d, theta, x.device)  # [..., S, D/2]
+    cos = torch.cos(ang)[..., None, :]  # [..., S, 1, D/2]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def apply_positional(cfg, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    if cfg.rope == "rope":
+        return apply_rope(x, positions, cfg.rope_theta)
+    if cfg.rope == "none":
+        return x
+    raise ValueError(f"the port has no {cfg.rope!r} positional encoding yet")
+
+
+# ---------------------------------------------------------------------------
+# Dense FFN.
+def init_mlp(cfg, gen: torch.Generator, stack: tuple = ()) -> Params:
+    if cfg.act != "swiglu":
+        raise ValueError(f"the port has no {cfg.act!r} MLP yet")
+    d, f, wt = cfg.d_model, cfg.d_ff, weight_dtype(cfg)
+    return {
+        "wi": truncated_normal(gen, stack + (d, 2, f), d**-0.5, wt),
+        "wo": truncated_normal(gen, stack + (f, d), f**-0.5, wt),
+    }
+
+
+def apply_mlp(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU: wi [d, 2, f] holds the gate and the up projection."""
+    wi = p["wi"].to(x.dtype)
+    d, _, f = wi.shape
+    h = (x @ wi.reshape(d, 2 * f)).unflatten(-1, (2, f))
+    return (F.silu(h[..., 0, :]) * h[..., 1, :]) @ p["wo"].to(x.dtype)

@@ -1,10 +1,12 @@
-"""Request/completion surface of the query-serving front end.
+"""Shared request/completion surface for the serving loops.
 
-A `QueryRequest` enters through a `RequestQueue`, a `QueryCompletion` leaves
-with its result.  `RequestQueue` is the admission-control half: a bounded
-FIFO deque that sheds on overflow and accounts for every offered request,
-so open-loop load generators can report rejection rates honestly.  The
-behaviour is the JAX package's ``runtime/requests.py``, query half.
+Both serving front ends — token decode (`serve_loop.SlotServer`) and query
+serving (`serve_query.QueryServer`) — speak the same submit/complete
+vocabulary: a `Request` enters through a queue, a `Completion` leaves with
+its result.  `RequestQueue` is the admission-control half: a bounded FIFO
+deque that sheds on overflow and accounts for every offered request, so
+open-loop load generators can report rejection rates honestly.  The
+behaviour is the JAX package's ``runtime/requests.py``.
 """
 from __future__ import annotations
 
@@ -12,6 +14,26 @@ import collections
 import dataclasses
 import threading
 from typing import Any, Callable, Iterator
+
+import torch
+
+
+@dataclasses.dataclass
+class Request:
+    """A token-decode request (see serve_loop.SlotServer)."""
+
+    uid: int
+    prompt: torch.Tensor  # [S] int
+    max_new_tokens: int = 32
+
+
+@dataclasses.dataclass
+class Completion:
+    """A finished token-decode request."""
+
+    uid: int
+    tokens: list[int]
+    prompt_len: int
 
 
 @dataclasses.dataclass

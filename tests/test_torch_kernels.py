@@ -1,6 +1,6 @@
-"""The plain versions of the port's K3-K6 kernels (``block_compact``,
-``filter_agg``, ``gmm``, ``flash_attention``) against the JAX package on the
-CPU: its oracles (``repro.kernels.ref``) and its Pallas kernels in interpret
+"""The plain versions of the port's K3-K8 kernels (``block_compact``,
+``filter_agg``, ``gmm``, ``flash_attention``, ``decode_attention``,
+``ssd_intra``) against the JAX package on the CPU: its oracles (``repro.kernels.ref``) and its Pallas kernels in interpret
 mode (``repro.kernels.ops``, as ``tests/test_kernels.py`` runs them), plus the
 wrappers' routing, their launch checks and the build of the new sources."""
 from __future__ import annotations
@@ -15,7 +15,8 @@ import numpy as np  # noqa: E402
 from repro.kernels import ops as jkops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import block_compact as bc  # noqa: E402
-from repro_torch.kernels import build, filter_scan, moe_gmm  # noqa: E402
+from repro_torch.kernels import build, filter_scan, moe_gmm, ssd_scan  # noqa: E402
+from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
@@ -172,6 +173,104 @@ def test_flash_attention_plain_keeps_the_causal_offset():
     np.testing.assert_allclose(f32(got), f32(want), **_tol("float32"))
 
 
+# -- K7 decode_attention ---------------------------------------------------------
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("b,s,hq,hkv,dh,bk,lens", [
+    (2, 256, 8, 4, 64, 128, (100, 256)),
+    (1, 512, 4, 1, 128, 256, (1,)),  # single valid token
+    (3, 128, 6, 2, 32, 64, (128, 64, 17)),
+])
+def test_decode_attention_plain_equals_reference(dtype, b, s, hq, hkv, dh, bk, lens):
+    rng = np.random.default_rng(s + hq)
+    jq, tq = both(rng.standard_normal((b, hq, dh), dtype=np.float32), dtype)
+    jk, tk = both(rng.standard_normal((b, s, hkv, dh), dtype=np.float32), dtype)
+    jv, tv = both(rng.standard_normal((b, s, hkv, dh), dtype=np.float32), dtype)
+    kv_len = np.asarray(lens, np.int32)
+    got = kops.decode_attention(tq, tk, tv, torch.from_numpy(kv_len))
+    assert got.shape == tq.shape and got.dtype == tq.dtype
+    jl = jnp.asarray(kv_len)
+    for want in (jref.decode_attention_ref(jq, jk, jv, jl), jkops.decode_attention(jq, jk, jv, jl, block_k=bk)):
+        np.testing.assert_allclose(f32(got), f32(want), **_tol(dtype))
+
+
+def test_decode_attention_plain_ignores_tail():
+    """Cache contents past kv_len must not affect the output."""
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+               for s in ((1, 4, 64), (1, 256, 2, 64), (1, 256, 2, 64)))
+    kv_len = torch.tensor([100], dtype=torch.int32)
+    out1 = kops.decode_attention(q, k, v, kv_len)
+    k2 = k.clone()
+    k2[:, 100:] = 50 * torch.from_numpy(rng.standard_normal((1, 156, 2, 64), dtype=np.float32))
+    assert torch.equal(out1, kops.decode_attention(q, k2, v, kv_len))
+
+
+def test_decode_attention_plain_takes_a_number_and_gives_zeros_at_kv_len_0():
+    """A number is every sequence's kv_len; kv_len = 0 gives zeros, as the TPU
+    kernel does (the JAX oracle gives the mean of V there)."""
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+               for s in ((2, 4, 32), (2, 64, 2, 32), (2, 64, 2, 32)))
+    assert torch.equal(kops.decode_attention(q, k, v, 17), kops.decode_attention(q, k, v, torch.tensor([17, 17])))
+    out = kops.decode_attention(q, k, v, torch.tensor([0, 5]))
+    assert not out[0].any() and out[1].abs().sum() > 0
+    jq, jk, jv = (jnp.asarray(t.numpy()) for t in (q, k, v))
+    kern = jkops.decode_attention(jq, jk, jv, jnp.asarray([0, 5], jnp.int32), block_k=64)
+    np.testing.assert_allclose(out.numpy(), np.asarray(kern), **_tol("float32"))
+
+
+def test_decode_attention_split_depends_on_s_alone():
+    assert [da.split_size(s) for s in (1, 64, 65, 256, 2048, 2049, 4096, 8192)] == [
+        64, 64, 64, 64, 64, 128, 128, 256,
+    ]
+    for s in (1, 300, 4096, 100_000):
+        split = da.split_size(s)
+        assert split % 64 == 0 and -(-s // split) <= da.MAX_SPLITS
+
+
+# -- K8 ssd_intra ----------------------------------------------------------------
+def _ssd_inputs(seed, b, s, h, p, n, dtype="float32"):
+    rng = np.random.default_rng(seed)
+    x = both(rng.standard_normal((b, s, h, p), dtype=np.float32), dtype)
+    bm = both(0.5 * rng.standard_normal((b, s, n), dtype=np.float32), dtype)
+    cm = both(0.5 * rng.standard_normal((b, s, n), dtype=np.float32), dtype)
+    dt = both(np.log1p(np.exp(rng.standard_normal((b, s, h), dtype=np.float32))))
+    a = both(-np.exp(np.linspace(0.0, 1.5, h, dtype=np.float32)))
+    return x, bm, cm, dt, a
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (1, 128, 2, 16, 16, 128), (2, 256, 4, 32, 16, 128), (1, 256, 2, 64, 32, 256),
+])
+def test_ssd_intra_plain_equals_reference(dtype, b, s, h, p, n, chunk):
+    args = _ssd_inputs(s + h, b, s, h, p, n, dtype)
+    jargs, targs = [a[0] for a in args], [a[1] for a in args]
+    y, st = kops.ssd_intra(*targs, chunk=chunk)
+    q = min(chunk, s)
+    assert y.shape == (b, s, h, p) and st.shape == (b, s // q, h, p, n) and y.dtype == st.dtype == torch.float32
+    jy, jst = jkops.ssd_intra(*jargs, chunk=chunk)  # the Pallas kernel in interpret mode
+    tol = dict(rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **tol)
+    np.testing.assert_allclose(st.numpy(), np.asarray(jst), **tol)
+    for c in range(s // q):  # the oracle, one chunk at a time
+        sl = slice(c * q, (c + 1) * q)
+        ry, rst = jref.ssd_intra_ref(jargs[0][:, sl], jargs[1][:, sl], jargs[2][:, sl], jargs[3][:, sl], jargs[4])
+        np.testing.assert_allclose(y[:, sl].numpy(), np.asarray(ry), **tol)
+        np.testing.assert_allclose(st[:, c].numpy(), np.asarray(rst), **tol)
+
+
+def test_ssd_intra_plain_takes_any_chunk_length():
+    """Q = min(chunk, S): a 17-step sequence is one chunk of 17."""
+    args = _ssd_inputs(17, 2, 17, 3, 8, 16)
+    y, st = kops.ssd_intra(*[a[1] for a in args], chunk=64)
+    ry, rst = jref.ssd_intra_ref(*[a[0] for a in args])
+    np.testing.assert_allclose(y.numpy(), np.asarray(ry), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(st[:, 0].numpy(), np.asarray(rst), rtol=2e-4, atol=2e-4)
+    with pytest.raises(ValueError):
+        kops.ssd_intra(*[a[1] for a in args], chunk=8)  # 17 is not a multiple of 8
+
+
 # -- routing, launch checks, build ---------------------------------------------
 def _calls(device="cpu"):
     rng = np.random.default_rng(0)
@@ -181,10 +280,13 @@ def _calls(device="cpu"):
         "filter_agg": lambda **kw: kops.filter_agg(t(4, 50), -0.5, 0.5, -1.0, 1.0, **kw),
         "gmm": lambda **kw: kops.gmm(t(2, 5, 6), t(2, 6, 7), **kw),
         "flash_attention": lambda **kw: kops.flash_attention(t(1, 9, 4, 32), t(1, 9, 2, 32), t(1, 9, 2, 32), **kw),
+        "decode_attention": lambda **kw: kops.decode_attention(t(2, 4, 32), t(2, 9, 2, 32), t(2, 9, 2, 32), 5, **kw),
+        "ssd_intra": lambda **kw: kops.ssd_intra(t(1, 8, 2, 4), t(1, 8, 3), t(1, 8, 3), t(1, 8, 2).abs(),
+                                                 -t(2).abs(), chunk=4, **kw),
     }
 
 
-@pytest.mark.parametrize("name", ["block_compact", "filter_agg", "gmm", "flash_attention"])
+@pytest.mark.parametrize("name", ["block_compact", "filter_agg", "gmm", "flash_attention", "decode_attention", "ssd_intra"])
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing(name):
     kops.reset_launches()
     got = _calls()[name]()
@@ -194,7 +296,7 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing(name):
     assert set(kops.LAUNCHES.values()) == {0}
 
 
-@pytest.mark.parametrize("name", ["block_compact", "filter_agg", "gmm", "flash_attention"])
+@pytest.mark.parametrize("name", ["block_compact", "filter_agg", "gmm", "flash_attention", "decode_attention", "ssd_intra"])
 def test_other_devices_raise(name):
     with pytest.raises(ValueError):
         _calls("meta")[name]()
@@ -210,6 +312,11 @@ def test_launches_refuse_cpu_tensors_before_building():
         moe_gmm.launch(torch.zeros((1, 2, 3)), torch.zeros((1, 3, 4)))
     with pytest.raises(ValueError):
         fa.launch(torch.zeros((1, 8, 2, 32)), torch.zeros((1, 8, 2, 32)), torch.zeros((1, 8, 2, 32)), True)
+    with pytest.raises(ValueError):
+        da.launch(torch.zeros((1, 4, 32)), torch.zeros((1, 8, 2, 32)), torch.zeros((1, 8, 2, 32)), torch.ones(1))
+    with pytest.raises(ValueError):
+        ssd_scan.launch(torch.zeros((1, 8, 2, 4)), torch.zeros((1, 8, 3)), torch.zeros((1, 8, 3)),
+                        torch.ones((1, 8, 2)), -torch.ones(2), 4)
 
 
 @pytest.mark.parametrize("q,k,causal", [
@@ -224,6 +331,7 @@ def test_flash_attention_rejects_what_the_kernel_cannot_take(q, k, causal):
 
 @pytest.mark.parametrize("name,module", [
     ("block_compact", bc), ("filter_agg", filter_scan), ("gmm", moe_gmm), ("flash_attention", fa),
+    ("decode_attention", da), ("ssd_intra", ssd_scan),
 ])
 def test_build_covers_every_new_source(monkeypatch, name, module):
     monkeypatch.setattr(build, "nvcc_path", lambda: "nvcc")
@@ -234,3 +342,13 @@ def test_build_covers_every_new_source(monkeypatch, name, module):
     c_interface = (build.CSRC / f"{name}.cu").read_text().split('extern "C" {')[1]
     for fn in module._SIGNATURES:
         assert f" {fn}(" in c_interface, fn
+
+
+@pytest.mark.parametrize("q,k,kv_len", [
+    ((2, 3, 32), (2, 8, 2, 32), (2,)),  # Hkv must divide Hq
+    ((2, 4, 32), (2, 8, 2, 64), (2,)),  # head dims differ
+    ((2, 4, 32), (2, 8, 2, 32), (3,)),  # one kv_len a sequence
+])
+def test_decode_attention_rejects_what_the_kernel_cannot_take(q, k, kv_len):
+    with pytest.raises(ValueError):
+        kops.decode_attention(torch.zeros(q), torch.zeros(k), torch.zeros(k), torch.ones(kv_len, dtype=torch.int32))
