@@ -31,6 +31,7 @@ import dataclasses
 import gc
 import json
 import random
+import re
 import subprocess
 import sys
 import time
@@ -394,8 +395,54 @@ def compare_k6(label, b, sq, sk, hq, hkv, dh, dtype, causal, gen, dev):
     return err
 
 
+def k6_batch_independence(s, dh, gen, dev):
+    """K6 in bf16 at B = 2 and ragged S with one sequence's K and V all inf:
+    the other sequence's output is finite and equal, bit for bit, to that
+    sequence run alone, both ways round.  A tile that read past Sk into the
+    neighbouring sequence would turn 0 x inf into NaN there."""
+    from repro_torch.kernels import ops as kops
+
+    bf16, hq, hkv = torch.bfloat16, 32, 8
+    q = torch.randn((2, s, hq, dh), generator=gen, device=dev).to(bf16)
+    k = torch.randn((2, s, hkv, dh), generator=gen, device=dev).to(bf16)
+    v = torch.randn((2, s, hkv, dh), generator=gen, device=dev).to(bf16)
+    for bad in (0, 1):
+        good = 1 - bad
+        kb, vb = k.clone(), v.clone()
+        kb[bad], vb[bad] = float("inf"), float("inf")
+        both = kops.flash_attention(q, kb, vb, causal=True)[good]
+        alone = kops.flash_attention(q[good:good + 1], k[good:good + 1], v[good:good + 1], causal=True)[0]
+        check(bool(torch.isfinite(both).all()), f"k6 batch independence S={s} dh={dh}: sequence {good} not finite")
+        check(torch.equal(both, alone), f"k6 batch independence S={s} dh={dh}: sequence {good} differs from alone")
+    print(f"[k6] batch independence: B=2 S={s} dh={dh} bf16, either sequence's K/V inf: the other finite "
+          f"and equal to it alone", flush=True)
+
+
+def sass_counts(name: str) -> dict[str, int]:
+    """Counts of tensor-core (HGMMA) and TMA-load (UTMALDG) instructions in
+    the built library of csrc/<name>.cu, from cuobjdump -sass."""
+    from repro_torch.kernels import build
+
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
+                         capture_output=True, text=True, timeout=300, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", out)) for op in ("HGMMA", "UTMALDG")}
+
+
+def spills(log: str) -> dict[str, int]:
+    """Spill-store bytes of each entry function in ptxas's -v report."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif "spill stores" in line and fn is not None:
+            out[fn] = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+    return out
+
+
 def k5_k6_phase(dev):
     """K5 and K6 at accel_torch's sizes, the reference's sweep shapes and ragged shapes."""
+    from repro_torch.kernels import ops as kops
     from repro_torch.tasks.plugins.accel import _SIZES
 
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -407,6 +454,10 @@ def k5_k6_phase(dev):
     for dtype in (f32, bf16):
         for e, c, d, f in [(2, 128, 128, 128), (4, 256, 512, 256), (8, 128, 256, 384), (3, 100, 72, 136)]:
             compare_k5("sweep" if c != 100 else "ragged", e, c, d, f, dtype, gen, dev)
+        # Edges off the kernel's 128-row / 64-column / 16-deep tiles: rows of
+        # whole 16-byte chunks (cp.async) and rows that are not (element copies).
+        for e, c, d, f in [(3, 130, 24, 72), (2, 77, 33, 70), (1, 1, 1, 1), (2, 257, 100, 200)]:
+            compare_k5("edges", e, c, d, f, dtype, gen, dev)
         for b, s, hq, hkv, dh in [(1, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 512, 4, 1, 128),
                                   (2, 256, 6, 2, 32), (2, 300, 6, 2, 64), (1, 300, 4, 2, 128)]:
             compare_k6("sweep" if s != 300 else "ragged", b, s, s, hq, hkv, dh, dtype, True, gen, dev)
@@ -418,6 +469,15 @@ def k5_k6_phase(dev):
         err = compare_k6("granite prefill", 1, 2048, 2048, 32, 8, 128, dtype, True, gen, dev)
         if dtype == bf16:
             errs["attn_granite"] = err
+    # The tensor-core path (bf16, dh 64 and 128) around its 128-row and 64-key tiles.
+    for s in (1, 63, 65, 127, 129, 2047):
+        compare_k6("granite heads", 1, s, s, 32, 8, 128, bf16, True, gen, dev)
+    for dh in (64, 128):
+        compare_k6("ragged batch", 2, 100, 100, 32, 8, dh, bf16, True, gen, dev)
+        compare_k6("ragged batch", 2, 129, 129, 8, 2, dh, bf16, True, gen, dev)
+        compare_k6("non-causal Sq != Sk", 2, 100, 300, 8, 2, dh, bf16, False, gen, dev)
+        compare_k6("non-causal Sq != Sk", 2, 200, 70, 8, 4, dh, bf16, False, gen, dev)
+        k6_batch_independence(100, dh, gen, dev)
     return errs
 
 
@@ -710,31 +770,31 @@ def lm_serve_phase(arch):
 def device_share(label, fn, calls=3):
     """The card's busy share of the wall time over ``calls`` calls of fn, and
     its busiest kernels, from torch.profiler (the profiler's own host cost
-    lowers the share).  Prints "not measured" if the trace has no device time."""
+    lowers the share).  A trace without device time fails the run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-            wall_us = 1e6 * (time.perf_counter() - t0)
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        busy_us = sum(e.self_device_time_total for e in kernels)
-    except (RuntimeError, AttributeError) as exc:  # the profiler is untried on this machine
-        print(f"[profile] {label}: device share not measured ({exc})", flush=True)
-        return None
-    if busy_us <= 0:
-        print(f"[profile] {label}: device share not measured (no device time in the trace)", flush=True)
-        return None
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    check(busy_us > 0, f"{label}: the profiler's trace has no device time")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     tops = "; ".join(f"{e.key[:48]} {e.self_device_time_total / calls / 1e3:.3f} ms" for e in top)
+    names = {"flash_attention": ("flash_attention",), "decode_attention": ("decode_split", "decode_combine"),
+             "ssd_intra": ("ssd_intra",)}  # the port's kernels by their CUDA function names
+    ours = {k: sum(e.self_device_time_total for e in kernels if any(n in e.key for n in ns))
+            for k, ns in names.items()}
+    shares = ", ".join(f"{k} {v / calls / 1e3:.3f} ms ({100 * v / busy_us:.1f}% of busy)" for k, v in ours.items() if v)
     print(f"[profile] {label}: wall {wall_us / calls / 1e3:.2f} ms a call, card busy "
-          f"{busy_us / calls / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}%); top kernels a call: {tops}", flush=True)
+          f"{busy_us / calls / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}%); port kernels a call: {shares or 'none'}; "
+          f"top kernels a call: {tops}", flush=True)
     return busy_us / wall_us
 
 
@@ -1152,6 +1212,16 @@ def main() -> int:
         for line in log.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"[build] {src}: {line.strip()}", flush=True)
+    # The redesigned kernels (K6's tensor-core kernel, K5) keep every value in
+    # registers (ptxas reports only on a build, not on a library already built).
+    redesigned = {fn: n for src in ("flash_attention", "gmm") for fn, n in spills(logs[src]).items()
+                  if "flash_attention_tc_kernel" in fn or "gmm_kernel" in fn}
+    want = {"flash_attention": 2, "gmm": 2}  # dh 64 / 128; f32 / bf16
+    check(len(redesigned) == sum(n for src, n in want.items() if logs[src]) and not any(redesigned.values()),
+          f"ptxas spills in K5/K6: {redesigned}")
+    sass = sass_counts("flash_attention")
+    print(f"[sass] flash_attention: {json.dumps(sass)}", flush=True)
+    check(min(sass.values()) > 0, f"flash_attention's library lacks tensor-core or TMA instructions: {sass}")
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled at first use with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, under
 ``build/repro_torch/`` at the root of the checkout.  The library's file name
-carries the source's content hash, so a source is rebuilt only when it
-changes.  PyTorch's own extension builder is not used: a source that includes
+carries the content hash of the source and of every ``csrc/*.cuh`` header it
+may include, so a source is rebuilt only when it or a header changes.
+PyTorch's own extension builder is not used: a source that includes
 PyTorch's headers takes minutes to compile, a plain C interface seconds.
 
 Nothing here runs at import time; :func:`load` builds on demand.
@@ -46,8 +47,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` lives for the source as it is now."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    """Where the library of ``csrc/<name>.cu`` lives for the source and the
+    shared headers as they are now."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -4,6 +4,8 @@
 or not, float32 or bfloat16, output in q's type.  Counterpart of the JAX
 package's ``kernels/flash_attention.py``; the kernel masks ragged tails of
 Sq and Sk itself, so no block sizes are chosen and no shape is padded.
+bfloat16 at dh 64 and 128 runs on the tensor cores with TMA loads, which
+need 16-byte-aligned tensors; everything else on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ _SIGNATURES = {
 #: The kernel's input types and their codes in ``flash_attention_launch``.
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
+#: Head dims whose bfloat16 inputs go to the tensor-core (TMA + wgmma) kernel.
+TENSOR_CORE_HEAD_DIMS = (64, 128)
 
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> None:
@@ -52,6 +56,10 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> t
     if min(b, sq, sk) < 1 or max(b, hq) > 65535:
         raise ValueError(f"shape out of the kernel's range: B={b} Sq={sq} Sk={sk} Hq={hq}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if q.dtype == torch.bfloat16 and dh in TENSOR_CORE_HEAD_DIMS:
+        for label, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{label} must start 16-byte aligned for the TMA loads, got {t.data_ptr():#x}")
 
     lib = build.bind("flash_attention", _SIGNATURES)
     out = torch.empty_like(q)

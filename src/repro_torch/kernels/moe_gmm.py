@@ -32,7 +32,7 @@ def launch(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"need [E, C, d] x [E, d, f], got {tuple(lhs.shape)} x {tuple(rhs.shape)}")
     e, c, d = lhs.shape
     f = rhs.shape[2]
-    if min(e, c, d, f) < 1 or e > 65535 or max(c, d, f) >= 2**31 // 64:
+    if min(e, c, d, f) < 1 or e > 65535 or c > 65535 * 128 or max(c, d, f) >= 2**31 // 64:
         raise ValueError(f"shape out of the kernel's range: E={e} C={c} d={d} f={f}")
     lhs, rhs = lhs.contiguous(), rhs.contiguous()
 

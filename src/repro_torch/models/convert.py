@@ -24,8 +24,9 @@ def _tensor(x: Any, device) -> torch.Tensor:
     return torch.from_numpy(np.array(x)).to(device)  # a writable copy
 
 
-def params_from_jax(cfg: ArchConfig, tree: dict[str, Any], device="cpu") -> dict[str, Any]:
-    """The port's parameters from the reference's tree of numpy arrays."""
+def params_from_jax(cfg: ArchConfig, tree: dict[str, Any], device="cuda") -> dict[str, Any]:
+    """The port's parameters from the reference's tree of numpy arrays, on
+    ``device`` (the card unless the caller asks for the CPU)."""
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}

@@ -40,7 +40,7 @@ def models():
         jp = jm.init(jax.random.PRNGKey(1))
         cfg = base.tiny(base.get_arch(arch))
         out[arch] = (cfg, jm, jp, Model(cfg, device="cpu"),
-                     params_from_jax(cfg, jax.tree_util.tree_map(np.asarray, jp)))
+                     params_from_jax(cfg, jax.tree_util.tree_map(np.asarray, jp), device="cpu"))
     return out
 
 
@@ -133,6 +133,18 @@ def test_params_from_jax_gives_the_port_s_own_tree(models, arch):
     got = {k: (tuple(v.shape), v.dtype) for k, v in leaves(params)}
     want = {k: (tuple(v.shape), v.dtype) for k, v in leaves(model.init(0))}
     assert got == want
+
+
+def test_params_from_jax_defaults_to_the_card(models):
+    """Without ``device`` the parameters go to the card: on a machine without
+    one the call raises rather than giving CPU tensors."""
+    cfg, _, jp, _, _ = models[ARCHS[0]]
+    tree = jax.tree_util.tree_map(np.asarray, jp)
+    if torch.cuda.is_available():
+        assert all(v.device.type == "cuda" for _, v in leaves(params_from_jax(cfg, tree)))
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            params_from_jax(cfg, tree)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -37,7 +37,7 @@ def served():
         jm = JModel(jbase.tiny(jbase.get_arch(arch), vocab_size=128))
         jp = jm.init(jax.random.PRNGKey(0))
         cfg = base.tiny(base.get_arch(arch), vocab_size=128)
-        out[arch] = (jm, jp, Model(cfg, device="cpu"), params_from_jax(cfg, jax.tree_util.tree_map(np.asarray, jp)))
+        out[arch] = (jm, jp, Model(cfg, device="cpu"), params_from_jax(cfg, jax.tree_util.tree_map(np.asarray, jp), device="cpu"))
     return out
 
 
