@@ -418,25 +418,29 @@ def k6_batch_independence(s, dh, gen, dev):
           f"and equal to it alone", flush=True)
 
 
-def sass_counts(name: str) -> dict[str, int]:
-    """Counts of tensor-core (HGMMA) and TMA-load (UTMALDG) instructions in
-    the built library of csrc/<name>.cu, from cuobjdump -sass."""
+def sass_counts(name: str, ops: tuple[str, ...]) -> dict[str, int]:
+    """Counts of the SASS instructions ``ops`` (HGMMA and UTMALDG: wgmma and
+    TMA loads; HMMA and LDSM: mma.sync and ldmatrix) in the built library of
+    csrc/<name>.cu, from cuobjdump -sass."""
     from repro_torch.kernels import build
 
     tool = Path(build.nvcc_path()).parent / "cuobjdump"
     out = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
                          capture_output=True, text=True, timeout=300, check=True).stdout
-    return {op: len(re.findall(rf"\b{op}\b", out)) for op in ("HGMMA", "UTMALDG")}
+    return {op: len(re.findall(rf"\b{op}\b", out)) for op in ops}
 
 
-def spills(log: str) -> dict[str, int]:
-    """Spill-store bytes of each entry function in ptxas's -v report."""
+def ptxas_report(log: str) -> dict[str, dict[str, int]]:
+    """Registers and spill-store bytes of each entry function in ptxas's -v report."""
     out, fn = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1]
-        elif "spill stores" in line and fn is not None:
-            out[fn] = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+            out[fn] = {}
+        elif fn is not None and "spill stores" in line:
+            out[fn]["spill_bytes"] = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif fn is not None and "Used" in line and "registers" in line:
+            out[fn]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
     return out
 
 
@@ -482,8 +486,11 @@ def k5_k6_phase(dev):
 
 
 def compare_k7(label, b, s, hq, hkv, dh, lens, dtype, gen, dev):
-    """K7 against its plain version; cache contents past kv_len (inf keys, NaN
-    values) change no bit; each slot alone equals the slot in the batch."""
+    """K7 against its plain version; a second launch straight after the first
+    gives the same bits and leaves the arrival counters at 0; cache contents
+    past kv_len (inf keys, NaN values) change no bit; each slot alone equals
+    the slot in the batch."""
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ops as kops
 
     q = torch.randn((b, hq, dh), generator=gen, device=dev).to(dtype)
@@ -491,6 +498,10 @@ def compare_k7(label, b, s, hq, hkv, dh, lens, dtype, gen, dev):
     v = torch.randn((b, s, hkv, dh), generator=gen, device=dev).to(dtype)
     kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
     got = kops.decode_attention(q, k, v, kv_len)
+    again = kops.decode_attention(q, k, v, kv_len)  # straight after: the first launch left its counters at 0
+    counters = [c for _, c in da.WORKSPACES.values()]
+    check(all(not bool(c.any()) for c in counters), f"k7 {label}: arrival counters not back at 0 after a launch")
+    check(torch.equal(got, again), f"k7 {label}: a second launch straight after the first must give the same bits")
     err = close(f"k7 {label}", got, kops.decode_attention(q, k, v, kv_len, use_kernel=False), *ATTN_TOL[dtype])
     check(torch.equal(got, kops.decode_attention(q, k, v, kv_len)), f"k7 {label}: a repeated launch must give the same bits")
     k2, v2 = k.clone(), v.clone()
@@ -502,7 +513,7 @@ def compare_k7(label, b, s, hq, hkv, dh, lens, dtype, gen, dev):
         alone = kops.decode_attention(q[i : i + 1], k[i : i + 1], v[i : i + 1], kv_len[i : i + 1])
         check(torch.equal(alone, got[i : i + 1]), f"k7 {label}: slot {i} alone != slot {i} in the batch")
     print(f"[k7] {label}: B={b} S={s} Hq={hq} Hkv={hkv} dh={dh} kv_len={list(lens)} {dtype} max_abs_err {err:.3g}; "
-          f"tail ignored, each slot alone == in the batch, repeat equal (torch.equal)", flush=True)
+          f"tail ignored, each slot alone == in the batch, repeats equal (torch.equal), counters 0", flush=True)
     return err
 
 
@@ -524,7 +535,11 @@ def compare_k8(label, b, s, h, p, n, chunk, dtype, gen, dev):
 
 def k7_k8_phase(dev):
     """K7 at Granite-3-8B's decode shape and K8 at Mamba2-2.7B's prefill shape,
-    then the reference's sweep shapes and ragged ones, in bf16 and f32."""
+    then the reference's sweep shapes and ragged ones, in bf16 and f32; K7
+    in bf16 also at G = 1, 8 and 16 with kv_len 1 and on both sides of a
+    split edge."""
+    from repro_torch.kernels import decode_attention as da
+
     gen = torch.Generator(device=dev).manual_seed(14)
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -534,6 +549,11 @@ def k7_k8_phase(dev):
         for b, s, hq, hkv, dh, lens in [(2, 256, 8, 4, 64, (100, 256)), (1, 512, 4, 1, 128, (1,)),
                                         (3, 128, 6, 2, 32, (128, 64, 17)), (4, 300, 32, 8, 128, (5, 300, 299, 1))]:
             compare_k7("sweep" if s != 300 else "ragged S", b, s, hq, hkv, dh, lens, dtype, gen, dev)
+        if dtype == torch.bfloat16:  # the tensor-core kernel's 16-row Q tile, its split edges and warp steps
+            for g, hkv, dh in [(1, 8, 128), (8, 4, 128), (16, 2, 128), (16, 1, 64), (1, 2, 32)]:
+                for s in (4096, 1000):
+                    split = da.split_size(s)
+                    compare_k7(f"G={g}", 4, s, g * hkv, hkv, dh, (1, split - 1, split, split + 1), dtype, gen, dev)
         errs[f"k8_{tag}"] = compare_k8("mamba2 prefill", 1, 2048, 80, 64, 128, 64, dtype, gen, dev)
         for b, s, h, p, n, chunk in [(1, 128, 2, 16, 16, 128), (2, 256, 4, 32, 16, 128), (1, 256, 2, 64, 32, 256)]:
             compare_k8("sweep", b, s, h, p, n, chunk, dtype, gen, dev)
@@ -787,7 +807,8 @@ def device_share(label, fn, calls=3):
     check(busy_us > 0, f"{label}: the profiler's trace has no device time")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     tops = "; ".join(f"{e.key[:48]} {e.self_device_time_total / calls / 1e3:.3f} ms" for e in top)
-    names = {"flash_attention": ("flash_attention",), "decode_attention": ("decode_split", "decode_combine"),
+    names = {"flash_attention": ("flash_attention",),
+             "decode_attention": ("decode_mma", "decode_split", "decode_combine"),
              "ssd_intra": ("ssd_intra",)}  # the port's kernels by their CUDA function names
     ours = {k: sum(e.self_device_time_total for e in kernels if any(n in e.key for n in ns))
             for k, ns in names.items()}
@@ -1137,6 +1158,19 @@ def new_kernel_entries(tables, name, launches, errs):
     ]
 
 
+def sdpa_backend(fn) -> str:
+    """The aten operators one call of ``fn`` dispatches SDPA to (flash,
+    memory-efficient, cuDNN or math), from torch.profiler's CPU events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages() if "_scaled_dot_product_" in e.key})
+    check(bool(names), "no SDPA operator in the profile of an SDPA call")
+    return ", ".join(names)
+
+
 def lm_kernel_entries(name, launches, errs):
     """K7 at the long-context decode shape of Granite-3-8B (8 slots, a
     4096-slot cache, 2,064 valid keys each, bf16) and K8 at Mamba2-2.7B's
@@ -1158,8 +1192,15 @@ def lm_kernel_entries(name, launches, errs):
     mask = (torch.arange(s, device=dev)[None] < kv_len[:, None])[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     k7lib = lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
+    # SDPA over the cache cut to kv_len (every slot of this batch has the same), no mask.
+    kc, vc = kt[:, :, :kvl].contiguous(), vt[:, :, :kvl].contiguous()
+    k7cut = lambda: sdpa(qt, kc, vc, enable_gqa=True)  # noqa: E731
     lib_err = float((k7lib()[:, :, 0].float() - k7().float()).abs().max())
-    print(f"[times] sdpa vs decode_attention kernel at the long-context decode shape: max_abs_err {lib_err:.3g}", flush=True)
+    cut_err = float((k7cut()[:, :, 0].float() - k7().float()).abs().max())
+    backends = {"masked": sdpa_backend(k7lib), "cut": sdpa_backend(k7cut)}
+    print(f"[times] sdpa vs decode_attention kernel at the long-context decode shape: max_abs_err {lib_err:.3g} "
+          f"(bool mask over {s} slots), {cut_err:.3g} (cache cut to {kvl}, no mask); backends {json.dumps(backends)}",
+          flush=True)
     k7_bytes = 2 * (2 * q.numel() + 2 * b * kvl * hkv * dh)  # q, out, and the valid keys and values once
     k7_ops = 4 * dh * hq * kvl * b  # q.k and p.v for every valid key of every query head
 
@@ -1175,11 +1216,15 @@ def lm_kernel_entries(name, launches, errs):
     k8_bytes = 2 * (x.numel() + bm.numel() + cm.numel()) + 4 * (dt.numel() + h) + 4 * (x.numel() + b8 * nc * h * p * n)
     # C B^T on the causal pairs, M = C B^T * decay * dt, M x, and the state x * seg then (x) B.
     k8_ops = b8 * nc * (pairs * 2 * n + h * pairs * (3 + 2 * p) + h * chunk * p * (1 + 2 * n))
+    k7_entry = kernel_entry("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+                            "src/repro/kernels/decode_attention.py:67", launches["decode_attention"], k7, k7p,
+                            1e3 * k7_bytes / bw, 1e3 * k7_ops / bf16_flops, errs["k7_bf16"], k7lib,
+                            f"granite long-context decode: B={b} S={s} Hq={hq} Hkv={hkv} dh={dh} kv_len={kvl} bf16")
+    k7_entry.update({"library": f"SDPA, bool kv_len mask over {s} slots, enable_gqa ({backends['masked']})",
+                     "library_cut_ms": time_ms(k7cut),
+                     "library_cut": f"SDPA over the cache cut to kv_len, no mask, enable_gqa ({backends['cut']})"})
     return [
-        kernel_entry("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
-                     "src/repro/kernels/decode_attention.py:67", launches["decode_attention"], k7, k7p,
-                     1e3 * k7_bytes / bw, 1e3 * k7_ops / bf16_flops, errs["k7_bf16"], k7lib,
-                     f"granite long-context decode: B={b} S={s} Hq={hq} Hkv={hkv} dh={dh} kv_len={kvl} bf16"),
+        k7_entry,
         kernel_entry("ssd_intra", "src/repro_torch/csrc/ssd_intra.cu", "src/repro/kernels/ssd_scan.py:57",
                      launches["ssd_intra"], k8, k8p, 1e3 * k8_bytes / bw, 1e3 * k8_ops / flops, errs["k8_bf16"],
                      None, f"mamba2 prefill: B={b8} S={s8} H={h} P={p} N={n} Q={chunk} bf16 x/B/C"),
@@ -1212,16 +1257,22 @@ def main() -> int:
         for line in log.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"[build] {src}: {line.strip()}", flush=True)
-    # The redesigned kernels (K6's tensor-core kernel, K5) keep every value in
-    # registers (ptxas reports only on a build, not on a library already built).
-    redesigned = {fn: n for src in ("flash_attention", "gmm") for fn, n in spills(logs[src]).items()
-                  if "flash_attention_tc_kernel" in fn or "gmm_kernel" in fn}
-    want = {"flash_attention": 2, "gmm": 2}  # dh 64 / 128; f32 / bf16
-    check(len(redesigned) == sum(n for src, n in want.items() if logs[src]) and not any(redesigned.values()),
-          f"ptxas spills in K5/K6: {redesigned}")
-    sass = sass_counts("flash_attention")
-    print(f"[sass] flash_attention: {json.dumps(sass)}", flush=True)
-    check(min(sass.values()) > 0, f"flash_attention's library lacks tensor-core or TMA instructions: {sass}")
+    # The redesigned kernels (K6's and K7's tensor-core kernels, K5) keep every
+    # value in registers (ptxas reports only on a build, not on a library
+    # already built).
+    tc_kernels = {"flash_attention": "flash_attention_tc_kernel", "gmm": "gmm_kernel", "decode_attention": "decode_mma_kernel"}
+    redesigned = {fn: info for src, kern in tc_kernels.items() for fn, info in ptxas_report(logs[src]).items()
+                  if kern in fn}
+    want = {"flash_attention": 2, "gmm": 2, "decode_attention": 3}  # dh 64 / 128; f32 / bf16; dh 32 / 64 / 128
+    for fn, info in redesigned.items():
+        if "decode_mma_kernel" in fn:
+            print(f"[build] decode_attention: {fn}: {json.dumps(info)}", flush=True)
+    check(len(redesigned) == sum(n for src, n in want.items() if logs[src])
+          and not any(info["spill_bytes"] for info in redesigned.values()), f"ptxas spills in K5/K6/K7: {redesigned}")
+    for src, ops in (("flash_attention", ("HGMMA", "UTMALDG")), ("decode_attention", ("HMMA", "LDSM"))):
+        sass = sass_counts(src, ops)
+        print(f"[sass] {src}: {json.dumps(sass)}", flush=True)
+        check(min(sass.values()) > 0, f"{src}'s library lacks its tensor-core or load instructions: {sass}")
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)

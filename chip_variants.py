@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time variants of the port's K5 and K6 kernels side by side on one card.
+"""Time variants of the port's K5, K6 and K7 kernels side by side on one card.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -13,6 +13,14 @@ one process (CUDA events: one call per event pair, as ``chip_smoke.py``
 times, and a burst of 10 calls per pair, which leaves out the host's time
 between launches).  It prints ptxas's spills for each variant and one JSON
 line per shape.  The committed source is the variant named ``committed``.
+K7 (bf16, Granite-3-8B's long-context decode) runs each variant at two
+split sizes, beside SDPA with a bool ``kv_len`` mask and over the cache cut
+to ``kv_len``, and also prints each call's device time from torch.profiler.
+Its variants marked "diagnostic" leave out part of the work (the products,
+or the arrival and the last block's combine) to show where the time goes;
+their output is wrong and is not checked.  The committed K7 also runs on the
+cache rearranged to [B * Hkv, S, 1, dh], so that each head's keys are
+contiguous, to show what the cache layout costs.
 """
 from __future__ import annotations
 
@@ -44,13 +52,24 @@ VARIANTS = {
     "k5 128x128 tiles": ("gmm", [("constexpr int kBN = 64;", "constexpr int kBN = 128;")]),
     "k5 4 stages": ("gmm", [("constexpr int kStages = 2;", "constexpr int kStages = 4;")]),
     "k5 32-deep tiles": ("gmm", [("constexpr int kBK = 16;", "constexpr int kBK = 32;")]),
+    "k7 committed": ("decode_attention", []),
+    "k7 4 stages": ("decode_attention", [("constexpr int kStages = 3;", "constexpr int kStages = 4;")]),
+    "k7 2 stages": ("decode_attention", [("constexpr int kStages = 3;", "constexpr int kStages = 2;")]),
+    "k7 no products (diagnostic)": ("decode_attention", [(
+        "    const __nv_bfloat16* sk = ring + (i % kStages) * kStage;\n",
+        "    if (s > 0) continue;\n    const __nv_bfloat16* sk = ring + (i % kStages) * kStage;\n")]),
+    "k7 no final combine (diagnostic)": ("decode_attention", [(
+        "  // Arrival: the last of the sequence's valid splits combines them.\n", "  if (s > 0) return;\n")]),
 }
 K6_SHAPES = [(1, 2048, 32, 8, 128), (1, 17, 32, 8, 128), (8, 512, 32, 8, 128)]  # B, S, Hq, Hkv, dh; bf16 causal
 K5_SHAPE = (4, 2048, 256, 256)  # accel_torch large, f32
+K7_SHAPE = (8, 4096, 32, 8, 128, 2064)  # B, S, Hq, Hkv, dh, kv_len; bf16
+K7_SPLITS = (256, 512)  # keys a split: the committed split_size at S = 4096, and twice it
 
 
 def build_variants(out_dir: Path) -> dict[str, ctypes.CDLL]:
     from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm
 
@@ -76,7 +95,8 @@ def build_variants(out_dir: Path) -> dict[str, ctypes.CDLL]:
         spilled = [line.strip() for line in log.splitlines() if "spill stores" in line and " 0 bytes spill" not in line]
         print(f"[build] {name}: {len(spilled)} function(s) spill: {spilled}", flush=True)
         lib = ctypes.CDLL(str(out_dir / f"libv{i}.so"))
-        for fn, (argtypes, restype) in (fa._SIGNATURES if src == "flash_attention" else moe_gmm._SIGNATURES).items():
+        signatures = {"flash_attention": fa, "gmm": moe_gmm, "decode_attention": da}[src]._SIGNATURES
+        for fn, (argtypes, restype) in signatures.items():
             getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, restype
         libs[name] = lib
     return libs
@@ -99,11 +119,28 @@ def burst_ms(fn, calls: int = 10, reps: int = 7) -> float:
     return sorted(times)[reps // 2]
 
 
+def device_ms(fn, calls: int = 20) -> float:
+    """Device time of one call of ``fn``: its kernels' time in torch.profiler
+    over ``calls`` calls, per call (no host time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return sum(e.self_device_time_total for e in kernels) / calls / 1e3
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_variants: no CUDA device; this script runs on the card", file=sys.stderr)
         return 1
     from chip_smoke import card_line, time_ms
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ops as kops
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -154,6 +191,40 @@ def main() -> int:
         for name in list(calls)[::order]:
             res[name].append([time_ms(calls[name]), burst_ms(calls[name])])
     print(f"[variants] k5 E={e} C={c} d={d} f={f} f32, [single-call ms, burst ms] x2: {json.dumps(res)}", flush=True)
+
+    b, s, hq, hkv, dh, kvl = K7_SHAPE
+    q = torch.randn((b, hq, dh), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((b, s, hkv, dh), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    kv_len = torch.full((b,), kvl, dtype=torch.int32, device=dev)
+    want = kops.decode_attention(q, k, v, kv_len, use_kernel=False).float()
+    qt, kt, vt = q[:, :, None], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    mask = (torch.arange(s, device=dev)[None] < kv_len[:, None])[:, None, None, :]
+    kc, vc = kt[:, :, :kvl].contiguous(), vt[:, :, :kvl].contiguous()
+    calls = {"sdpa masked": lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True),
+             "sdpa cut": lambda: sdpa(qt, kc, vc, enable_gqa=True)}
+    for name, lib in libs.items():
+        if name.startswith("k7"):
+            for split in K7_SPLITS if "diagnostic" not in name else K7_SPLITS[:1]:
+                call = calls[f"{name}, split {split}"] = lambda lib=lib, split=split: da.call(lib, q, k, v, kv_len, split)
+                err = float((call().float() - want).abs().max())
+                if "diagnostic" not in name and not err <= 2e-2 + 2e-2 * float(want.abs().max()):
+                    raise RuntimeError(f"{name}, split {split}: max abs error {err}")
+    # The same kernel with each KV head's keys contiguous: B * Hkv sequences of one KV head.
+    qh = q.reshape(b * hkv, hq // hkv, dh)
+    kh, vh = (x.transpose(1, 2).reshape(b * hkv, s, 1, dh).contiguous() for x in (k, v))
+    lh = kv_len.repeat_interleave(hkv)
+    name = f"k7 committed on [B*Hkv, S, 1, dh], split {K7_SPLITS[0]}"
+    calls[name] = lambda: da.call(libs["k7 committed"], qh, kh, vh, lh, K7_SPLITS[0])
+    if not torch.equal(calls[name]().reshape(b, hq, dh), calls[f"k7 committed, split {K7_SPLITS[0]}"]()):
+        raise RuntimeError(f"{name}: differs from the cache layout's result")
+    res = {name: [] for name in calls}
+    for order in (1, -1):
+        for name in list(calls)[::order]:
+            res[name].append([time_ms(calls[name]), burst_ms(calls[name])])
+    print(f"[variants] k7 B={b} S={s} Hq={hq} Hkv={hkv} dh={dh} kv_len={kvl} bf16, [single-call ms, burst ms] x2: "
+          f"{json.dumps(res)}", flush=True)
+    print(f"[variants] k7 device ms a call (torch.profiler): "
+          f"{json.dumps({name: device_ms(fn) for name, fn in calls.items()})}", flush=True)
     return 0
 
 

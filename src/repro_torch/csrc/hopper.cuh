@@ -1,8 +1,8 @@
 // PTX helpers for Hopper (sm_90a) shared by the port's kernels: cp.async,
-// mbarriers, TMA tensor loads and their descriptors, wgmma's fences and
-// shared-memory descriptors, and setmaxnreg.  Header only; the library that
-// includes it links nothing (the TMA encoder comes from the driver through
-// the runtime's entry-point query).
+// ldmatrix and mma.sync, mbarriers, TMA tensor loads and their descriptors,
+// wgmma's fences and shared-memory descriptors, and setmaxnreg.  Header
+// only; the library that includes it links nothing (the TMA encoder comes
+// from the driver through the runtime's entry-point query).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums: types only, no libcuda link
@@ -25,6 +25,36 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- ldmatrix and mma.sync (warp-level tensor-core products) ----------------
+// Four 8x8 matrices of 16-bit elements: lanes 8i..8i+7 give the addresses of
+// matrix i's eight rows (16 bytes each, 16-byte aligned); lane l receives, in
+// r[i], row l/4, elements 2(l%4) and 2(l%4)+1 of matrix i, or of its
+// transpose with the .trans form.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row))
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row))
+               : "memory");
+}
+// d += a b on one 16x8x16 tile, bf16 in, f32 accumulate.  With g = lane / 4,
+// t = lane % 4: a (16x16, row-major) holds {row g, cols 2t..2t+1}, {row g+8,
+// cols 2t..}, {row g, cols 2t+8..}, {row g+8, cols 2t+8..}, two bf16 each,
+// the lower column in the low half; b (16x8, column-major) holds rows
+// 2t..2t+1 and 2t+8..2t+9 of column g; d holds {row g, cols 2t, 2t+1} and
+// {row g+8, cols 2t, 2t+1}.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---- mbarriers -------------------------------------------------------------

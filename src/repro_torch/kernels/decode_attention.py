@@ -6,7 +6,9 @@ bfloat16, output in q's type.  Counterpart of the JAX package's
 ``kernels/decode_attention.py``.  The kernel masks the ragged tail of S
 itself, so no shape is padded; the keys are cut into splits whose size
 depends on S alone (:func:`split_size`), never on B, so a sequence's result
-has the same bits in any batch.
+has the same bits in any batch.  The splits' partials and the bf16 kernel's
+arrival counters live in a workspace kept per device and stream
+(:data:`WORKSPACES`), so a call allocates only its output.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ _I32, _PTR, _F32 = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 _SIGNATURES = {
     "decode_attention_error_string": ([_I32], ctypes.c_char_p),
     "decode_attention_launch": (
-        [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
+        [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,
          _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _F32, _PTR], _I32
     ),
 }
@@ -28,14 +30,33 @@ _SIGNATURES = {
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 16  # query heads of one KV head
-TILE = 64  # keys a block stages at a time
-MAX_SPLITS = 32
+TILE = 64  # keys a block takes at a step (16 a warp in the bf16 kernel)
+MAX_SPLITS = 16
+
+#: (device, stream) -> (partials, arrival counters) of the launches there.
+WORKSPACES: dict[tuple[torch.device, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def split_size(s: int) -> int:
-    """Keys of one split: whole 64-key tiles, at most 32 splits over S."""
+    """Keys of one split: whole 64-key tiles, at most 16 splits over S (256
+    keys at S = 4,096, so a block streams several tiles)."""
     tiles = -(-s // TILE)
     return TILE * -(-tiles // MAX_SPLITS)
+
+
+def workspace(device: torch.device, stream: int, floats: int, counters: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scratch of the launches on one device and stream, grown on demand:
+    ``floats`` float32 for the splits' partials and ``counters`` int32
+    arrival counters, zeroed when made.  The kernel leaves every counter at
+    0, and launches on one stream run in order, so nothing is cleared
+    between calls."""
+    ws, cnt = WORKSPACES.get((device, stream), (None, None))
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(floats, dtype=torch.float32, device=device)
+    if cnt is None or cnt.numel() < counters:
+        cnt = torch.zeros(counters, dtype=torch.int32, device=device)
+    WORKSPACES[(device, stream)] = (ws, cnt)
+    return ws, cnt
 
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: torch.Tensor) -> None:
@@ -65,22 +86,26 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: torch.Tens
     if hq // hkv > MAX_GROUP or min(b, s) < 1 or max(b, hkv) > 65535:
         raise ValueError(f"shape out of the kernel's range: B={b} S={s} Hq={hq} Hkv={hkv}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("k and v must start on a 16-byte boundary (the kernel loads four values at a time)")
-    kv_len = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
+    if q.data_ptr() % 4 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("k and v must start on a 16-byte boundary and q on a 4-byte one "
+                         "(the kernel loads 16 bytes of a cache row and two q values at a time)")
+    if kv_len.dtype != torch.int32 or kv_len.device != q.device or not kv_len.is_contiguous():
+        kv_len = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
+    return call(build.bind("decode_attention", _SIGNATURES), q, k, v, kv_len, split_size(s))
 
-    split = split_size(s)
+
+def call(lib, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: torch.Tensor, split: int) -> torch.Tensor:
+    """One launch of ``lib``'s ``decode_attention_launch`` with ``split`` keys
+    a split, on inputs :func:`launch` has checked; returns the output."""
+    b, hq, dh = q.shape
+    s, hkv = k.shape[1], k.shape[2]
     nsplit = -(-s // split)
-    lib = build.bind("decode_attention", _SIGNATURES)
-    ws_m = torch.empty((b, hq, nsplit), dtype=torch.float32, device=q.device)
-    ws_l = torch.empty_like(ws_m)
-    ws_acc = torch.empty((b, hq, nsplit, dh), dtype=torch.float32, device=q.device)
-    out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    ws, counters = workspace(q.device, stream, b * hq * nsplit * (dh + 2), b * hkv)
+    out = torch.empty_like(q)
     err = lib.decode_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), ws_m.data_ptr(), ws_l.data_ptr(),
-        ws_acc.data_ptr(), out.data_ptr(), b, s, hq, hkv, dh, split, nsplit, DTYPES[q.dtype],
-        dh**-0.5, stream,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), ws.data_ptr(), counters.data_ptr(),
+        out.data_ptr(), b, s, hq, hkv, dh, split, nsplit, DTYPES[q.dtype], dh**-0.5, stream,
     )
     build.check_launch(lib, "decode_attention", err)
     return out

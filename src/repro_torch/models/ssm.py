@@ -177,7 +177,12 @@ def apply_ssm(
         y = y + p["D"][None, None, :, None] * xh.to(torch.float32)
         y = y.reshape(bsz, s, cfg.d_inner).to(u.dtype)
         if state is not None:
-            new_state = {"ssm": fin, "conv": xbc_raw[:, s - (cfg.ssm_conv - 1):, :]}
+            # The last K-1 conv inputs, left-padded with zeros when the prompt
+            # is shorter (the zeros _causal_conv pads with), so that decode
+            # continues exactly as the forward over the longer sequence.
+            kc = cfg.ssm_conv - 1
+            conv = F.pad(xbc_raw[:, max(s - kc, 0):, :], (0, 0, max(kc - s, 0), 0))
+            new_state = {"ssm": fin, "conv": conv}
 
     y = gated_rmsnorm(p["norm_scale"], y, z)
     return y @ p["out_proj"].to(u.dtype), new_state

@@ -60,6 +60,9 @@ def apply_block(
         y, new_state = ssm_mod.apply_ssm(cfg, p["ssm"], h, state=cache, decode=decode, use_kernel=use_kernel)
         if new_state is not None:
             for name, t in new_state.items():
+                if t.shape != cache[name].shape:  # copy_ would broadcast a short state
+                    raise ValueError(f"state {name!r} of shape {tuple(t.shape)} does not fit its cache "
+                                     f"{tuple(cache[name].shape)}")
                 cache[name].copy_(t)
     x = x + y
     if kind.ffn != "none":

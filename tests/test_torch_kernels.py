@@ -190,6 +190,11 @@ def test_flash_attention_plain_keeps_the_causal_offset():
     (2, 256, 8, 4, 64, 128, (100, 256)),
     (1, 512, 4, 1, 128, 256, (1,)),  # single valid token
     (3, 128, 6, 2, 32, 64, (128, 64, 17)),
+    # The heads the bf16 kernel takes in its 16-row tile, at split edges
+    # (split_size: 256 keys at S = 4096, 64 at S = 1000 and S = 512).
+    (2, 4096, 32, 8, 128, 512, (256, 257)),  # Granite-3-8B's heads (G = 4): on and one past an edge
+    (2, 1000, 8, 8, 64, 256, (63, 64)),  # G = 1: one short of and on an edge
+    (2, 512, 16, 1, 32, 128, (65, 1)),  # G = 16: one past an edge, and one key
 ])
 def test_decode_attention_plain_equals_reference(dtype, b, s, hq, hkv, dh, bk, lens):
     rng = np.random.default_rng(s + hq)
@@ -231,8 +236,8 @@ def test_decode_attention_plain_takes_a_number_and_gives_zeros_at_kv_len_0():
 
 
 def test_decode_attention_split_depends_on_s_alone():
-    assert [da.split_size(s) for s in (1, 64, 65, 256, 2048, 2049, 4096, 8192)] == [
-        64, 64, 64, 64, 64, 128, 128, 256,
+    assert [da.split_size(s) for s in (1, 64, 65, 256, 1000, 1024, 1025, 2048, 2049, 4096, 8192)] == [
+        64, 64, 64, 64, 64, 64, 128, 128, 192, 256, 512,
     ]
     for s in (1, 300, 4096, 100_000):
         split = da.split_size(s)

@@ -193,6 +193,42 @@ def test_decode_equals_forward(models, arch):
     np.testing.assert_allclose(lg.numpy(), full[:, 8].numpy(), **TOL)
 
 
+@pytest.mark.parametrize("s", [1, 2, 3, 5])
+def test_mamba2_decode_after_a_short_prompt_equals_forward(models, s):
+    """Prefill of S tokens, then one decode step, equals the cache-less
+    forward over S + 1 tokens, also below ssm_conv - 1 = 3 tokens, where the
+    conv state is left-padded with the zeros the forward's conv pads with.
+    Where the reference runs (S >= 3; it raises below) the decode also
+    equals its prefill + decode.  Tolerance 1e-5: f32 compute in both, the
+    same products summed in another order."""
+    cfg, jm, jp, model, params = models["mamba2-2.7b"]
+    toks = tokens(cfg, 2, s + 1, seed=9)
+    t = torch.from_numpy(toks)
+    full = tfm.forward(cfg, params, t, torch.arange(s + 1)[None].expand(2, s + 1))
+    _, cache = model.prefill(params, {"inputs": t[:, :s]}, model.init_cache(2, 16))
+    lg, _ = model.decode(params, {"tokens": t[:, s:]}, cache, s)
+    np.testing.assert_allclose(lg.numpy(), full[:, s].numpy(), rtol=1e-5, atol=1e-5)
+    if s >= cfg.ssm_conv - 1:
+        _, jc = jm.prefill(jp, {"inputs": jnp.asarray(toks[:, :s])}, jm.init_cache(2, 16))
+        jl, _ = jm.decode(jp, {"tokens": jnp.asarray(toks[:, s:])}, jc, jnp.int32(s))
+        np.testing.assert_allclose(lg.numpy(), np.asarray(jl), rtol=1e-5, atol=1e-5)
+
+
+def test_a_state_that_does_not_fit_its_cache_raises(models, monkeypatch):
+    """A Mamba2 state of another shape than its cache leaf raises instead of
+    being broadcast over it (a one-row conv state over the K-1 rows)."""
+    cfg, _, _, model, params = models["mamba2-2.7b"]
+    real = ssm.apply_ssm
+
+    def one_row(*args, **kwargs):
+        y, st = real(*args, **kwargs)
+        return y, {**st, "conv": st["conv"][:, -1:]}
+
+    monkeypatch.setattr(ssm, "apply_ssm", one_row)
+    with pytest.raises(ValueError, match="does not fit its cache"):
+        model.prefill(params, {"inputs": torch.from_numpy(tokens(cfg, 2, 8))}, model.init_cache(2, 16))
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_plain_route_equals_kernel_route_on_the_cpu(models, arch):
     """On the CPU both routes are the plain versions: same bits, no launch."""
