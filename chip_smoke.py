@@ -27,6 +27,7 @@ it fails at once.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -257,7 +258,44 @@ def kernel_phase(plans, dev):
         pcs = torch.stack([pc + 0.01 * i for i in range(b)])
         acs = torch.stack([ac + 0.02 * i for i in range(b)])
         compare_k2(f"edge B={b}", cols, keys, po, pcs, ao, acs, 11)
+    k1_k2_edges(cols, keys, rng, gen, dev)
     return errs
+
+
+def k1_k2_edges(cols, keys, rng, gen, dev):
+    """K1/K2 at the edges of the staged design: N below, at and past one
+    tile and N = 0-3 (mod 4); columns and keys starting 4-12 bytes past a
+    16-byte boundary (a view), which must give the bits of the same values
+    contiguous; K2 past one chunk of sums (B=3, G=20, A=127)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import group_filter_agg as gfa
+    from repro_torch.kernels import ops as kops
+
+    tile = build.bind("group_filter_agg", gfa._SIGNATURES).group_filter_agg_tile_rows()
+    po, pc, ao, ac = random_program(rng, 4, 2, 4)
+    pcs, acs = torch.stack([pc + 0.01 * i for i in range(3)]), torch.stack([ac + 0.02 * i for i in range(3)])
+    for m in (tile - 300, tile, tile + 1, 5 * tile + 2, 5 * tile + 3, 100_000):
+        label = f"N={m} ({m % 4} mod 4{', below one tile' if m < tile else ', one tile' if m == tile else ''})"
+        part, kpart = cols[:, :m].contiguous(), keys[:m].contiguous()
+        compare_k1(label, part, kpart, (po, pc, ao, ac), 5)
+        compare_k2(label, part, kpart, po, pcs, ao, acs, 5)
+    n = cols.shape[1]
+    for shift in (1, 2, 3):
+        big = torch.zeros((4, n + 7), device=dev)
+        big[:, shift:shift + n] = cols
+        kbig = torch.full((n + 3,), -1, dtype=torch.int32, device=dev)
+        kbig[shift:shift + n] = keys
+        view, kview = big[:, shift:shift + n], kbig[shift:shift + n]
+        check(view.data_ptr() % 16 == 4 * shift and not view.is_contiguous(), "the view starts off 16 bytes")
+        label = f"columns and keys {4 * shift} bytes past 16, row stride {n + 7}"
+        got, _ = compare_k1(label, view, kview, (po, pc, ao, ac), 5)
+        same = kops.group_filter_agg(cols, keys, po, pc, ao, ac, num_groups=5)
+        check(torch.equal(got, same), f"{label}: must give the bits of the contiguous layout")
+        compare_k2(label, view, kview, po, pcs, ao, acs, 5)
+    keys20 = torch.randint(-3, 23, (n,), generator=gen, device=dev, dtype=torch.int32)
+    po, pc, ao, ac = random_program(rng, 4, 2, gfa.MAX_AGGS)
+    pcs, acs = torch.stack([pc + 0.01 * i for i in range(3)]), torch.stack([ac + 0.02 * i for i in range(3)])
+    compare_k2("B=3 G=20 A=127 (48 chunks of sums)", cols, keys20, po, pcs, ao, acs, 20)
 
 
 # K3-K6 against their plain versions.
@@ -630,30 +668,60 @@ def serving_task_phase(dev):
         task.clean(ctx)
 
 
+@contextlib.contextmanager
+def collector_off():
+    """The garbage collector disabled until exit.  By the server phase this
+    process holds a few hundred thousand objects; a full collection over
+    them paused a serving step 0.2-0.35 s, longer than a 64-deep queue
+    lasts at a few thousand QPS (``chip_variants.py``'s server arms)."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 def server_phase(plans):
-    """A QueryServer over SF 1 plans, open loop at half its saturation."""
+    """A QueryServer over SF 1 plans, open loop at half its saturation,
+    with its longest step and the longest wait between two steps."""
     from repro_torch.kernels import ops as kops
     from repro_torch.runtime.loadgen import generate_trace
     from repro_torch.runtime.serve_query import QueryServer, measure_saturation, run_open_loop
 
     names = ["q1", "q6", "q12"]
-    sat = measure_saturation(plans, names, max_batch=8)
-    server = QueryServer(plans, queue_depth=64, max_batch=8)
-    server.warmup(names)
-    trace = generate_trace(names, 0.5 * sat, 2.0, arrival="fixed", seed=0)
-    before = dict(kops.LAUNCHES)
-    calls0 = server.kernel_calls
-    report = run_open_loop(server, trace)
+    with collector_off():
+        sat = measure_saturation(plans, names, max_batch=8)
+        server = QueryServer(plans, queue_depth=64, max_batch=8)
+        server.warmup(names)
+        trace = generate_trace(names, 0.5 * sat, 2.0, arrival="fixed", seed=0)
+        spans, step = [], server.step
+
+        def timed(now_fn):
+            t0 = time.perf_counter()
+            out = step(now_fn)
+            spans.append((t0, time.perf_counter()))
+            return out
+
+        server.step = timed
+        before = dict(kops.LAUNCHES)
+        calls0 = server.kernel_calls
+        report = run_open_loop(server, trace)
     launched = sum(kops.LAUNCHES[k] - before[k] for k in before)
     steps = server.kernel_calls - calls0
-    check(report.shed == 0, f"server: {report.shed} requests shed below saturation")
+    longest = 1e3 * max(t1 - t0 for t0, t1 in spans)
+    waits = [1e3 * (b[0] - a[1]) for a, b in zip(spans, spans[1:])]
+    stalls = (f"longest step {longest:.2f} ms, longest wait between steps {max(waits, default=0.0):.2f} ms, "
+              f"{sum(t1 - t0 > 0.01 for t0, t1 in spans)} steps over 10 ms")
+    check(report.shed == 0, f"server: {report.shed} requests shed below saturation ({stalls})")
     check(len(report.completed) == len(trace), "server: every request completes")
     lat = sorted(report.latencies_s)
     p50, p99 = lat[len(lat) // 2], lat[min(len(lat) - 1, int(0.99 * len(lat)))]
     batched = sum(c.batch_size > 1 for c in report.completed)
     print(f"[server] sf1 saturation {sat:.1f} qps; offered {report.offered_qps:.1f} qps; "
           f"served {report.qps:.1f} qps; p50 {1e6 * p50:.1f}us p99 {1e6 * p99:.1f}us; "
-          f"shed 0; {batched}/{len(trace)} requests in shared scans; {steps} steps", flush=True)
+          f"shed 0; {batched}/{len(trace)} requests in shared scans; {steps} steps; {stalls}", flush=True)
     return trace, report, launched / max(steps, 1)
 
 
@@ -977,8 +1045,34 @@ def ops_per_passing_row(agg_ops) -> int:
     return 2 * int((agg_ops[:, 0::2] != 0).sum()) + agg_ops.shape[0] + 1
 
 
+GFA_KERNELS = ("group_filter_agg_kernel", "sum_partials_kernel")  # K1/K2's two CUDA launches
+
+
+def kernel_device_ms(fn, names=("",), calls=20) -> float:
+    """Device time of one call of ``fn``: the time of its kernels whose CUDA
+    names hold one of ``names`` (by default all of them), from
+    torch.profiler over ``calls`` calls, per call (no host time).  Each
+    kernel counts its mean time once for each of its launches a call (at
+    least one), so events the trace drops do not read as a faster call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.count and any(k in e.key for k in names)]
+    us = sum(e.self_device_time_total / e.count * max(1, round(e.count / calls)) for e in events)
+    check(us > 0, f"the profiler's trace has no device time for {names}")
+    return us / 1e3
+
+
 def kernel_entries(plans, name, launches, per_query, per_step, errs):
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.group_filter_agg import used_columns
     from repro_torch.runtime.loadgen import sample_params
 
     bw, flops, _ = peaks(name)
@@ -993,7 +1087,7 @@ def kernel_entries(plans, name, launches, per_query, per_step, errs):
 
     def entry(kname, source_line, b, run, run_plain, out, err):
         passing = float(out[..., -1].sum())
-        nbytes = (cols.numel() + keys.numel()) * 4 + b * g * (a + 1) * 4
+        nbytes = (len(used_columns(po, ao)) + 1) * n * 4 + b * g * (a + 1) * 4
         nbytes += (po.numel() + ao.numel() + b * (pc.numel() + ac.numel())) * 4
         bytes_ms = 1e3 * nbytes / bw
         ops_ms = 1e3 * (b * n * compares_per_row(po) + passing * ops_per_passing_row(ao)) / flops
@@ -1007,6 +1101,7 @@ def kernel_entries(plans, name, launches, per_query, per_step, errs):
             "launches_per_step": per_step,
             "max_abs_err": err,
             "ms": time_ms(run),
+            "device_ms": kernel_device_ms(run, GFA_KERNELS),
             "plain_ms": time_ms(run_plain, reps=20, warmup=2),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -1026,7 +1121,8 @@ def kernel_entries(plans, name, launches, per_query, per_step, errs):
 
 
 def per_query_times(plans):
-    """K1's time on each query's SF 1 program and K2's at B = 8 (for PERF.md)."""
+    """K1's time on each query's SF 1 program and K2's at B = 8, one call per
+    event pair and on the device alone (for PERF.md)."""
     from repro_torch.kernels import ops as kops
     from repro_torch.runtime.loadgen import sample_params
 
@@ -1037,10 +1133,10 @@ def per_query_times(plans):
         consts = [plan.program(sample_params(name, rng)) for _ in range(8)]
         pcs, acs = torch.stack([c[0] for c in consts]), torch.stack([c[1] for c in consts])
         args = (plan.cols, plan.keys, plan.pred_ops)
-        out[name] = {
-            "k1_ms": time_ms(lambda: kops.group_filter_agg(*args, pc, plan.agg_ops, ac, num_groups=plan.num_groups)),
-            "k2_b8_ms": time_ms(lambda: kops.group_filter_agg_multi(*args, pcs, plan.agg_ops, acs, num_groups=plan.num_groups)),
-        }
+        k1 = lambda: kops.group_filter_agg(*args, pc, plan.agg_ops, ac, num_groups=plan.num_groups)  # noqa: E731
+        k2 = lambda: kops.group_filter_agg_multi(*args, pcs, plan.agg_ops, acs, num_groups=plan.num_groups)  # noqa: E731
+        out[name] = {"k1_ms": time_ms(k1), "k1_device_ms": kernel_device_ms(k1, GFA_KERNELS),
+                     "k2_b8_ms": time_ms(k2), "k2_b8_device_ms": kernel_device_ms(k2, GFA_KERNELS)}
     return out
 
 
@@ -1257,18 +1353,21 @@ def main() -> int:
         for line in log.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"[build] {src}: {line.strip()}", flush=True)
-    # The redesigned kernels (K6's and K7's tensor-core kernels, K5) keep every
-    # value in registers (ptxas reports only on a build, not on a library
-    # already built).
-    tc_kernels = {"flash_attention": "flash_attention_tc_kernel", "gmm": "gmm_kernel", "decode_attention": "decode_mma_kernel"}
+    # The redesigned kernels (K6's and K7's tensor-core kernels, K5, K1/K2's
+    # scan) keep every value in registers (ptxas reports only on a build,
+    # not on a library already built).
+    tc_kernels = {"flash_attention": "flash_attention_tc_kernel", "gmm": "gmm_kernel",
+                  "decode_attention": "decode_mma_kernel", "group_filter_agg": "group_filter_agg_kernel"}
     redesigned = {fn: info for src, kern in tc_kernels.items() for fn, info in ptxas_report(logs[src]).items()
                   if kern in fn}
-    want = {"flash_attention": 2, "gmm": 2, "decode_attention": 3}  # dh 64 / 128; f32 / bf16; dh 32 / 64 / 128
+    # dh 64 / 128; f32 / bf16; dh 32 / 64 / 128; one scan kernel
+    want = {"flash_attention": 2, "gmm": 2, "decode_attention": 3, "group_filter_agg": 1}
     for fn, info in redesigned.items():
-        if "decode_mma_kernel" in fn:
-            print(f"[build] decode_attention: {fn}: {json.dumps(info)}", flush=True)
+        if "decode_mma_kernel" in fn or "group_filter_agg_kernel" in fn:
+            print(f"[build] {fn}: {json.dumps(info)}", flush=True)
     check(len(redesigned) == sum(n for src, n in want.items() if logs[src])
-          and not any(info["spill_bytes"] for info in redesigned.values()), f"ptxas spills in K5/K6/K7: {redesigned}")
+          and not any(info["spill_bytes"] for info in redesigned.values()),
+          f"ptxas spills in K1/K2/K5/K6/K7: {redesigned}")
     for src, ops in (("flash_attention", ("HGMMA", "UTMALDG")), ("decode_attention", ("HMMA", "LDSM"))):
         sass = sass_counts(src, ops)
         print(f"[sass] {src}: {json.dumps(sass)}", flush=True)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time variants of the port's K5, K6 and K7 kernels side by side on one card.
+"""Time variants of the port's K1/K2, K5, K6 and K7 kernels, and of its query server, side by side on one card.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -21,16 +21,41 @@ or the arrival and the last block's combine) to show where the time goes;
 their output is wrong and is not checked.  The committed K7 also runs on the
 cache rearranged to [B * Hkv, S, 1, dh], so that each head's keys are
 contiguous, to show what the cache layout costs.
+
+K1/K2 (``group_filter_agg``) run at TPC-H Q1 at scale factor 1, alone
+(B = 1) and as a batch of 8 programs, beside ``k1 first design``: the
+kernel's first design, kept as ``csrc/variants/group_filter_agg_first.cu``
+with its own C interface, and ``k1 shared tile``, a copy
+(``csrc/variants/group_filter_agg_shared.cu``) in which K2's programs walk
+each staged tile in one block.  Each is held to the plain version summed in
+float64 (counts exact, sums within 1e-4, ``sum_qty`` within 1e-6), and K2
+to K1 per slot bit for bit; each is timed one call per event pair, back to
+back and as device time, with its program already on the card.  Both
+designs are also timed through their whole wrapper (the first design's
+packed its program on the host and copied it from pageable memory each
+call), which is what a caller pays, and the committed kernel is timed with
+its constants from the host by value in the launch's parameters and by a
+pinned asynchronous copy.  The variants marked "diagnostic" leave
+out the aggregates' terms, or every predicate, term and sum, to show where
+the time goes.
+
+The ``QueryServer`` runs the smoke's server phase in turns over four arms
+(a batch's results demultiplexed per slot or once, and that with the heap
+frozen out of the garbage collector or the collector off), with its sheds,
+step times and the collector's pauses.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
+import random
 import shutil
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -65,12 +90,41 @@ K6_SHAPES = [(1, 2048, 32, 8, 128), (1, 17, 32, 8, 128), (8, 512, 32, 8, 128)]  
 K5_SHAPE = (4, 2048, 256, 256)  # accel_torch large, f32
 K7_SHAPE = (8, 4096, 32, 8, 128, 2064)  # B, S, Hq, Hkv, dh, kv_len; bf16
 K7_SPLITS = (256, 512)  # keys a split: the committed split_size at S = 4096, and twice it
+FIRST = "variants/group_filter_agg_first"
+SHARED = "variants/group_filter_agg_shared"  # K2's programs over one staged tile
+VARIANTS.update({
+    "k1 first design": (FIRST, []),
+    "k1 committed": ("group_filter_agg", []),
+    "k1 3 stages": ("group_filter_agg", [("constexpr int kStages = 2;", "constexpr int kStages = 3;")]),
+    "k1 4 rows a thread": ("group_filter_agg", [("constexpr int kRowsPerThread = 8;", "constexpr int kRowsPerThread = 4;")]),
+    "k1 256 threads x 4 rows, 3 stages": ("group_filter_agg", [
+        ("constexpr int kThreads = 128;", "constexpr int kThreads = 256;"),
+        ("constexpr int kRowsPerThread = 8;", "constexpr int kRowsPerThread = 4;"),
+        ("constexpr int kStages = 2;", "constexpr int kStages = 3;")]),
+    "k1 shared tile": (SHARED, []),
+    "k1 loads only (diagnostic)": ("group_filter_agg", [
+        ("for (int q = 0; q < k; ++q) {", "for (int q = 0; q < 0; ++q) {"),
+        ("for (int g0 = 0; g0 < g; g0 += kGroupChunk) {", "for (int g0 = 0; g0 < 0; g0 += kGroupChunk) {")]),
+    "k1 no terms (diagnostic)": ("group_filter_agg", [("for (int t = 0; t < 3; ++t) apply_term", "for (int t = 0; t < 0; ++t) apply_term")]),
+})
+# Other grids (MAX_BLOCKS = 384 by default, three an SM); two blocks of
+# the 256-thread variant fit an SM.
+K1_GRIDS = {"k1 committed": (256, 768), "k1 256 threads x 4 rows, 3 stages": (256,)}
+K2_B = 8
+_I64, _I32, _PTR = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
+FIRST_SIGNATURES = {
+    "group_filter_agg_blocks": ([_I64, _I64], _I64),
+    "group_filter_agg_error_string": ([_I32], ctypes.c_char_p),
+    "group_filter_agg_launch": ([_PTR, _PTR, _I64, _PTR, _I32, _I32, _I32, _I32, _PTR, _I64, _PTR, _PTR], _I32),
+}
 
 
 def build_variants(out_dir: Path) -> dict[str, ctypes.CDLL]:
+    from chip_smoke import ptxas_report
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import group_filter_agg as gfa
     from repro_torch.kernels import moe_gmm
 
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -94,8 +148,12 @@ def build_variants(out_dir: Path) -> dict[str, ctypes.CDLL]:
             raise RuntimeError(f"{name}: nvcc failed\n{log}")
         spilled = [line.strip() for line in log.splitlines() if "spill stores" in line and " 0 bytes spill" not in line]
         print(f"[build] {name}: {len(spilled)} function(s) spill: {spilled}", flush=True)
+        if name.startswith("k1"):
+            print(f"[build] {name}: {json.dumps(ptxas_report(log))}", flush=True)
         lib = ctypes.CDLL(str(out_dir / f"libv{i}.so"))
-        signatures = {"flash_attention": fa, "gmm": moe_gmm, "decode_attention": da}[src]._SIGNATURES
+        signatures = FIRST_SIGNATURES if src == FIRST else {
+            "flash_attention": fa, "gmm": moe_gmm, "decode_attention": da, "group_filter_agg": gfa,
+            SHARED: gfa}[src]._SIGNATURES
         for fn, (argtypes, restype) in signatures.items():
             getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, restype
         libs[name] = lib
@@ -119,27 +177,220 @@ def burst_ms(fn, calls: int = 10, reps: int = 7) -> float:
     return sorted(times)[reps // 2]
 
 
-def device_ms(fn, calls: int = 20) -> float:
-    """Device time of one call of ``fn``: its kernels' time in torch.profiler
-    over ``calls`` calls, per call (no host time)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def first_prog(pred_ops, pred_consts, agg_ops, agg_consts, device):
+    """The first design's packed program: ops, then the consts' float bits."""
+    return torch.cat([pred_ops.reshape(-1), agg_ops.reshape(-1), pred_consts.reshape(-1).view(torch.int32),
+                      agg_consts.reshape(-1).view(torch.int32)]).to(device)
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    return sum(e.self_device_time_total for e in kernels) / calls / 1e3
+
+def first_call(lib, cols, keys, prog, k, a, b, g):
+    """One launch of the first design (its wrapper's work after the program copy)."""
+    n = cols.shape[1]
+    blocks = int(lib.group_filter_agg_blocks(n, g * (a + 1)))
+    partials = torch.empty(blocks * b * g * (a + 1), dtype=torch.float32, device=cols.device)
+    out = torch.empty((b, g, a + 1), dtype=torch.float32, device=cols.device)
+    err = lib.group_filter_agg_launch(cols.data_ptr(), keys.data_ptr(), n, prog.data_ptr(), k, a, g, b,
+                                      partials.data_ptr(), blocks, out.data_ptr(),
+                                      torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"first design: launch failed ({err})")
+    return out
+
+
+def with_max_blocks(blocks, fn):
+    """``fn`` run with the wrapper's grid cap set to ``blocks`` (None: as committed)."""
+    from repro_torch.kernels import group_filter_agg as gfa
+
+    def run():
+        if blocks is None:
+            return fn()
+        kept, gfa.MAX_BLOCKS = gfa.MAX_BLOCKS, blocks
+        try:
+            return fn()
+        finally:
+            gfa.MAX_BLOCKS = kept
+
+    return run
+
+
+def k1_k2_variants(libs, dev):
+    """K1 and K2 (B = 8) at Q1, SF 1, for every k1 variant; see the module note."""
+    from chip_smoke import GFA_KERNELS, SUM_QTY_RTOL, SUM_RTOL, hold, kernel_device_ms, plain64, time_ms
+    from repro_torch.engine import datagen, queries
+    from repro_torch.kernels import group_filter_agg as gfa
+    from repro_torch.kernels import ops as kops
+    from repro_torch.runtime.loadgen import sample_params
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    plan = queries.make_serving_plans(datagen.lineitem(gen, scale=1.0, device=dev))["q1"]
+    cols, keys, po, ao, g = plan.cols, plan.keys, plan.pred_ops, plan.agg_ops, plan.num_groups
+    rng = random.Random(3)
+    consts = [plan.program({})] + [plan.program(sample_params("q1", rng)) for _ in range(K2_B - 1)]
+    pcs, acs = torch.stack([c[0] for c in consts]), torch.stack([c[1] for c in consts])
+    k, a = po.shape[0], ao.shape[0]
+    want64 = torch.stack([plain64(cols, keys, (po, pcs[i], ao, acs[i]), g) for i in range(K2_B)])
+    want32 = kops.group_filter_agg_multi(cols, keys, po, pcs, ao, acs, num_groups=g, use_kernel=False)
+    ops, used = gfa.device_program(cols.device, cols.shape[0], po, ao, g)
+    dconsts = {bb: torch.cat([pcs[:bb].reshape(-1), acs[:bb].reshape(-1)]).to(dev) for bb in (1, K2_B)}
+    progs = {bb: first_prog(po, pcs[:bb], ao, acs[:bb], dev) for bb in (1, K2_B)}
+    singles = {i: first_prog(po, pcs[i:i + 1], ao, acs[i:i + 1], dev) for i in range(K2_B)}
+    calls = {bb: {} for bb in (1, K2_B)}
+    for name, lib in libs.items():
+        if not name.startswith("k1"):
+            continue
+        grids = [None, *K1_GRIDS.get(name, ())]
+        for blocks in grids:
+            label = name if blocks is None else f"{name}, {blocks} blocks"
+            for bb in (1, K2_B):
+                if name == "k1 first design":
+                    run = lambda lib=lib, bb=bb: first_call(lib, cols, keys, progs[bb], k, a, bb, g)  # noqa: E731
+                    one = lambda i, lib=lib: first_call(lib, cols, keys, singles[i], k, a, 1, g)  # noqa: E731
+                else:
+                    run = with_max_blocks(blocks, lambda lib=lib, bb=bb: gfa.call(
+                        lib, cols, keys, ops, used, dconsts[bb], k, a, bb, g))
+                    one = lambda i, lib=lib, blocks=blocks: with_max_blocks(blocks, lambda: gfa.call(  # noqa: E731
+                        lib, cols, keys, ops, used, torch.cat([pcs[i].reshape(-1), acs[i].reshape(-1)]).to(dev),
+                        k, a, 1, g))()
+                got = run()
+                calls[bb][label] = run
+                if "diagnostic" in name:  # leaves out part of the work: its output is wrong
+                    continue
+                hold(f"{label} B={bb}", got, want64[:bb], want32[:bb], tight=(0, SUM_QTY_RTOL))
+                if not torch.equal(got, run()):
+                    raise RuntimeError(f"{label} B={bb}: a repeated launch differs")
+                if bb > 1 and not all(torch.equal(got[i], one(i)[0]) for i in range(bb)):
+                    raise RuntimeError(f"{label}: K2 differs from K1 on a slot")
+    # The routes of the constants from the host, at the committed kernel:
+    # by value in the launch's parameters, against pinned memory and an
+    # asynchronous copy (what launch() does with a table too large to go by
+    # value).
+    lib = libs["k1 committed"]
+    for bb in (1, K2_B):
+        p_, a_ = pcs[:bb], acs[:bb]
+        calls[bb]["constants by value"] = lambda lib=lib, p_=p_, a_=a_, bb=bb: gfa.call(
+            lib, cols, keys, ops, used, None, k, a, bb, g,
+            host_consts=np.concatenate([p_.numpy().ravel(), a_.numpy().ravel()], dtype=np.float32))
+        calls[bb]["constants by pinned copy"] = lambda lib=lib, p_=p_, a_=a_, bb=bb: gfa.call(
+            lib, cols, keys, ops, used, gfa._to_card(torch.cat([p_.reshape(-1), a_.reshape(-1)]), cols.device),
+            k, a, bb, g)
+        for route in ("constants by value", "constants by pinned copy"):
+            if not torch.equal(calls[bb][route](), calls[bb]["k1 committed"]()):
+                raise RuntimeError(f"{route} B={bb}: differs from the constants on the card")
+    # Whole wrappers, as a caller pays: the committed one, and the first
+    # design's (its program packed on the host and copied from pageable
+    # memory each call).
+    first = libs["k1 first design"]
+    calls[1]["wrapper committed"] = lambda: kops.group_filter_agg(cols, keys, po, pcs[0], ao, acs[0], num_groups=g)
+    calls[1]["wrapper first design"] = lambda: first_call(first, cols, keys, first_prog(po, pcs[:1], ao, acs[:1], dev), k, a, 1, g)
+    calls[K2_B]["wrapper committed"] = lambda: kops.group_filter_agg_multi(cols, keys, po, pcs, ao, acs, num_groups=g)
+    calls[K2_B]["wrapper first design"] = lambda: first_call(first, cols, keys, first_prog(po, pcs, ao, acs, dev), k, a, K2_B, g)
+    print(f"[variants] k1/k2 q1 sf1: every variant within {SUM_RTOL} of the float64 sums (sum_qty "
+          f"{SUM_QTY_RTOL}), counts exact, K2 == K1 per slot, repeats equal", flush=True)
+    for bb, fns in calls.items():
+        res = {name: [] for name in fns}
+        for order in (1, -1):
+            for name in list(fns)[::order]:
+                res[name].append([time_ms(fns[name]), burst_ms(fns[name])])
+        print(f"[variants] k1/k2 q1 sf1 B={bb}, [single-call ms, burst ms] x2: {json.dumps(res)}", flush=True)
+        print(f"[variants] k1/k2 q1 sf1 B={bb} device ms a call (torch.profiler): "
+              f"{json.dumps({name: kernel_device_ms(fn, GFA_KERNELS) for name, fn in fns.items()})}", flush=True)
+
+
+@contextlib.contextmanager
+def heap_frozen():
+    """The objects alive on entry kept out of the garbage collector until exit."""
+    import gc
+
+    gc.collect()
+    gc.freeze()
+    try:
+        yield
+    finally:
+        gc.unfreeze()
+
+
+SERVER_ARMS = ("per-slot demux", "demux once", "demux once, heap frozen", "demux once, collector off")
+SERVER_ROUNDS = 4
+
+
+def server_variants(dev):
+    """The smoke's server phase (closed-loop saturation, then an open loop
+    at half of it for 2 s) in turns over four arms: each scan-shared
+    result demultiplexed from its own slot, the batch demultiplexed once
+    (committed), and that with the objects alive at the start frozen out
+    of the garbage collector, or with the collector off (as the smoke
+    runs it).  Prints sheds, step times and the collector's pauses of
+    each run."""
+    import gc
+    import time
+
+    from chip_smoke import collector_off
+    from repro_torch.engine import datagen, queries
+    from repro_torch.runtime import serve_query as sq
+    from repro_torch.runtime.loadgen import generate_trace
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    plans = queries.make_serving_plans(datagen.lineitem(gen, scale=1.0, device=dev),
+                                       datagen.orders(gen, scale=1.0, device=dev))
+    names = ["q1", "q6", "q12"]
+    batch_once = queries.fused_query_batch
+
+    def batch_per_slot(plan, param_list, *, use_kernel=True):
+        consts = [plan.program(p) for p in param_list]
+        out = queries.kops.group_filter_agg_multi(
+            plan.cols, plan.keys, plan.pred_ops, torch.stack([c[0] for c in consts]), plan.agg_ops,
+            torch.stack([c[1] for c in consts]), num_groups=plan.num_groups, use_kernel=use_kernel)
+        return [plan.demux(out[b]) for b in range(len(param_list))]
+
+    pauses = []
+
+    def on_gc(event, info):
+        if event == "start":
+            on_gc.t0 = time.perf_counter()
+        else:
+            pauses.append((info["generation"], time.perf_counter() - on_gc.t0))
+
+    def run(arm):
+        queries.fused_query_batch = batch_per_slot if arm == "per-slot demux" else batch_once
+        guard = {"frozen": heap_frozen, "off": collector_off}.get(arm.split()[-1], contextlib.nullcontext)
+        with guard():
+            sat = sq.measure_saturation(plans, names, max_batch=8)
+            server = sq.QueryServer(plans, queue_depth=64, max_batch=8)
+            server.warmup(names)
+            trace = generate_trace(names, 0.5 * sat, 2.0, arrival="fixed", seed=0)
+            steps, step = [], server.step
+
+            def timed(now_fn=time.perf_counter):
+                t0 = time.perf_counter()
+                out = step(now_fn)
+                steps.append(time.perf_counter() - t0)
+                return out
+
+            server.step = timed
+            pauses.clear()
+            report = sq.run_open_loop(server, trace)
+        queries.fused_query_batch = batch_once
+        steps.sort()
+        return {"saturation_qps": sat, "shed": report.shed, "steps": len(steps),
+                "step_p50_ms": 1e3 * steps[len(steps) // 2], "step_max_ms": 1e3 * steps[-1],
+                "steps_over_10ms": sum(s > 0.01 for s in steps),
+                "gc_pauses_over_5ms": [[g, 1e3 * d] for g, d in pauses if d > 0.005]}
+
+    gc.callbacks.append(on_gc)
+    try:
+        print(f"[variants] server: {len(gc.get_objects())} objects tracked by the collector", flush=True)
+        for rnd in range(SERVER_ROUNDS):
+            for arm in SERVER_ARMS[::1 if rnd % 2 == 0 else -1]:
+                print(f"[variants] server round {rnd} {arm}: {json.dumps(run(arm))}", flush=True)
+    finally:
+        gc.callbacks.remove(on_gc)
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_variants: no CUDA device; this script runs on the card", file=sys.stderr)
         return 1
-    from chip_smoke import card_line, time_ms
+    from chip_smoke import card_line, kernel_device_ms, time_ms
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ops as kops
 
@@ -147,6 +398,8 @@ def main() -> int:
     print(f"[card] {card_line()}", flush=True)
     libs = build_variants(ROOT / "build" / "variants")
     dev, stream = "cuda", torch.cuda.current_stream().cuda_stream
+    k1_k2_variants(libs, dev)
+    server_variants(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for b, s, hq, hkv, dh in K6_SHAPES:
@@ -224,7 +477,7 @@ def main() -> int:
     print(f"[variants] k7 B={b} S={s} Hq={hq} Hkv={hkv} dh={dh} kv_len={kvl} bf16, [single-call ms, burst ms] x2: "
           f"{json.dumps(res)}", flush=True)
     print(f"[variants] k7 device ms a call (torch.profiler): "
-          f"{json.dumps({name: device_ms(fn) for name, fn in calls.items()})}", flush=True)
+          f"{json.dumps({name: kernel_device_ms(fn) for name, fn in calls.items()})}", flush=True)
     return 0
 
 

@@ -139,14 +139,15 @@ def _q1_layout(lineitem: Table) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _q1_demux(out: torch.Tensor) -> dict[str, torch.Tensor]:
-    """Q1 result dict from one [6, 6] kernel output row-block."""
+    """Q1 result dict from one [6, 6] kernel output row-block (or a [B, 6, 6]
+    batch of them)."""
     agg = {
-        "sum_qty": out[:, 0],
-        "sum_base_price": out[:, 1],
-        "sum_disc_price": out[:, 2],
-        "sum_charge": out[:, 3],
-        "sum_disc": out[:, 4],
-        "count": out[:, 5],
+        "sum_qty": out[..., 0],
+        "sum_base_price": out[..., 1],
+        "sum_disc_price": out[..., 2],
+        "sum_charge": out[..., 3],
+        "sum_disc": out[..., 4],
+        "count": out[..., 5],
     }
     return _averages(agg)
 
@@ -192,7 +193,7 @@ def _q6_layout(lineitem: Table) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _q6_demux(out: torch.Tensor) -> dict[str, torch.Tensor]:
-    return {"revenue": out[0, 0], "rows": out[0, 1].to(torch.int32)}
+    return {"revenue": out[..., 0, 0], "rows": out[..., 0, 1].to(torch.int32)}
 
 
 def q6_fused(
@@ -252,9 +253,9 @@ def _q12_demux(out: torch.Tensor) -> dict[str, torch.Tensor]:
     sel = torch.zeros(len(datagen.SHIPMODE), dtype=torch.float32, device=out.device)
     sel[list(Q12_SHIPMODES)] = 1.0
     return {
-        "high_line_count": out[:, 0] * sel,
-        "low_line_count": out[:, 1] * sel,
-        "count": out[:, 2] * sel,
+        "high_line_count": out[..., 0] * sel,
+        "low_line_count": out[..., 1] * sel,
+        "count": out[..., 2] * sel,
     }
 
 
@@ -289,7 +290,8 @@ class ServingPlan:
     including the join, computed once); ``pred_ops``/``agg_ops`` the shared
     opcode structure; ``program(params)`` builds one request's constant
     tables; ``demux(out)`` turns one ``[G, A + 1]`` kernel output slot back
-    into the query's result dict.
+    into the query's result dict, or a ``[B, G, A + 1]`` batch of slots into
+    a dict of batched values.
     """
 
     name: str
@@ -366,4 +368,8 @@ def fused_query_batch(
         plan.cols, plan.keys, plan.pred_ops, pred_consts, plan.agg_ops, agg_consts,
         num_groups=plan.num_groups, use_kernel=use_kernel,
     )
-    return [plan.demux(out[b]) for b in range(len(param_list))]
+    # One demux for the batch, then a view per request: the same elementwise
+    # values as demultiplexing each slot, at one launch per value instead of
+    # one per value and request.
+    batched = {k: v.unbind(0) for k, v in plan.demux(out).items()}
+    return [{k: v[b] for k, v in batched.items()} for b in range(len(param_list))]

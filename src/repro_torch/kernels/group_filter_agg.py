@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -113,12 +114,88 @@ def encode_aggregates(aggs) -> tuple[torch.Tensor, torch.Tensor]:
 
 # ---------------------------------------------------------------------------
 # Launch.
+#: Columns one program may read: the kernel stages each of them and the keys
+#: in shared memory (two stages of 1,028 values an array) beside its sums.
+MAX_COLS_READ = 16
+#: The scan's blocks (tile strides): at most this many, and the partial sums
+#: of one program at most this many bytes.
+MAX_BLOCKS = 384
+PARTIAL_BUDGET_BYTES = 16 << 20
+
 _I64, _I32, _PTR = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
 _SIGNATURES = {
-    "group_filter_agg_blocks": ([_I64, _I64], _I64),
+    "group_filter_agg_tile_rows": ([], _I32),
+    "group_filter_agg_param_consts": ([], _I32),
     "group_filter_agg_error_string": ([_I32], ctypes.c_char_p),
-    "group_filter_agg_launch": ([_PTR, _PTR, _I64, _PTR, _I32, _I32, _I32, _I32, _PTR, _I64, _PTR, _PTR], _I32),
+    "group_filter_agg_launch": (
+        [_PTR, _I64, _PTR, _I64, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _I32, _PTR, _I64, _PTR, _PTR], _I32
+    ),
 }
+
+
+def used_columns(pred_ops: torch.Tensor, agg_ops: torch.Tensor) -> list[int]:
+    """The columns a program reads, sorted: each predicate's column, a
+    compare's second column, and the column of every term in use."""
+    used = set()
+    for kind, a, b in pred_ops.tolist():
+        used.update((a, b) if kind == PRED_LT else (a,))
+    for row in agg_ops.tolist():
+        used.update(row[2 * t + 1] for t in range(MAX_TERMS) if row[2 * t] != TERM_NONE)
+    return sorted(used)
+
+
+def program_words(pred_ops: torch.Tensor, agg_ops: torch.Tensor) -> torch.Tensor:
+    """The int32 words the kernel reads: the used columns, then ``pred_ops``
+    and ``agg_ops`` with every column field replaced by its index in that
+    list (a field the program does not read becomes 0)."""
+    used = used_columns(pred_ops, agg_ops)
+    slot = {c: i for i, c in enumerate(used)}
+    preds = [(kind, slot[a], slot[b] if kind == PRED_LT else 0) for kind, a, b in pred_ops.tolist()]
+    aggs = [
+        [f for t in range(MAX_TERMS) for f in (row[2 * t], slot[row[2 * t + 1]] if row[2 * t] != TERM_NONE else 0)]
+        for row in agg_ops.tolist()
+    ]
+    words = used + [f for p in preds for f in p] + [f for row in aggs for f in row]
+    return torch.tensor(words, dtype=torch.int32)
+
+
+def grid_blocks(n: int, num_groups: int, num_aggs: int, tile_rows: int) -> int:
+    """Blocks of the scan: one a tile, at most MAX_BLOCKS and at most
+    PARTIAL_BUDGET_BYTES of one program's partial sums.  It depends on the
+    rows and the program's width only, never on the number of programs, so
+    K1 and K2 split the rows alike."""
+    tiles = -(-n // tile_rows)
+    cap = min(MAX_BLOCKS, PARTIAL_BUDGET_BYTES // (num_groups * (num_aggs + 1) * 4))
+    return max(1, min(tiles, cap))
+
+
+def _check_ops(num_cols: int, pred_ops: torch.Tensor, agg_ops: torch.Tensor, num_groups: int) -> None:
+    k, a = pred_ops.shape[0], agg_ops.shape[0]
+    if pred_ops.shape != (k, 3) or k < 1:
+        raise ValueError(f"pred_ops must be [K>=1, 3], got {tuple(pred_ops.shape)}")
+    if agg_ops.shape != (a, 2 * MAX_TERMS) or not 1 <= a <= MAX_AGGS:
+        raise ValueError(f"agg_ops must be [1..{MAX_AGGS}, {2 * MAX_TERMS}], got {tuple(agg_ops.shape)}")
+    if num_groups < 1:
+        raise ValueError(f"num_groups must be >= 1, got {num_groups}")
+    if not set(pred_ops[:, 0].tolist()) <= {PRED_RANGE, PRED_LT}:
+        raise ValueError("unknown predicate opcode")
+    if not set(agg_ops[:, 0::2].reshape(-1).tolist()) <= set(range(TERM_GT + 1)):
+        raise ValueError("unknown term mode")
+    col_fields = [c for row in pred_ops.tolist() for c in row[1:]]
+    col_fields += [c for row in agg_ops.tolist() for c in row[1::2]]
+    if not all(0 <= c < num_cols for c in col_fields):
+        raise ValueError(f"program refers to a column outside [0, {num_cols})")
+    if len(used_columns(pred_ops, agg_ops)) > MAX_COLS_READ:
+        raise ValueError(f"program reads more than {MAX_COLS_READ} columns")
+
+
+def _check_consts(pred_ops, pred_consts, agg_ops, agg_consts) -> None:
+    k, a, b = pred_ops.shape[0], agg_ops.shape[0], pred_consts.shape[0]
+    if pred_consts.shape != (b, k, 2) or agg_consts.shape != (b, a, MAX_TERMS) or b < 1:
+        raise ValueError(
+            f"consts must be [B, {k}, 2] and [B, {a}, {MAX_TERMS}], got "
+            f"{tuple(pred_consts.shape)} and {tuple(agg_consts.shape)}"
+        )
 
 
 def check_program(
@@ -133,34 +210,49 @@ def check_program(
 
     ``pred_consts``/``agg_consts`` carry a leading program dimension here
     (``[B, K, 2]`` / ``[B, A, MAX_TERMS]``).  Column indices are read on the
-    host, so they must lie in ``[0, num_cols)``.
+    host, so they must lie in ``[0, num_cols)``; at most MAX_COLS_READ
+    distinct columns may be read, and every opcode must be one the encoders
+    write.
     """
-    k, a = pred_ops.shape[0], agg_ops.shape[0]
-    if pred_ops.shape != (k, 3) or k < 1:
-        raise ValueError(f"pred_ops must be [K>=1, 3], got {tuple(pred_ops.shape)}")
-    if agg_ops.shape != (a, 2 * MAX_TERMS) or not 1 <= a <= MAX_AGGS:
-        raise ValueError(f"agg_ops must be [1..{MAX_AGGS}, {2 * MAX_TERMS}], got {tuple(agg_ops.shape)}")
-    b = pred_consts.shape[0]
-    if pred_consts.shape != (b, k, 2) or agg_consts.shape != (b, a, MAX_TERMS) or b < 1:
-        raise ValueError(
-            f"consts must be [B, {k}, 2] and [B, {a}, {MAX_TERMS}], got "
-            f"{tuple(pred_consts.shape)} and {tuple(agg_consts.shape)}"
-        )
-    if num_groups < 1:
-        raise ValueError(f"num_groups must be >= 1, got {num_groups}")
-    col_fields = [c for row in pred_ops.tolist() for c in row[1:]]
-    col_fields += [c for row in agg_ops.tolist() for c in row[1::2]]
-    if not all(0 <= c < num_cols for c in col_fields):
-        raise ValueError(f"program refers to a column outside [0, {num_cols})")
+    _check_ops(num_cols, pred_ops, agg_ops, num_groups)
+    _check_consts(pred_ops, pred_consts, agg_ops, agg_consts)
+
+
+def _to_card(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` on ``device``; a host tensor goes through pinned memory with an
+    asynchronous copy, so the host does not wait for the stream."""
+    return t if t.device == device else t.pin_memory().to(device, non_blocking=True)
+
+
+# The checked, rewritten program on each device, by the ops' contents (a
+# serving plan reuses its ops for every request).
+_PROGRAMS: dict[tuple, tuple[torch.Tensor, int]] = {}
+_MAX_PROGRAMS = 1024
+
+
+def device_program(device, num_cols: int, pred_ops: torch.Tensor, agg_ops: torch.Tensor, num_groups: int):
+    """(:func:`program_words` on ``device``, the number of columns read);
+    checked and copied once per program and device."""
+    po = pred_ops.cpu().to(torch.int32).contiguous()
+    ao = agg_ops.cpu().to(torch.int32).contiguous()
+    key = (str(device), num_cols, num_groups, tuple(po.shape), tuple(ao.shape), po.numpy().tobytes(),
+           ao.numpy().tobytes())
+    hit = _PROGRAMS.get(key)
+    if hit is None:
+        _check_ops(num_cols, po, ao, num_groups)
+        if len(_PROGRAMS) >= _MAX_PROGRAMS:
+            _PROGRAMS.clear()
+        hit = _PROGRAMS[key] = (_to_card(program_words(po, ao), device), len(used_columns(po, ao)))
+    return hit
 
 
 def launch(
-    cols: torch.Tensor,  # [C, N] f32 on a CUDA device
+    cols: torch.Tensor,  # [C, N] f32 on a CUDA device, rows contiguous
     keys: torch.Tensor,  # [N] or [1, N] i32
     pred_ops: torch.Tensor,  # [K, 3] i32 (host)
-    pred_consts: torch.Tensor,  # [B, K, 2] f32 (host)
+    pred_consts: torch.Tensor,  # [B, K, 2] f32 (host or cols' device)
     agg_ops: torch.Tensor,  # [A, 6] i32 (host)
-    agg_consts: torch.Tensor,  # [B, A, 3] f32 (host)
+    agg_consts: torch.Tensor,  # [B, A, 3] f32 (host or cols' device)
     num_groups: int,
 ) -> torch.Tensor:
     """Run the CUDA kernel; returns ``[B, num_groups, A + 1]`` f32 on cols' device."""
@@ -172,31 +264,41 @@ def launch(
     keys = keys.reshape(-1)
     if keys.device != cols.device or keys.dtype != torch.int32 or keys.numel() != n:
         raise ValueError("keys must be int32 with one entry per row, on cols' device")
-    pred_ops, agg_ops = pred_ops.cpu(), agg_ops.cpu()
-    pred_consts = pred_consts.to("cpu", torch.float32)
-    agg_consts = agg_consts.to("cpu", torch.float32)
-    check_program(c, pred_ops, pred_consts, agg_ops, agg_consts, num_groups)
-    k, a, b = pred_ops.shape[0], agg_ops.shape[0], pred_consts.shape[0]
-
-    cols = cols.contiguous()
-    keys = keys.contiguous()
-    # One host-to-device copy carries the whole program.
-    prog = torch.cat([
-        pred_ops.to(torch.int32).reshape(-1),
-        agg_ops.to(torch.int32).reshape(-1),
-        pred_consts.reshape(-1).view(torch.int32),
-        agg_consts.reshape(-1).view(torch.int32),
-    ]).to(cols.device)
-
+    if cols.stride(1) != 1 or (c > 1 and cols.stride(0) < n):
+        cols = cols.contiguous()  # the kernel takes any row stride, not a column stride
+    ops, used = device_program(cols.device, c, pred_ops, agg_ops, num_groups)
+    _check_consts(pred_ops, pred_consts, agg_ops, agg_consts)
     lib = build.bind("group_filter_agg", _SIGNATURES)
+    k, a, b = pred_ops.shape[0], agg_ops.shape[0], pred_consts.shape[0]
+    if pred_consts.device.type == agg_consts.device.type == "cpu" and b * (2 * k + 3 * a) <= _limits(lib)[1]:
+        # Few host constants: they travel in the launch's parameters.
+        host = np.concatenate([pred_consts.numpy().ravel(), agg_consts.numpy().ravel()], dtype=np.float32)
+        return call(lib, cols, keys.contiguous(), ops, used, None, k, a, b, num_groups, host_consts=host)
+    consts = torch.cat([pred_consts.reshape(-1), agg_consts.reshape(-1)]).to(torch.float32)
+    return call(lib, cols, keys.contiguous(), ops, used, _to_card(consts, cols.device), k, a, b, num_groups)
+
+
+def _limits(lib) -> tuple[int, int]:
+    """(rows of a tile, constants that travel by value) of a built library."""
+    if not hasattr(lib, "_gfa_limits"):
+        lib._gfa_limits = (lib.group_filter_agg_tile_rows(), lib.group_filter_agg_param_consts())
+    return lib._gfa_limits
+
+
+def call(lib, cols, keys, ops, used, consts, k, a, b, num_groups, host_consts=None) -> torch.Tensor:
+    """One launch of ``lib``'s ``group_filter_agg_launch`` on inputs
+    :func:`launch` has checked and put on the card, the constants either in
+    ``consts`` (on the card) or in ``host_consts`` (a float32 numpy array)."""
+    n = cols.shape[1]
+    blocks = grid_blocks(n, num_groups, a, _limits(lib)[0])
     slots = num_groups * (a + 1)
-    blocks = int(lib.group_filter_agg_blocks(n, slots))
     partials = torch.empty(blocks * b * slots, dtype=torch.float32, device=cols.device)
     out = torch.empty((b, num_groups, a + 1), dtype=torch.float32, device=cols.device)
     stream = torch.cuda.current_stream(cols.device).cuda_stream
     err = lib.group_filter_agg_launch(
-        cols.data_ptr(), keys.data_ptr(), n, prog.data_ptr(), k, a, num_groups, b,
-        partials.data_ptr(), blocks, out.data_ptr(), stream,
+        cols.data_ptr(), cols.stride(0), keys.data_ptr(), n, ops.data_ptr(),
+        None if consts is None else consts.data_ptr(), None if host_consts is None else host_consts.ctypes.data,
+        used, k, a, num_groups, b, partials.data_ptr(), blocks, out.data_ptr(), stream,
     )
     build.check_launch(lib, "group_filter_agg", err)
     return out
