@@ -51,7 +51,7 @@ FILTER_RTOL = 2e-5  # filter_agg sums (tests/test_query_fusion.py's bound)
 # Kernel against plain version (tests/test_kernels.py's tolerances).
 ATTN_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (2e-2, 2e-2)}
 GMM_TOL = {torch.float32: (2e-4, 2e-3), torch.bfloat16: (3e-2, 0.5)}
-SSD_TOL = (2e-4, 2e-4)  # K8 computes in f32 from either input type
+SSD_TOL = (2e-4, 2e-4)  # K8 in f32 from f32 inputs; from bf16, f32 accumulation of two-term bf16 splits
 TIMING_REPS = 25
 TIMING_WARMUP = 5
 
@@ -67,9 +67,11 @@ LM_LAYERS = {"granite-3-8b": 40, "mamba2-2.7b": 64}
 # Published H100-family peaks (NVIDIA data sheets): memory bytes/s, float32
 # FLOP/s outside the tensor cores and dense bf16 FLOP/s on the tensor cores.
 # A bound counts an operation at the rate of its inputs' type: attention on
-# bf16 inputs (K6 and K7 in the LM path) at the bf16 rate, though the
-# kernels compute in float32 on the CUDA cores; K8's M x product takes an
-# f32 M whatever the input type, so K8 counts at the float32 rate.
+# bf16 inputs (K6 and K7 in the LM path) at the bf16 rate.  K8 on bf16
+# inputs runs its products on the tensor cores, each f32 operand split into
+# two bf16 terms, so its operations count twice at the bf16 rate and its
+# bound is the bytes bound; its operations at the float32 rate (the first
+# design's bound) are printed beside it.
 PEAKS = {
     "H100 PCIe": (2.0e12, 51e12, 756e12),
     "H100 NVL": (3.9e12, 60e12, 835e12),
@@ -556,7 +558,8 @@ def compare_k7(label, b, s, hq, hkv, dh, lens, dtype, gen, dev):
 
 
 def compare_k8(label, b, s, h, p, n, chunk, dtype, gen, dev):
-    """K8 against its plain version: y and the chunk states within 2e-4."""
+    """K8 against its plain version: y and the chunk states within 2e-4; a
+    repeated launch gives the same bits."""
     from repro_torch.kernels import ops as kops
 
     x = torch.randn((b, s, h, p), generator=gen, device=dev).to(dtype)
@@ -567,7 +570,10 @@ def compare_k8(label, b, s, h, p, n, chunk, dtype, gen, dev):
     y, st = kops.ssd_intra(x, bm, cm, dt, a, chunk=chunk)
     ye, ste = kops.ssd_intra(x, bm, cm, dt, a, chunk=chunk, use_kernel=False)
     err = max(close(f"k8 {label} y", y, ye, *SSD_TOL), close(f"k8 {label} states", st, ste, *SSD_TOL))
-    print(f"[k8] {label}: B={b} S={s} H={h} P={p} N={n} Q={min(chunk, s)} {dtype} max_abs_err {err:.3g}", flush=True)
+    y2, st2 = kops.ssd_intra(x, bm, cm, dt, a, chunk=chunk)
+    check(torch.equal(y, y2) and torch.equal(st, st2), f"k8 {label}: a repeated launch must give the same bits")
+    print(f"[k8] {label}: B={b} S={s} H={h} P={p} N={n} Q={min(chunk, s)} {dtype} max_abs_err {err:.3g}; "
+          f"repeats equal (torch.equal)", flush=True)
     return err
 
 
@@ -599,6 +605,18 @@ def k7_k8_phase(dev):
         for s in (4, 17, 31):  # launch.serve's prompts: one chunk of Q = S at Mamba2's width
             compare_k8("mamba2 short prefill", 1, s, 80, 64, 128, 64, dtype, gen, dev)
         compare_k8("ragged P/N", 1, 96, 5, 128, 200, 48, dtype, gen, dev)
+    # bf16: the tensor-core kernel's edges (16-row tiles, 64-row bands, its
+    # staged N slice, rows that are not whole 16-byte copies).
+    bf16 = torch.bfloat16
+    for q in (16, 32, 48, 65):
+        compare_k8("edge Q", 1, 2 * q, 6, 64, 128, q, bf16, gen, dev)
+    for n in (16, 32):
+        compare_k8("edge N", 1, 128, 6, 64, n, 64, bf16, gen, dev)
+    compare_k8("edge P", 1, 128, 6, 8, 128, 64, bf16, gen, dev)
+    compare_k8("Q=1", 2, 3, 5, 8, 16, 1, bf16, gen, dev)
+    compare_k8("P=5 N=17", 2, 34, 3, 5, 17, 17, bf16, gen, dev)
+    compare_k8("N in slices", 1, 512, 3, 128, 200, 256, bf16, gen, dev)
+    compare_k8("N in slices", 1, 128, 9, 64, 1000, 64, bf16, gen, dev)
     return errs
 
 
@@ -1312,6 +1330,12 @@ def lm_kernel_entries(name, launches, errs):
     k8_bytes = 2 * (x.numel() + bm.numel() + cm.numel()) + 4 * (dt.numel() + h) + 4 * (x.numel() + b8 * nc * h * p * n)
     # C B^T on the causal pairs, M = C B^T * decay * dt, M x, and the state x * seg then (x) B.
     k8_ops = b8 * nc * (pairs * 2 * n + h * pairs * (3 + 2 * p) + h * chunk * p * (1 + 2 * n))
+    k8_entry = kernel_entry("ssd_intra", "src/repro_torch/csrc/ssd_intra.cu", "src/repro/kernels/ssd_scan.py:57",
+                            launches["ssd_intra"], k8, k8p, 1e3 * k8_bytes / bw, 1e3 * 2 * k8_ops / bf16_flops,
+                            errs["k8_bf16"], None,
+                            f"mamba2 prefill: B={b8} S={s8} H={h} P={p} N={n} Q={chunk} bf16 x/B/C")
+    k8_entry.update({"device_ms": kernel_device_ms(k8, ("ssd_intra",)),
+                     "f32_operations_bound_ms": 1e3 * k8_ops / flops})
     k7_entry = kernel_entry("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
                             "src/repro/kernels/decode_attention.py:67", launches["decode_attention"], k7, k7p,
                             1e3 * k7_bytes / bw, 1e3 * k7_ops / bf16_flops, errs["k7_bf16"], k7lib,
@@ -1319,12 +1343,7 @@ def lm_kernel_entries(name, launches, errs):
     k7_entry.update({"library": f"SDPA, bool kv_len mask over {s} slots, enable_gqa ({backends['masked']})",
                      "library_cut_ms": time_ms(k7cut),
                      "library_cut": f"SDPA over the cache cut to kv_len, no mask, enable_gqa ({backends['cut']})"})
-    return [
-        k7_entry,
-        kernel_entry("ssd_intra", "src/repro_torch/csrc/ssd_intra.cu", "src/repro/kernels/ssd_scan.py:57",
-                     launches["ssd_intra"], k8, k8p, 1e3 * k8_bytes / bw, 1e3 * k8_ops / flops, errs["k8_bf16"],
-                     None, f"mamba2 prefill: B={b8} S={s8} H={h} P={p} N={n} Q={chunk} bf16 x/B/C"),
-    ]
+    return [k7_entry, k8_entry]
 
 
 def main() -> int:
@@ -1353,22 +1372,24 @@ def main() -> int:
         for line in log.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"[build] {src}: {line.strip()}", flush=True)
-    # The redesigned kernels (K6's and K7's tensor-core kernels, K5, K1/K2's
-    # scan) keep every value in registers (ptxas reports only on a build,
-    # not on a library already built).
+    # The redesigned kernels (K6's, K7's and K8's tensor-core kernels, K5,
+    # K1/K2's scan) keep every value in registers (ptxas reports only on a
+    # build, not on a library already built).
     tc_kernels = {"flash_attention": "flash_attention_tc_kernel", "gmm": "gmm_kernel",
-                  "decode_attention": "decode_mma_kernel", "group_filter_agg": "group_filter_agg_kernel"}
+                  "decode_attention": "decode_mma_kernel", "group_filter_agg": "group_filter_agg_kernel",
+                  "ssd_intra": "ssd_intra_mma_kernel"}
     redesigned = {fn: info for src, kern in tc_kernels.items() for fn, info in ptxas_report(logs[src]).items()
                   if kern in fn}
-    # dh 64 / 128; f32 / bf16; dh 32 / 64 / 128; one scan kernel
-    want = {"flash_attention": 2, "gmm": 2, "decode_attention": 3, "group_filter_agg": 1}
+    # dh 64 / 128; f32 / bf16; dh 32 / 64 / 128; one scan kernel; P <= 64 / 128
+    want = {"flash_attention": 2, "gmm": 2, "decode_attention": 3, "group_filter_agg": 1, "ssd_intra": 2}
     for fn, info in redesigned.items():
-        if "decode_mma_kernel" in fn or "group_filter_agg_kernel" in fn:
+        if any(k in fn for k in ("decode_mma_kernel", "group_filter_agg_kernel", "ssd_intra_mma_kernel")):
             print(f"[build] {fn}: {json.dumps(info)}", flush=True)
     check(len(redesigned) == sum(n for src, n in want.items() if logs[src])
           and not any(info["spill_bytes"] for info in redesigned.values()),
-          f"ptxas spills in K1/K2/K5/K6/K7: {redesigned}")
-    for src, ops in (("flash_attention", ("HGMMA", "UTMALDG")), ("decode_attention", ("HMMA", "LDSM"))):
+          f"ptxas spills in K1/K2/K5/K6/K7/K8: {redesigned}")
+    for src, ops in (("flash_attention", ("HGMMA", "UTMALDG")), ("decode_attention", ("HMMA", "LDSM")),
+                     ("ssd_intra", ("HMMA", "LDSM"))):
         sass = sass_counts(src, ops)
         print(f"[sass] {src}: {json.dumps(sass)}", flush=True)
         check(min(sass.values()) > 0, f"{src}'s library lacks its tensor-core or load instructions: {sass}")

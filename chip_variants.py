@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time variants of the port's K1/K2, K5, K6 and K7 kernels, and of its query server, side by side on one card.
+"""Time variants of the port's K1/K2, K5, K6, K7 and K8 kernels, and of its query server, side by side on one card.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 chip_variants.py
+    python3 chip_variants.py            # every section
+    python3 chip_variants.py --only k8  # one or more of k1, server, k6, k5, k7, k8
 
 Each variant is a copy of ``src/repro_torch/csrc/<source>.cu`` with a few
 constants edited; the copies are built with the port's own nvcc flags under
@@ -39,6 +40,25 @@ pinned asynchronous copy.  The variants marked "diagnostic" leave
 out the aggregates' terms, or every predicate, term and sum, to show where
 the time goes.
 
+K8 (``ssd_intra``, bf16, Mamba2-2.7B's 2,048-token prefill) runs the
+tensor-core kernel with 1, 2, 4 (committed) and 8 heads a block, with
+other launch bounds, with streaming (evict-first) stores, with the decay
+exp(lcum_i - lcum_j) by the fast ``__expf``, with a buffer for every head's
+x instead of a ring of two, with the state's tiles dealt to the warps in
+turn instead of by load, 128 columns wide or with their 16-step loop
+unrolled, and beside ``k8 first design``
+(``csrc/variants/ssd_intra_first.cu``: the first design's CUDA-core kernel,
+which the committed source still runs for float32).  Each is held to the
+plain version within 2e-4 and timed one call per event pair, back to back
+and as device time.  Its variants marked "diagnostic" leave out the
+products: all of them (the loads and stores alone, to show how far the
+state write sets the pace; then also without y's stores, the state's, or
+both, and without the loads), or y's or the state's; or keep the products
+and leave out the loads, the stores (gated on a flag no launch sets, so
+the products stay live) or both.  A fill of y and the
+states (``zero_``: 126 MB written, nothing read) and of the states alone
+gives the card's write floor beside them.
+
 The ``QueryServer`` runs the smoke's server phase in turns over four arms
 (a batch's results demultiplexed per slot or once, and that with the heap
 frozen out of the garbage collector or the collector off), with its sheds,
@@ -46,6 +66,7 @@ step times and the collector's pauses.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import ctypes
 import json
@@ -111,7 +132,63 @@ VARIANTS.update({
 # the 256-thread variant fit an SM.
 K1_GRIDS = {"k1 committed": (256, 768), "k1 256 threads x 4 rows, 3 stages": (256,)}
 K2_B = 8
+FIRST_K8 = "variants/ssd_intra_first"
+K8_SHAPE = (1, 2048, 80, 64, 128, 64)  # B, S, H, P, N, Q: Mamba2-2.7B's 2,048-token prefill, bf16 x/B/C
+_K8_HEADS = "constexpr int kTcHeads = 4;"
+_K8_BOUNDS = "__launch_bounds__(kTcThreads, 3)\nssd_intra_mma_kernel"
+_K8_XALL = ("constexpr int kTcXBufs = 2;", "constexpr int kTcXBufs = kTcHeads;")
+_K8_NO_LOADS = [("    load_tile(s_c, cpitch,", "    if (false) load_tile(s_c, cpitch,"),
+                ("    load_tile(s_b, cpitch,", "    if (false) load_tile(s_b, cpitch,"),
+                ("    load_tile(s_x + buf * qp * xpitch,", "    if (false) load_tile(s_x + buf * qp * xpitch,"),
+                ("? dt[(row0 + i) * h_total + h0 + hh] : 0.0f;", "? 0.0f : 0.0f;")]
+# Stores gated on a flag bit no launch sets: the products stay (their results
+# are live), the bytes are not written.
+_K8_GATED_STORES = [("          if (64 * half < pp)\n", "          if ((flags & 64) && 64 * half < pp)\n"),
+                    ("            store_tiles(sh, n_dim,", "            if (flags & 64) store_tiles(sh, n_dim,")]
+_K8_NO_Y_STORE = ("          if (64 * half < pp)\n", "          if (false)\n")
+_K8_NO_STATE_STORE = ("            store_tiles(sh, n_dim,", "            if (false) store_tiles(sh, n_dim,")
+_K8_NO_CB = ("  if (keep_cb) {", "  if (false) {")
+_K8_NO_Y = ("      for (int jb = 0; jb <= t; ++jb) {", "      for (int jb = 0; jb < 0; ++jb) {")
+_K8_NO_STATE = ("        for (int kt = 0; kt < rt; ++kt) {", "        for (int kt = 0; kt < 0; ++kt) {")
+VARIANTS.update({
+    "k8 first design": (FIRST_K8, []),
+    "k8 committed": ("ssd_intra", []),
+    "k8 1 head a block": ("ssd_intra", [(_K8_HEADS, "constexpr int kTcHeads = 1;")]),
+    "k8 2 heads a block": ("ssd_intra", [(_K8_HEADS, "constexpr int kTcHeads = 2;")]),
+    "k8 8 heads a block": ("ssd_intra", [(_K8_HEADS, "constexpr int kTcHeads = 8;")]),
+    "k8 launch bounds, 2 blocks": ("ssd_intra", [(_K8_BOUNDS, _K8_BOUNDS.replace(", 3)", ", 2)"))]),
+    "k8 launch bounds, none": ("ssd_intra", [(_K8_BOUNDS, _K8_BOUNDS.replace(", 3)", ")"))]),
+    "k8 __expf for the decay": ("ssd_intra", [("expf(__fsub_rn(li, k & 1 ? lj.y : lj.x))",
+                                               "__expf(__fsub_rn(li, k & 1 ? lj.y : lj.x))")]),
+    "k8 state tiles dealt in turn": ("ssd_intra", [("constexpr float kYWeight = 0.6f;",
+                                                     "constexpr float kYWeight = 0.0f;")]),
+    "k8 16 x 128 state tiles": ("ssd_intra", [("constexpr int kStateCols = 64;", "constexpr int kStateCols = 128;")]),
+    "k8 state steps unrolled by 4": ("ssd_intra", [(_K8_NO_STATE[0], "#pragma unroll 4\n" + _K8_NO_STATE[0])]),
+    "k8 streaming stores (st.global.cs)": ("ssd_intra", [(
+        "      if (c < cols) *reinterpret_cast<float4*>(out) = v;",
+        "      if (c < cols) __stcs(reinterpret_cast<float4*>(out), v);")]),
+    "k8 x buffer a head": ("ssd_intra", [_K8_XALL]),
+    "k8 loads and stores only (diagnostic)": ("ssd_intra", [_K8_NO_CB, _K8_NO_Y, _K8_NO_STATE]),
+    "k8 loads and y stores only (diagnostic)": ("ssd_intra", [_K8_NO_CB, _K8_NO_Y, _K8_NO_STATE, _K8_NO_STATE_STORE]),
+    "k8 loads and state stores only (diagnostic)": ("ssd_intra", [_K8_NO_CB, _K8_NO_Y, _K8_NO_STATE, _K8_NO_Y_STORE]),
+    "k8 stores only (diagnostic)": ("ssd_intra", [_K8_NO_CB, _K8_NO_Y, _K8_NO_STATE, *_K8_NO_LOADS]),
+    "k8 state stores only (diagnostic)": ("ssd_intra", [_K8_NO_CB, _K8_NO_Y, _K8_NO_STATE, _K8_NO_Y_STORE,
+                                                        *_K8_NO_LOADS]),
+    "k8 products only (diagnostic)": ("ssd_intra", [*_K8_NO_LOADS, *_K8_GATED_STORES]),
+    "k8 y products only (diagnostic)": ("ssd_intra", [*_K8_NO_LOADS, *_K8_GATED_STORES, _K8_NO_STATE]),
+    "k8 state products only (diagnostic)": ("ssd_intra", [*_K8_NO_LOADS, *_K8_GATED_STORES, _K8_NO_CB, _K8_NO_Y]),
+    "k8 loads and products only (diagnostic)": ("ssd_intra", _K8_GATED_STORES),
+    "k8 products and stores only (diagnostic)": ("ssd_intra", _K8_NO_LOADS),
+    "k8 loads only (diagnostic)": ("ssd_intra", [_K8_NO_CB, _K8_NO_Y, _K8_NO_STATE, _K8_NO_Y_STORE,
+                                                 _K8_NO_STATE_STORE]),
+    "k8 no y products (diagnostic)": ("ssd_intra", [_K8_NO_CB, _K8_NO_Y]),
+    "k8 no state products (diagnostic)": ("ssd_intra", [_K8_NO_STATE]),
+})
 _I64, _I32, _PTR = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
+K8_FIRST_SIGNATURES = {
+    "ssd_intra_error_string": ([_I32], ctypes.c_char_p),
+    "ssd_intra_launch": ([_PTR] * 7 + [_I32] * 7 + [_PTR], _I32),
+}
 FIRST_SIGNATURES = {
     "group_filter_agg_blocks": ([_I64, _I64], _I64),
     "group_filter_agg_error_string": ([_I32], ctypes.c_char_p),
@@ -125,17 +202,19 @@ def build_variants(out_dir: Path) -> dict[str, ctypes.CDLL]:
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import group_filter_agg as gfa
-    from repro_torch.kernels import moe_gmm
+    from repro_torch.kernels import moe_gmm, ssd_scan
 
     out_dir.mkdir(parents=True, exist_ok=True)
     for header in build.CSRC.glob("*.cuh"):
         shutil.copy(header, out_dir / header.name)
     procs = {}
     for i, (name, (src, edits)) in enumerate(VARIANTS.items()):
+        if name.split()[0] not in SECTIONS:
+            continue
         text = (build.CSRC / f"{src}.cu").read_text()
         for old, new in edits:
-            if old not in text:
-                raise RuntimeError(f"{name}: {old!r} is not in {src}.cu")
+            if old not in text or (name.startswith("k8") and text.count(old) != 1):
+                raise RuntimeError(f"{name}: {old!r} is not in {src}.cu once")
             text = text.replace(old, new)
         cu = out_dir / f"v{i}.cu"
         cu.write_text(text)
@@ -148,12 +227,12 @@ def build_variants(out_dir: Path) -> dict[str, ctypes.CDLL]:
             raise RuntimeError(f"{name}: nvcc failed\n{log}")
         spilled = [line.strip() for line in log.splitlines() if "spill stores" in line and " 0 bytes spill" not in line]
         print(f"[build] {name}: {len(spilled)} function(s) spill: {spilled}", flush=True)
-        if name.startswith("k1"):
+        if name.startswith(("k1", "k8")):
             print(f"[build] {name}: {json.dumps(ptxas_report(log))}", flush=True)
         lib = ctypes.CDLL(str(out_dir / f"libv{i}.so"))
-        signatures = FIRST_SIGNATURES if src == FIRST else {
+        signatures = {FIRST: FIRST_SIGNATURES, FIRST_K8: K8_FIRST_SIGNATURES}.get(src) or {
             "flash_attention": fa, "gmm": moe_gmm, "decode_attention": da, "group_filter_agg": gfa,
-            SHARED: gfa}[src]._SIGNATURES
+            SHARED: gfa, "ssd_intra": ssd_scan}[src]._SIGNATURES
         for fn, (argtypes, restype) in signatures.items():
             getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, restype
         libs[name] = lib
@@ -296,6 +375,60 @@ def k1_k2_variants(libs, dev):
               f"{json.dumps({name: kernel_device_ms(fn, GFA_KERNELS) for name, fn in fns.items()})}", flush=True)
 
 
+def k8_variants(libs, dev):
+    """K8 at Mamba2-2.7B's prefill shape for every k8 variant and the plain
+    version; see the module note."""
+    from chip_smoke import SSD_TOL, close, kernel_device_ms, time_ms
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ssd_scan
+
+    b, s, h, p, n, q = K8_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(15)
+    x = torch.randn((b, s, h, p), generator=gen, device=dev).to(torch.bfloat16)
+    bm, cm = ((0.5 * torch.randn((b, s, n), generator=gen, device=dev)).to(torch.bfloat16) for _ in range(2))
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device=dev))
+    a = -torch.exp(torch.linspace(0.0, 2.77, h, device=dev))
+    want = kops.ssd_intra(x, bm, cm, dt, a, chunk=q, use_kernel=False)
+    stream = torch.cuda.current_stream().cuda_stream
+    yz = torch.empty((b, s, h, p), dtype=torch.float32, device=dev)
+    stz = torch.empty((b, s // q, h, p, n), dtype=torch.float32, device=dev)
+    calls = {"plain": lambda: kops.ssd_intra(x, bm, cm, dt, a, chunk=q, use_kernel=False),
+             "fill y and states (zero_)": lambda: (yz.zero_(), stz.zero_()),
+             "fill states (zero_)": lambda: stz.zero_()}
+    for name, lib in libs.items():
+        if not name.startswith("k8"):
+            continue
+        y = torch.empty((b, s, h, p), dtype=torch.float32, device=dev)
+        st = torch.empty((b, s // q, h, p, n), dtype=torch.float32, device=dev)
+        tail = [1, stream] if name == "k8 first design" else [1, ssd_scan.chunk_width(q, p, n), stream]
+        args = [t.data_ptr() for t in (x, bm, cm, dt, a, y, st)] + [b, s, h, p, n, q] + tail
+
+        def run(lib=lib, args=args, y=y, st=st):
+            err = lib.ssd_intra_launch(*args)
+            if err:
+                raise RuntimeError(f"launch failed: {lib.ssd_intra_error_string(err).decode()}")
+            return y, st
+
+        calls[name] = run
+        got = run()
+        if "diagnostic" not in name:
+            close(f"{name} y", got[0], want[0], *SSD_TOL)
+            close(f"{name} states", got[1], want[1], *SSD_TOL)
+            y1, st1 = got[0].clone(), got[1].clone()
+            if not (torch.equal(y1, run()[0]) and torch.equal(st1, st)):
+                raise RuntimeError(f"{name}: a repeated launch differs")
+    print(f"[variants] k8 B={b} S={s} H={h} P={p} N={n} Q={q} bf16: every variant within {SSD_TOL} of the plain "
+          f"version, repeats equal", flush=True)
+    res = {name: [] for name in calls}
+    for order in (1, -1):
+        for name in list(calls)[::order]:
+            res[name].append([time_ms(calls[name]), burst_ms(calls[name])])
+    print(f"[variants] k8 [single-call ms, burst ms] x2: {json.dumps(res)}", flush=True)
+    device = {name: kernel_device_ms(fn, ("ssd_intra",) if name.startswith("k8") else ("",))
+              for name, fn in calls.items() if name != "plain"}
+    print(f"[variants] k8 device ms a call (torch.profiler): {json.dumps(device)}", flush=True)
+
+
 @contextlib.contextmanager
 def heap_frozen():
     """The objects alive on entry kept out of the garbage collector until exit."""
@@ -386,21 +519,12 @@ def server_variants(dev):
         gc.callbacks.remove(on_gc)
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_variants: no CUDA device; this script runs on the card", file=sys.stderr)
-        return 1
-    from chip_smoke import card_line, kernel_device_ms, time_ms
-    from repro_torch.kernels import decode_attention as da
+def k6_variants(libs, dev, gen):
+    """K6 (bf16, causal) at K6_SHAPES for every k6 variant, beside SDPA."""
+    from chip_smoke import time_ms
     from repro_torch.kernels import ops as kops
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(f"[card] {card_line()}", flush=True)
-    libs = build_variants(ROOT / "build" / "variants")
-    dev, stream = "cuda", torch.cuda.current_stream().cuda_stream
-    k1_k2_variants(libs, dev)
-    server_variants(dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for b, s, hq, hkv, dh in K6_SHAPES:
         q, k, v = (torch.randn((b, s, h, dh), generator=gen, device=dev).to(torch.bfloat16) for h in (hq, hkv, hkv))
@@ -424,6 +548,14 @@ def main() -> int:
                 res[name].append([time_ms(calls[name]), burst_ms(calls[name])])
         print(f"[variants] k6 B={b} S={s} Hq={hq} Hkv={hkv} dh={dh} bf16 causal, [single-call ms, burst ms] x2: "
               f"{json.dumps(res)}", flush=True)
+
+
+def k5_variants(libs, dev, gen):
+    """K5 (f32) at accel_torch large for every k5 variant, beside torch.bmm."""
+    from chip_smoke import time_ms
+    from repro_torch.kernels import ops as kops
+
+    stream = torch.cuda.current_stream().cuda_stream
     e, c, d, f = K5_SHAPE
     lhs = torch.randn((e, c, d), generator=gen, device=dev)
     rhs = torch.randn((e, d, f), generator=gen, device=dev)
@@ -445,6 +577,16 @@ def main() -> int:
             res[name].append([time_ms(calls[name]), burst_ms(calls[name])])
     print(f"[variants] k5 E={e} C={c} d={d} f={f} f32, [single-call ms, burst ms] x2: {json.dumps(res)}", flush=True)
 
+
+def k7_variants(libs, dev, gen):
+    """K7 (bf16) at Granite-3-8B's long-context decode for every k7 variant,
+    beside SDPA masked and over the cache cut to kv_len."""
+    from chip_smoke import kernel_device_ms, time_ms
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops as kops
+
+    stream = torch.cuda.current_stream().cuda_stream
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     b, s, hq, hkv, dh, kvl = K7_SHAPE
     q = torch.randn((b, hq, dh), generator=gen, device=dev).to(torch.bfloat16)
     k, v = (torch.randn((b, s, hkv, dh), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
@@ -478,6 +620,36 @@ def main() -> int:
           f"{json.dumps(res)}", flush=True)
     print(f"[variants] k7 device ms a call (torch.profiler): "
           f"{json.dumps({name: kernel_device_ms(fn) for name, fn in calls.items()})}", flush=True)
+
+
+SECTIONS = ("k1", "server", "k6", "k5", "k7", "k8")
+
+
+def main() -> int:
+    global SECTIONS
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--only", nargs="+", choices=SECTIONS, default=list(SECTIONS),
+                        help="the sections to run (default: all)")
+    SECTIONS = tuple(parser.parse_args().only)
+    if not torch.cuda.is_available():
+        print("chip_variants: no CUDA device; this script runs on the card", file=sys.stderr)
+        return 1
+    from chip_smoke import card_line
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"[card] {card_line()}", flush=True)
+    libs = build_variants(ROOT / "build" / "variants")
+    dev = "cuda"
+    if "k1" in SECTIONS:
+        k1_k2_variants(libs, dev)
+    if "server" in SECTIONS:
+        server_variants(dev)
+    if "k8" in SECTIONS:
+        k8_variants(libs, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for section, fn in (("k6", k6_variants), ("k5", k5_variants), ("k7", k7_variants)):
+        if section in SECTIONS:
+            fn(libs, dev, gen)
     return 0
 
 

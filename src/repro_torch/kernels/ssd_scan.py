@@ -5,6 +5,10 @@ the chunk) and the chunk's outgoing state ``[P, N]``, in float32 from x/B/C
 in float32 or bfloat16.  Counterpart of the JAX package's
 ``kernels/ssd_scan.py``; the inter-chunk recurrence stays with the caller
 (``models/ssm.ssd_chunked``), as it stays outside the Pallas kernel.
+
+bfloat16 inputs run the tensor-core kernel, float32 inputs the first
+design on the CUDA cores (see the source's note).  The tensor-core kernel
+stages C and B ``chunk_width(Q, P, N)`` columns of N at a time.
 """
 from __future__ import annotations
 
@@ -18,13 +22,41 @@ _I32, _PTR = ctypes.c_int, ctypes.c_void_p
 _SIGNATURES = {
     "ssd_intra_error_string": ([_I32], ctypes.c_char_p),
     "ssd_intra_launch": (
-        [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _PTR], _I32
+        [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _PTR], _I32
     ),
 }
 #: The kernel's input types (x, B and C alike) and their codes in ``ssd_intra_launch``.
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = 256
 MAX_HEAD_DIM = 128
+#: Shared memory the tensor-core kernel's block may take when the wrapper
+#: sizes its N slice, and the most heads a block holds (``kTcHeads`` in the
+#: source is 4; ``chip_variants.py`` builds copies with 1, 2 and 8).
+SMEM_BUDGET = 224 * 1024
+MAX_BLOCK_HEADS = 8
+
+
+def _round16(v: int) -> int:
+    return (v + 15) // 16 * 16
+
+
+def smem_bytes(q: int, p: int, chunk_n: int) -> int:
+    """Shared memory of one block of the tensor-core kernel (``tc_smem_bytes``
+    in the source) at most: C and B ``[Qp, chunk_n + 8]`` bf16, a ring of two
+    x buffers ``[Qp, Pp + 8]`` bf16, lcum, dt and seg ``[MAX_BLOCK_HEADS,
+    Qp]`` f32 (Qp, Pp: Q and P rounded up to 16; 8 elements of padding a
+    row) and the 4 warps' store tiles ``[16, 72]`` f32."""
+    qp = _round16(q)
+    return 4 * qp * (chunk_n + 8) + 4 * qp * (_round16(p) + 8) + 12 * MAX_BLOCK_HEADS * qp + 64 * 4 * 72
+
+
+def chunk_width(q: int, p: int, n: int) -> int:
+    """Columns of N the tensor-core kernel stages at a time: all of N rounded
+    up to 16 where the block's shared memory stays within ``SMEM_BUDGET``,
+    else the widest multiple of 16 that does (at least 16)."""
+    qp = _round16(q)
+    room = (SMEM_BUDGET - smem_bytes(q, p, 0) + 32 * qp) // (4 * qp) - 8
+    return max(16, min(_round16(n), room // 16 * 16))
 
 
 def check_shapes(x, bmat, cmat, dt, a, chunk: int) -> int:
@@ -66,7 +98,7 @@ def launch(x, bmat, cmat, dt, a, chunk: int) -> tuple[torch.Tensor, torch.Tensor
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.ssd_intra_launch(
         x.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), dt.data_ptr(), a.data_ptr(), y.data_ptr(),
-        states.data_ptr(), b, s, h, p, n, q, DTYPES[x.dtype], stream,
+        states.data_ptr(), b, s, h, p, n, q, DTYPES[x.dtype], chunk_width(q, p, n), stream,
     )
     build.check_launch(lib, "ssd_intra", err)
     return y, states
