@@ -18,7 +18,9 @@ in float32), and prints:
   * the card's name and power limit, as nvidia-smi reports them;
   * one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
     main path, its error against the plain version, its time, the plain
-    version's time and its bound on this card;
+    version's time and its bound on this card (K1/K2, K3, K4 and K8 also
+    their time on the card from torch.profiler, and K3 and K4 their device
+    launches a call, which must be 1);
   * as its last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -301,21 +303,45 @@ def k1_k2_edges(cols, keys, rng, gen, dev):
 
 
 # K3-K6 against their plain versions.
+def workspace_at_rest(module, first: int = 0) -> bool:
+    """Whether the kernel's workspace on the current stream, from byte
+    ``first`` on, is back at its start state (all zero) after its launches."""
+    key = (torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    return not bool(module.WORKSPACES[key].view(torch.uint8)[first:].any())
+
+
+def poison(floats: int) -> None:
+    """Leave a freed block of ``floats`` NaNs in the caching allocator, so the
+    next output of that size starts as NaN and a slot a kernel leaves
+    unwritten shows (a freed block that held a right answer would hide it)."""
+    torch.full((floats,), float("nan"), device="cuda")
+
+
 def compare_k3(label, cols, mask, cap):
-    """K3 and its plain version: torch.equal, exact count, a repeated launch equal."""
+    """K3 and its plain version: torch.equal, exact count; a second launch
+    straight after the first gives the same bits and leaves the ticket and
+    the status words at 0.  ``cols`` is [C, N] or a list of C columns."""
+    from repro_torch.kernels import block_compact as bc
     from repro_torch.kernels import ops as kops
 
+    c = len(cols)
+    poison(c * cap)
     got, cnt = kops.block_compact(cols, mask, cap)
-    want, wcnt = kops.block_compact(cols, mask, cap, use_kernel=False)
+    poison(c * cap)
     again, cnt2 = kops.block_compact(cols, mask, cap)
+    at_rest = workspace_at_rest(bc)
+    want, wcnt = kops.block_compact(cols, mask, cap, use_kernel=False)
     torch.cuda.synchronize()
     total = int((mask.reshape(-1) != 0).sum())
-    check(cnt.dtype == torch.int32 and cnt.dim() == 0 and cnt.device == cols.device, f"k3 {label}: count tensor")
+    n = cols[0].shape[0]
+    check(cnt.dtype == torch.int32 and cnt.dim() == 0 and cnt.device == got.device, f"k3 {label}: count tensor")
     check(int(cnt) == int(wcnt) == int(cnt2) == total, f"k3 {label}: count {int(cnt)} != {total}")
     check(torch.equal(got, want), f"k3 {label}: kernel != plain version")
     check(torch.equal(got, again), f"k3 {label}: a repeated launch must give the same bits")
-    print(f"[k3] {label}: C={cols.shape[0]} N={cols.shape[1]} cap={cap} count={total} torch.equal, "
-          f"repeat equal", flush=True)
+    check(at_rest, f"k3 {label}: the ticket and status words must be back at 0 after a launch")
+    print(f"[k3] {label}: C={c} N={n} cap={cap} count={total} torch.equal, repeat equal, "
+          f"workspace at 0", flush=True)
     return float((got - want).abs().max())
 
 
@@ -323,6 +349,7 @@ def k3_phase(tables, dev):
     """K3 on the pushdown plan's data at every selectivity and cap, then edge
     shapes; returns the max abs error at the main path's shape (sel 0.5)."""
     from repro_torch.engine import ops
+    from repro_torch.kernels import block_compact as bc
     from repro_torch.kernels import ops as kops
     from repro_torch.tasks.pushdown import SCANNED, _pred_bounds, capacity
 
@@ -338,6 +365,8 @@ def k3_phase(tables, dev):
             caps += [count // 2, count + 1_000, 1, 1_529]
         for cap in caps:
             main_err = compare_k3(f"scale 1.0 sel {sel}", cols, mask, cap)  # last: sel 0.5, the task's cap
+        compare_k3(f"scale 1.0 sel {sel}, the table's own columns", [table[c] for c in sorted(SCANNED)], mask,
+                   caps[0])
     idx = torch.arange(n, device=dev)
     compare_k3("empty mask", cols, torch.zeros(n, dtype=torch.bool, device=dev), 4_096)
     compare_k3("all-pass mask, cap < N", cols, torch.ones(n, dtype=torch.int32, device=dev), 4_500_000)
@@ -358,6 +387,16 @@ def k3_phase(tables, dev):
         rmask = torch.rand(n2, generator=gen, device=dev) < 0.3
         compare_k3(f"ragged N, C={c}", rcols, rmask.reshape(1, -1), 40_000)
         compare_k3(f"ragged N, C={c}, overflow", rcols, rmask, 5_000)
+        # The same rows as C separate tensors, each 4-12 bytes past a 16-byte boundary.
+        sep = [torch.empty(n2 + 4, device=dev)[1 + j % 3:1 + j % 3 + n2].copy_(rcols[j]) for j in range(c)]
+        check(all(x.data_ptr() % 16 for x in sep), "k3: separate columns off 16 bytes")
+        for cap in (40_000, 5_000):
+            compare_k3(f"separate columns at odd offsets, ragged N, C={c}, cap {cap}", sep, rmask, cap)
+            check(torch.equal(kops.block_compact(sep, rmask, cap)[0], kops.block_compact(rcols, rmask, cap)[0]),
+                  f"k3: separate columns C={c} cap {cap} differ from the [C, N] call")
+    # More columns than travel in the launch's parameters: the device array.
+    wide = torch.randn((bc.PARAM_COLS + 3, n2), generator=gen, device=dev)
+    compare_k3(f"C={wide.shape[0]} (pointers on the card)", list(wide), rmask, 40_000)
     return main_err
 
 
@@ -369,10 +408,15 @@ def filter64(cols, lo, hi, lo2, hi2):
 
 
 def compare_k4(label, cols, lo, hi, lo2, hi2):
+    """K4 against the plain version summed in float64: count exact, sum
+    within FILTER_RTOL; a second launch straight after the first gives the
+    same bits and leaves the ticket at 0."""
+    from repro_torch.kernels import filter_scan
     from repro_torch.kernels import ops as kops
 
     got = kops.filter_agg(cols, lo, hi, lo2, hi2)
     again = kops.filter_agg(cols, lo, hi, lo2, hi2)
+    check(workspace_at_rest(filter_scan, 12 * filter_scan.MAX_BLOCKS), f"k4 {label}: the ticket must be back at 0")
     plain = kops.filter_agg(cols, lo, hi, lo2, hi2, use_kernel=False)
     s64, n64 = filter64(cols, lo, hi, lo2, hi2)
     check(got.shape == (2,) and got.dtype == torch.float32 and bool(torch.isfinite(got).all()), f"k4 {label}: shape")
@@ -389,6 +433,7 @@ def compare_k4(label, cols, lo, hi, lo2, hi2):
 def k4_phase(tables, dev):
     """K4 on the fused plan's columns at every selectivity, then ragged and
     empty; returns the max abs error at the main path's shape (sel 0.5)."""
+    from repro_torch.kernels import ops as kops
     from repro_torch.tasks.pushdown import _pred_bounds, kernel_scan_columns
 
     colmat = kernel_scan_columns(tables["1.0"])
@@ -399,6 +444,17 @@ def k4_phase(tables, dev):
     for n in (100_003, 1_001, 5):
         compare_k4(f"uniform ragged N={n}", torch.rand((4, n), generator=gen, device=dev), 0.2, 0.8, 0.1, 0.9)
     compare_k4("empty", torch.rand((4, 4_096), generator=gen, device=dev), 2.0, 1.0, 0.0, 1.0)
+    # Views whose columns start off a 16-byte boundary: read where they lie,
+    # the same bits as a contiguous copy (the bits depend on N alone).
+    n = 100_003
+    flat = torch.rand(4 * n + 1, generator=gen, device=dev)[1:].view(4, n)
+    strided = torch.rand((4, n + 3), generator=gen, device=dev)[:, 1:n + 1]
+    for label, view in (("[4, N] view 4 bytes off 16", flat), ("[4, N] view, row stride N + 3", strided)):
+        check(view.data_ptr() % 16 != 0, f"k4 {label}: starts on a 16-byte boundary")
+        compare_k4(label, view, 0.2, 0.8, 0.1, 0.9)
+        check(torch.equal(kops.filter_agg(view, 0.2, 0.8, 0.1, 0.9),
+                          kops.filter_agg(view.contiguous(), 0.2, 0.8, 0.1, 0.9)),
+              f"k4 {label}: differs from a contiguous copy")
     return main_err
 
 
@@ -1066,26 +1122,34 @@ def ops_per_passing_row(agg_ops) -> int:
 GFA_KERNELS = ("group_filter_agg_kernel", "sum_partials_kernel")  # K1/K2's two CUDA launches
 
 
-def kernel_device_ms(fn, names=("",), calls=20) -> float:
-    """Device time of one call of ``fn``: the time of its kernels whose CUDA
-    names hold one of ``names`` (by default all of them), from
-    torch.profiler over ``calls`` calls, per call (no host time).  Each
-    kernel counts its mean time once for each of its launches a call (at
-    least one), so events the trace drops do not read as a faster call."""
+def device_profile(fn, names=("",), calls=20) -> tuple[float, float]:
+    """Device time and device launches of one call of ``fn``: its kernels
+    (and copies or fills) whose CUDA names hold one of ``names`` (by default
+    all of them), from torch.profiler over ``calls`` calls, per call (no
+    host time).  Each kernel counts its mean time once for each of its
+    launches a call (at least one), so events the trace drops do not read as
+    a faster call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.count and any(k in e.key for k in names)]
-    us = sum(e.self_device_time_total / e.count * max(1, round(e.count / calls)) for e in events)
-    check(us > 0, f"the profiler's trace has no device time for {names}")
-    return us / 1e3
+    for _ in range(3):  # a trace now and then comes back without its device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.count and any(k in e.key for k in names)]
+        us = sum(e.self_device_time_total / e.count * max(1, round(e.count / calls)) for e in events)
+        if us > 0:
+            return us / 1e3, sum(e.count for e in events) / calls
+    raise RuntimeError(f"check failed: the profiler's traces have no device time for {names}")
+
+
+def kernel_device_ms(fn, names=("",), calls=20) -> float:
+    """Device time of one call of ``fn`` (:func:`device_profile`)."""
+    return device_profile(fn, names, calls)[0]
 
 
 def kernel_entries(plans, name, launches, per_query, per_step, errs):
@@ -1190,7 +1254,7 @@ def new_kernel_entries(tables, name, launches, errs):
     from repro_torch.engine import ops
     from repro_torch.kernels import ops as kops
     from repro_torch.tasks.plugins.accel import _SIZES
-    from repro_torch.tasks.pushdown import SCANNED, _pred_bounds, capacity, kernel_scan_columns
+    from repro_torch.tasks.pushdown import SCANNED, _pred_bounds, capacity, kernel_scan_columns, make_plan
 
     bw, flops, bf16_flops = peaks(name)
     dev = "cuda"
@@ -1204,10 +1268,10 @@ def new_kernel_entries(tables, name, launches, errs):
     n = table.num_rows
     lo, hi = _pred_bounds(sel)
     scanned = table.select(*SCANNED)
-    cols = torch.stack([scanned[c] for c in scanned.names])
+    cols = [scanned[c] for c in scanned.names]  # the table's own columns, as the compact route passes them
     mask = ops.pred_between(table["l_shipdate"], lo, hi)
     cap = capacity(sel, n)
-    c = cols.shape[0]
+    c = len(cols)
     k3 = lambda: kops.block_compact(cols, mask, cap)  # noqa: E731
     k3p = lambda: kops.block_compact(cols, mask, cap, use_kernel=False)  # noqa: E731
     colmat = kernel_scan_columns(table)
@@ -1253,16 +1317,34 @@ def new_kernel_entries(tables, name, launches, errs):
 
     compact_t = time_ms(lambda: ops.compact(scanned, mask, cap))
     compact_k = time_ms(lambda: ops.compact(scanned, mask, cap, use_kernel=True))
+    compact_dev = device_profile(lambda: ops.compact(scanned, mask, cap, use_kernel=True))
     print(f"[times] compact at scale 1.0 sel 0.5 (cap {cap}): nonzero+gather route {compact_t:.4f} ms, "
-          f"block_compact route {compact_k:.4f} ms", flush=True)
+          f"block_compact route {compact_k:.4f} ms (on the card {compact_dev[0]:.4f} ms in "
+          f"{compact_dev[1]:g} device launches)", flush=True)
+    # Where a pushdown_torch call's time goes: one call, and its device time and launches.
+    plans = {}
+    for plan, use_kernel in (("baseline", False), ("pushdown", False), ("pushdown", True), ("pushdown_kernel", True)):
+        fn = make_plan(table, plan, sel, use_kernel)
+        dev_ms, dev_launches = device_profile(fn)
+        plans[f"{plan}/{'kernel' if use_kernel else 'torch'}"] = {
+            "ms": time_ms(fn), "device_ms": dev_ms, "device_launches": dev_launches}
+    print(f"[times] pushdown plans at scale 1.0 sel 0.5: {json.dumps(plans)}", flush=True)
 
+    # K3 and K4 on the card: every device launch of a call counts, and a
+    # call is one launch.
+    k3_entry = entry("block_compact", "src/repro/kernels/block_compact.py:113", k3, k3p,
+                     n + c * n * 4 + c * cap * 4 + 4, 0, errs["k3"], None,
+                     f"pushdown scale 1.0 sel 0.5: C={c} N={n} cap={cap}")
+    k4_entry = entry("filter_agg", "src/repro/kernels/filter_scan.py:45", k4, k4p,
+                     16 * n + 8, 4 * n + 2 * passing, errs["k4"], None,
+                     f"pushdown scale 1.0 sel 0.5: [4, {n}] f32, {passing} rows pass")
+    for ent, run in ((k3_entry, k3), (k4_entry, k4)):
+        ent["device_ms"], per_call = device_profile(run)
+        ent["launches_per_call"] = round(per_call)
+        check(ent["launches_per_call"] == 1, f"{ent['name']}: {per_call} device launches a call")
     return [
-        entry("block_compact", "src/repro/kernels/block_compact.py:113", k3, k3p,
-              n + c * n * 4 + c * cap * 4 + 4, 0, errs["k3"], None,
-              f"pushdown scale 1.0 sel 0.5: C={c} N={n} cap={cap}"),
-        entry("filter_agg", "src/repro/kernels/filter_scan.py:45", k4, k4p,
-              16 * n + 8, 4 * n + 2 * passing, errs["k4"], None,
-              f"pushdown scale 1.0 sel 0.5: [4, {n}] f32, {passing} rows pass"),
+        k3_entry,
+        k4_entry,
         entry("gmm", "src/repro/kernels/moe_gmm.py:43", k5, k5p,
               4 * (e * s * d + e * d * f + e * s * f), 2 * e * s * d * f, errs["gmm_large"], k5lib,
               f"accel large: E={e} C={s} d={d} f={f} f32"),
@@ -1373,21 +1455,24 @@ def main() -> int:
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"[build] {src}: {line.strip()}", flush=True)
     # The redesigned kernels (K6's, K7's and K8's tensor-core kernels, K5,
-    # K1/K2's scan) keep every value in registers (ptxas reports only on a
-    # build, not on a library already built).
+    # K1/K2's scan, K3 and K4) keep every value in registers (ptxas reports
+    # only on a build, not on a library already built).
     tc_kernels = {"flash_attention": "flash_attention_tc_kernel", "gmm": "gmm_kernel",
                   "decode_attention": "decode_mma_kernel", "group_filter_agg": "group_filter_agg_kernel",
-                  "ssd_intra": "ssd_intra_mma_kernel"}
+                  "ssd_intra": "ssd_intra_mma_kernel", "block_compact": "block_compact_kernel",
+                  "filter_agg": "filter_agg_kernel"}
     redesigned = {fn: info for src, kern in tc_kernels.items() for fn, info in ptxas_report(logs[src]).items()
                   if kern in fn}
-    # dh 64 / 128; f32 / bf16; dh 32 / 64 / 128; one scan kernel; P <= 64 / 128
-    want = {"flash_attention": 2, "gmm": 2, "decode_attention": 3, "group_filter_agg": 1, "ssd_intra": 2}
+    # dh 64 / 128; f32 / bf16; dh 32 / 64 / 128; one scan kernel; P <= 64 / 128; one kernel each
+    want = {"flash_attention": 2, "gmm": 2, "decode_attention": 3, "group_filter_agg": 1, "ssd_intra": 2,
+            "block_compact": 1, "filter_agg": 1}
     for fn, info in redesigned.items():
-        if any(k in fn for k in ("decode_mma_kernel", "group_filter_agg_kernel", "ssd_intra_mma_kernel")):
+        if any(k in fn for k in ("decode_mma_kernel", "group_filter_agg_kernel", "ssd_intra_mma_kernel",
+                                 "block_compact_kernel", "filter_agg_kernel")):
             print(f"[build] {fn}: {json.dumps(info)}", flush=True)
     check(len(redesigned) == sum(n for src, n in want.items() if logs[src])
           and not any(info["spill_bytes"] for info in redesigned.values()),
-          f"ptxas spills in K1/K2/K5/K6/K7/K8: {redesigned}")
+          f"ptxas spills in K1-K8: {redesigned}")
     for src, ops in (("flash_attention", ("HGMMA", "UTMALDG")), ("decode_attention", ("HMMA", "LDSM")),
                      ("ssd_intra", ("HMMA", "LDSM"))):
         sass = sass_counts(src, ops)

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Time variants of the port's K1/K2, K5, K6, K7 and K8 kernels, and of its query server, side by side on one card.
+"""Time variants of the port's K1/K2, K3, K4, K5, K6, K7 and K8 kernels, and of its query server, side by side on one card.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 chip_variants.py            # every section
-    python3 chip_variants.py --only k8  # one or more of k1, server, k6, k5, k7, k8
+    python3 chip_variants.py                # every section
+    python3 chip_variants.py --only k3 k4   # one or more of k1, server, k6, k5, k7, k8, k3, k4
 
 Each variant is a copy of ``src/repro_torch/csrc/<source>.cu`` with a few
 constants edited; the copies are built with the port's own nvcc flags under
@@ -58,6 +58,25 @@ and leave out the loads, the stores (gated on a flag no launch sets, so
 the products stay live) or both.  A fill of y and the
 states (``zero_``: 126 MB written, nothing read) and of the states alone
 gives the card's write floor beside them.
+
+K4 (``filter_agg``) and K3 (``block_compact``) run at pushdown scale 1.0:
+K4 on the fused plan's [4, N] columns at selectivity 0.5 and 0.01, K3 on
+the four scanned columns as separate tensors at selectivity 0.5 with the
+task's cap and at 0.1 with cap 1.  Beside the committed kernels run their
+first designs (``csrc/variants/filter_agg_first.cu``,
+``csrc/variants/block_compact_first.cu``, two and four launches), the
+first designs' whole wrappers as a caller paid for them (K3's with the
+``torch.stack`` the compact route made first), the committed wrappers and
+the compact route, and edited copies: other stage counts, rows a thread,
+grids and step sizes, K3's 4-byte stores from the staged rows and streaming
+stores.  The arms marked "diagnostic" leave out work to show where the time
+goes: K4's rows (the loads alone); K3's steps (the count and look-back
+alone, or with the zero tail), its ranks and stores (the loads alone) or
+its stores.  Each K4 arm is held to the float64 sum (count exact, sum
+within 2e-5) and K3's to the plain version with ``torch.equal``, on
+outputs filled with NaN first, and a repeat must be bit-equal with the
+workspace back at 0; then each is timed one call per event pair, back to
+back, and on the card with its device launches a call (torch.profiler).
 
 The ``QueryServer`` runs the smoke's server phase in turns over four arms
 (a batch's results demultiplexed per slot or once, and that with the heap
@@ -184,7 +203,69 @@ VARIANTS.update({
     "k8 no y products (diagnostic)": ("ssd_intra", [_K8_NO_CB, _K8_NO_Y]),
     "k8 no state products (diagnostic)": ("ssd_intra", [_K8_NO_STATE]),
 })
+FIRST_K4 = "variants/filter_agg_first"
+FIRST_K3 = "variants/block_compact_first"
+_K4_STAGES = "constexpr int kStages = 4;"
+_K4_ROWS = "constexpr int kRowsPerThread = 8;"
+_K3_NO_STEPS = [("    for (int64_t i = 0; i < steps; ++i) {", "    for (int64_t i = 0; i < 0; ++i) {"),
+                ("  for (int64_t i = 0; i < my_steps; ++i) {", "  for (int64_t i = 0; i < 0; ++i) {")]
+_K3_NO_ZEROS = ("  for (int j = 0; j < c; ++j) zero_range(", "  for (int j = 0; j < 0; ++j) zero_range(")
+VARIANTS.update({
+    "k4 first design": (FIRST_K4, []),
+    "k4 committed": ("filter_agg", []),
+    "k4 2 stages": ("filter_agg", [(_K4_STAGES, "constexpr int kStages = 2;")]),
+    "k4 6 stages (two blocks an SM)": ("filter_agg", [(_K4_STAGES, "constexpr int kStages = 6;")]),
+    "k4 16 rows a thread, 2 stages": ("filter_agg", [(_K4_ROWS, "constexpr int kRowsPerThread = 16;"),
+                                                     (_K4_STAGES, "constexpr int kStages = 2;")]),
+    "k4 264 blocks (two an SM)": ("filter_agg", [("constexpr int kMaxBlocks = 384;", "constexpr int kMaxBlocks = 264;")]),
+    "k4 396 blocks (three an SM)": ("filter_agg", [("constexpr int kMaxBlocks = 384;", "constexpr int kMaxBlocks = 396;")]),
+    "k4 4 rows a thread": ("filter_agg", [(_K4_ROWS, "constexpr int kRowsPerThread = 4;")]),
+    "k4 396 blocks, 4 rows a thread, 8 stages": ("filter_agg", [
+        ("constexpr int kMaxBlocks = 384;", "constexpr int kMaxBlocks = 396;"),
+        (_K4_ROWS, "constexpr int kRowsPerThread = 4;"), (_K4_STAGES, "constexpr int kStages = 8;")]),
+    "k4 loads only (diagnostic)": ("filter_agg", [("      const bool pass = tid + local < rows && ",
+                                                   "      const bool pass = false && ")]),
+    "k3 first design": (FIRST_K3, []),
+    "k3 committed": ("block_compact", []),
+    "k3 64 threads (1,024-row steps)": ("block_compact", [("constexpr int kThreads = 128;",
+                                                            "constexpr int kThreads = 64;")]),
+    "k3 256 threads (4,096-row steps, one block an SM)": ("block_compact", [("constexpr int kThreads = 128;",
+                                                                              "constexpr int kThreads = 256;")]),
+    "k3 2 staged columns": ("block_compact", [("constexpr int kStageCols = 4;", "constexpr int kStageCols = 2;")]),
+    "k3 3 stages (one block an SM)": ("block_compact", [("constexpr int kStages = 2;", "constexpr int kStages = 3;")]),
+    "k3 4-byte stores from the staged rows": ("block_compact", [
+        ("constexpr int kSmemBytes = 4 * (kStages * kStageFloats + kStepRows + kStageCols * (kStepRows + 4));",
+         "constexpr int kSmemBytes = 4 * (kStages * kStageFloats + kStepRows);"),
+        ("          if (j0 + jj < j1) pk[jj * (kStepRows + 4) + shift[jj] + r] = src[jj][row];\n",
+         "          if (j0 + jj < j1) dst[jj][r] = src[jj][row];\n"),
+        ("        if (j0 + jj >= j1) continue;\n", "        if (true) continue;\n")]),
+    "k3 streaming stores (st.global.cs)": ("block_compact", [(
+        "          reinterpret_cast<float4*>(dst[jj] + lead)[m] = reinterpret_cast<const float4*>(p + lead)[m];",
+        "          __stcs(reinterpret_cast<float4*>(dst[jj] + lead) + m, reinterpret_cast<const float4*>(p + lead)[m]);")]),
+    "k3 count and look-back only (diagnostic)": ("block_compact", [*_K3_NO_STEPS, _K3_NO_ZEROS]),
+    "k3 zero tail only (diagnostic)": ("block_compact", _K3_NO_STEPS),
+    "k3 loads only (diagnostic)": ("block_compact", [_K3_NO_ZEROS, (
+        "    uint32_t bits = group_bits(stage_mask(s)[tid]",
+        "    if (cap > 0) {\n      if (tid == 0) s_full_after[s] = false;\n      store_sync();\n"
+        "      if (lane == 0) hopper::mbar_arrive(&s_empty[s]);\n      continue;\n    }\n"
+        "    uint32_t bits = group_bits(stage_mask(s)[tid]")]),
+    "k3 scatter without stores (diagnostic)": ("block_compact", [
+        ("          if (j0 + jj < j1) pk[jj * (kStepRows + 4) + shift[jj] + r] = ",
+         "          if (cap < 0 && j0 + jj < j1) pk[jj * (kStepRows + 4) + shift[jj] + r] = "),
+        ("        if (j0 + jj >= j1) continue;\n", "        if (true) continue;\n"), _K3_NO_ZEROS]),
+})
 _I64, _I32, _PTR = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
+_F32 = ctypes.c_float
+K4_FIRST_SIGNATURES = {
+    "filter_agg_blocks": ([_I64], _I64),
+    "filter_agg_error_string": ([_I32], ctypes.c_char_p),
+    "filter_agg_launch": ([_PTR, _I64, _F32, _F32, _F32, _F32, _PTR, _PTR, _I64, _PTR, _PTR], _I32),
+}
+K3_FIRST_SIGNATURES = {
+    "block_compact_tiles": ([_I64], _I64),
+    "block_compact_error_string": ([_I32], ctypes.c_char_p),
+    "block_compact_launch": ([_PTR, _PTR, _I64, _I32, _I64, _PTR, _PTR, _PTR, _PTR, _PTR], _I32),
+}
 K8_FIRST_SIGNATURES = {
     "ssd_intra_error_string": ([_I32], ctypes.c_char_p),
     "ssd_intra_launch": ([_PTR] * 7 + [_I32] * 7 + [_PTR], _I32),
@@ -198,11 +279,11 @@ FIRST_SIGNATURES = {
 
 def build_variants(out_dir: Path) -> dict[str, ctypes.CDLL]:
     from chip_smoke import ptxas_report
-    from repro_torch.kernels import build
+    from repro_torch.kernels import block_compact as bc
+    from repro_torch.kernels import build, filter_scan, moe_gmm, ssd_scan
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import group_filter_agg as gfa
-    from repro_torch.kernels import moe_gmm, ssd_scan
 
     out_dir.mkdir(parents=True, exist_ok=True)
     for header in build.CSRC.glob("*.cuh"):
@@ -213,7 +294,7 @@ def build_variants(out_dir: Path) -> dict[str, ctypes.CDLL]:
             continue
         text = (build.CSRC / f"{src}.cu").read_text()
         for old, new in edits:
-            if old not in text or (name.startswith("k8") and text.count(old) != 1):
+            if old not in text or (name.startswith(("k3", "k4", "k8")) and text.count(old) != 1):
                 raise RuntimeError(f"{name}: {old!r} is not in {src}.cu once")
             text = text.replace(old, new)
         cu = out_dir / f"v{i}.cu"
@@ -227,12 +308,13 @@ def build_variants(out_dir: Path) -> dict[str, ctypes.CDLL]:
             raise RuntimeError(f"{name}: nvcc failed\n{log}")
         spilled = [line.strip() for line in log.splitlines() if "spill stores" in line and " 0 bytes spill" not in line]
         print(f"[build] {name}: {len(spilled)} function(s) spill: {spilled}", flush=True)
-        if name.startswith(("k1", "k8")):
+        if name.startswith(("k1", "k3", "k4", "k8")):
             print(f"[build] {name}: {json.dumps(ptxas_report(log))}", flush=True)
         lib = ctypes.CDLL(str(out_dir / f"libv{i}.so"))
-        signatures = {FIRST: FIRST_SIGNATURES, FIRST_K8: K8_FIRST_SIGNATURES}.get(src) or {
+        signatures = {FIRST: FIRST_SIGNATURES, FIRST_K8: K8_FIRST_SIGNATURES, FIRST_K4: K4_FIRST_SIGNATURES,
+                      FIRST_K3: K3_FIRST_SIGNATURES}.get(src) or {
             "flash_attention": fa, "gmm": moe_gmm, "decode_attention": da, "group_filter_agg": gfa,
-            SHARED: gfa, "ssd_intra": ssd_scan}[src]._SIGNATURES
+            SHARED: gfa, "ssd_intra": ssd_scan, "filter_agg": filter_scan, "block_compact": bc}[src]._SIGNATURES
         for fn, (argtypes, restype) in signatures.items():
             getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, restype
         libs[name] = lib
@@ -429,6 +511,170 @@ def k8_variants(libs, dev):
     print(f"[variants] k8 device ms a call (torch.profiler): {json.dumps(device)}", flush=True)
 
 
+def timed_arms(label, calls):
+    """Each call timed in turns (forward, then backward): one call per event
+    pair and a burst, then its device time and device launches a call."""
+    from chip_smoke import device_profile, time_ms
+
+    res = {name: [] for name in calls}
+    for order in (1, -1):
+        for name in list(calls)[::order]:
+            res[name].append([time_ms(calls[name]), burst_ms(calls[name])])
+    print(f"[variants] {label}, [single-call ms, burst ms] x2: {json.dumps(res)}", flush=True)
+    device = {name: device_profile(fn) for name, fn in calls.items()}
+    print(f"[variants] {label}, [device ms, device launches] a call (torch.profiler): {json.dumps(device)}",
+          flush=True)
+
+
+def checked(name, lib, source, err):
+    """Raise when a variant's launch returned a CUDA error."""
+    if err:
+        raise RuntimeError(f"{name}: launch failed: {getattr(lib, f'{source}_error_string')(err).decode()}")
+
+
+def k4_variants(libs, dev):
+    """K4 at pushdown scale 1.0, selectivity 0.5 and 0.01, for every k4 variant;
+    see the module note."""
+    from chip_smoke import FILTER_RTOL, filter64
+    from repro_torch.engine import datagen
+    from repro_torch.kernels import ops as kops
+    from repro_torch.tasks.pushdown import _SCALES, _pred_bounds, kernel_scan_columns
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cols = kernel_scan_columns(datagen.lineitem(gen, rows=_SCALES["1.0"], device=dev))
+    n = cols.shape[1]
+    stream = torch.cuda.current_stream().cuda_stream
+    for sel in (0.5, 0.01):
+        lo, hi = _pred_bounds(sel)
+        s64, n64 = filter64(cols, lo, hi, -1.0, 1.0)
+        calls = {"plain": lambda: kops.filter_agg(cols, lo, hi, -1.0, 1.0, use_kernel=False),
+                 "wrapper committed": lambda: kops.filter_agg(cols, lo, hi, -1.0, 1.0)}
+        first = libs["k4 first design"]
+
+        def first_wrapper():  # the first design's wrapper: its partials and output allocated each call
+            blocks = int(first.filter_agg_blocks(n))
+            sums = torch.empty(blocks, dtype=torch.float32, device=dev)
+            cnts = torch.empty(blocks, dtype=torch.int64, device=dev)
+            out = torch.empty(2, dtype=torch.float32, device=dev)
+            checked("k4 wrapper first design", first, "filter_agg", first.filter_agg_launch(
+                cols.data_ptr(), n, lo, hi, -1.0, 1.0, sums.data_ptr(), cnts.data_ptr(), blocks, out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream))
+            return out
+
+        calls["wrapper first design"] = first_wrapper
+        for name, lib in libs.items():
+            if not name.startswith("k4"):
+                continue
+            out = torch.empty(2, dtype=torch.float32, device=dev)
+            if name == "k4 first design":
+                blocks = int(lib.filter_agg_blocks(n))
+                sums = torch.empty(blocks, dtype=torch.float32, device=dev)
+                cnts = torch.empty(blocks, dtype=torch.int64, device=dev)
+
+                def run(lib=lib, out=out, blocks=blocks, sums=sums, cnts=cnts, name=name):
+                    checked(name, lib, "filter_agg", lib.filter_agg_launch(
+                        cols.data_ptr(), n, lo, hi, -1.0, 1.0, sums.data_ptr(), cnts.data_ptr(), blocks,
+                        out.data_ptr(), stream))
+                    return out
+            else:
+                blocks = max(1, min(-(-n // lib.filter_agg_tile_rows()), lib.filter_agg_max_blocks()))
+                ws = torch.zeros(lib.filter_agg_workspace_bytes(), dtype=torch.uint8, device=dev)
+
+                def run(lib=lib, out=out, blocks=blocks, ws=ws, name=name):
+                    checked(name, lib, "filter_agg", lib.filter_agg_launch(
+                        cols.data_ptr(), cols.stride(0), n, lo, hi, -1.0, 1.0, ws.data_ptr(), blocks,
+                        out.data_ptr(), stream))
+                    return out
+            calls[name] = run
+            got = run().clone()
+            if "diagnostic" in name:  # leaves out the rows' work: its output is wrong
+                continue
+            rel = abs(float(got[0]) - s64) / abs(s64)
+            if int(got[1]) != n64 or rel > FILTER_RTOL or not torch.equal(got, run()):
+                raise RuntimeError(f"{name} sel {sel}: count {float(got[1])} vs {n64}, sum rel err {rel}, "
+                                   f"or a repeated launch differs")
+        print(f"[variants] k4 sel {sel}: every variant's count exact, sum within {FILTER_RTOL} of float64, "
+              f"repeats equal", flush=True)
+        timed_arms(f"k4 [4, {n}] f32 sel {sel}", calls)
+
+
+def k3_variants(libs, dev):
+    """K3 at pushdown scale 1.0, selectivity 0.5 (the task's cap) and 0.1
+    with cap 1, for every k3 variant; see the module note."""
+    from repro_torch.engine import datagen, ops
+    from repro_torch.kernels import ops as kops
+    from repro_torch.tasks.pushdown import _SCALES, SCANNED, _pred_bounds, capacity
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    table = datagen.lineitem(gen, rows=_SCALES["1.0"], device=dev).select(*SCANNED)
+    own = [table[c] for c in table.names]
+    stacked = torch.stack(own)
+    c, n = stacked.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (ctypes.c_void_p * c)(*(x.data_ptr() for x in own))
+    for sel, cap in ((0.5, capacity(0.5, n)), (0.1, 1)):
+        lo, hi = _pred_bounds(sel)
+        mask = ops.pred_between(table["l_shipdate"], lo, hi)
+        want, wcnt = kops.block_compact(stacked, mask, cap, use_kernel=False)
+        calls = {"plain": lambda: kops.block_compact(stacked, mask, cap, use_kernel=False),
+                 "wrapper committed": lambda: kops.block_compact(own, mask, cap),
+                 "compact route (engine.ops.compact)": lambda: ops.compact(table, mask, cap, use_kernel=True)}
+        first = libs["k3 first design"]
+
+        def first_route():  # the compact route as the first design ran it: a stack, then its wrapper
+            colmat = torch.stack(own)
+            tiles = int(first.block_compact_tiles(n))
+            scratch = torch.empty(2 * tiles, dtype=torch.int32, device=dev)
+            out = torch.empty((c, cap), dtype=torch.float32, device=dev)
+            cnt = torch.empty((), dtype=torch.int32, device=dev)
+            checked("k3 first route", first, "block_compact", first.block_compact_launch(
+                colmat.data_ptr(), mask.data_ptr(), n, c, cap, scratch.data_ptr(), scratch.data_ptr() + 4 * tiles,
+                out.data_ptr(), cnt.data_ptr(), torch.cuda.current_stream().cuda_stream))
+            return out, cnt
+
+        calls["compact route, first design (stack, then its wrapper)"] = first_route
+        for name, lib in libs.items():
+            if not name.startswith("k3"):
+                continue
+            out = torch.empty((c, cap), dtype=torch.float32, device=dev)
+            cnt = torch.empty((), dtype=torch.int32, device=dev)
+            if name == "k3 first design":
+                tiles = int(lib.block_compact_tiles(n))
+                scratch = torch.empty(2 * tiles, dtype=torch.int32, device=dev)
+
+                def run(lib=lib, out=out, cnt=cnt, scratch=scratch, tiles=tiles, name=name):
+                    checked(name, lib, "block_compact", lib.block_compact_launch(
+                        stacked.data_ptr(), mask.data_ptr(), n, c, cap, scratch.data_ptr(),
+                        scratch.data_ptr() + 4 * tiles, out.data_ptr(), cnt.data_ptr(), stream))
+                    return out, cnt
+            else:
+                step = lib.block_compact_step_rows()
+                steps = -(-n // step)
+                rows = step * max(1, -(-steps // lib.block_compact_grid()))  # as bc.tile_rows
+                ws = torch.zeros(1 + steps, dtype=torch.int64, device=dev)
+
+                def run(lib=lib, out=out, cnt=cnt, ws=ws, name=name, rows=rows):
+                    checked(name, lib, "block_compact", lib.block_compact_launch(
+                        ptrs, None, c, mask.data_ptr(), n, cap, rows, ws.data_ptr(), out.data_ptr(), cnt.data_ptr(),
+                        stream))
+                    return out, cnt
+            calls[name] = run
+            out.fill_(float("nan"))  # a slot the kernel leaves unwritten shows
+            got, got_cnt = (x.clone() for x in run())
+            out.fill_(float("nan"))
+            again = run()[0]
+            torch.cuda.synchronize()
+            if "diagnostic" in name:  # leaves out part of the work: its output is wrong
+                continue
+            if not (torch.equal(got, want) and int(got_cnt) == int(wcnt) and torch.equal(got, again)):
+                raise RuntimeError(f"{name} sel {sel} cap {cap}: differs from the plain version or a repeat")
+            if name != "k3 first design" and bool(ws.any()):
+                raise RuntimeError(f"{name}: the workspace is not back at 0")
+        print(f"[variants] k3 sel {sel} cap {cap}: every variant torch.equal to the plain version, repeats equal",
+              flush=True)
+        timed_arms(f"k3 C={c} N={n} sel {sel} cap {cap}", calls)
+
+
 @contextlib.contextmanager
 def heap_frozen():
     """The objects alive on entry kept out of the garbage collector until exit."""
@@ -622,7 +868,7 @@ def k7_variants(libs, dev, gen):
           f"{json.dumps({name: kernel_device_ms(fn) for name, fn in calls.items()})}", flush=True)
 
 
-SECTIONS = ("k1", "server", "k6", "k5", "k7", "k8")
+SECTIONS = ("k1", "server", "k6", "k5", "k7", "k8", "k3", "k4")
 
 
 def main() -> int:
@@ -646,6 +892,10 @@ def main() -> int:
         server_variants(dev)
     if "k8" in SECTIONS:
         k8_variants(libs, dev)
+    if "k4" in SECTIONS:
+        k4_variants(libs, dev)
+    if "k3" in SECTIONS:
+        k3_variants(libs, dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     for section, fn in (("k6", k6_variants), ("k5", k5_variants), ("k7", k7_variants)):
         if section in SECTIONS:

@@ -1,8 +1,8 @@
 // PTX helpers for Hopper (sm_90a) shared by the port's kernels: cp.async,
-// ldmatrix and mma.sync, mbarriers, TMA tensor loads and their descriptors,
-// wgmma's fences and shared-memory descriptors, and setmaxnreg.  Header
-// only; the library that includes it links nothing (the TMA encoder comes
-// from the driver through the runtime's entry-point query).
+// ldmatrix and mma.sync, mbarriers, 1-D bulk copies, TMA tensor loads and
+// their descriptors, wgmma's fences and shared-memory descriptors, and
+// setmaxnreg.  Header only; the library that includes it links nothing (the
+// TMA encoder is found through the CUDA runtime's entry-point query).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums: types only, no libcuda link
@@ -89,6 +89,15 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // ---- TMA -------------------------------------------------------------------
+// A 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) into shared memory, counted in bytes on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes), "r"(smem_addr(bar))
+               : "memory");
+}
+
 // A 4-d box of `map` at coordinates (innermost first) into shared memory;
 // completion is counted in bytes on `bar`.  Boxes past the tensor's edge are
 // filled with zeros and still count their full size.

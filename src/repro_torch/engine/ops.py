@@ -46,16 +46,19 @@ def compact(
 
     By default ``nonzero`` + one gather per column (``nonzero`` waits for
     the card to learn its length).  ``use_kernel=True`` routes through
-    ``kernels.ops.block_compact`` (one kernel for all columns; the count
-    stays on the device).  Its column matrix is float32, so only 1-D
-    columns whose values are exact in f32 survive it: the caller selects
-    the scanned columns first, as the pushdown plan does.
+    ``kernels.ops.block_compact`` (one kernel for all columns, which reads
+    the table's own columns; the count stays on the device).  It works in
+    float32, so only 1-D columns whose values are exact in f32 survive it
+    (a column of another type is converted first): the caller selects the
+    scanned columns first, as the pushdown plan does.
     """
     if use_kernel:
         names = table.names
-        colmat = torch.stack([table[n].to(torch.float32) for n in names])
-        packed, cnt = kops.block_compact(colmat, mask, max_rows)
-        return Table({n: packed[i].to(table[n].dtype) for i, n in enumerate(names)}), cnt
+        cols = [table[n] for n in names]
+        f32 = torch.float32
+        packed, cnt = kops.block_compact([c if c.dtype == f32 else c.to(f32) for c in cols], mask, max_rows)
+        return Table({n: p if c.dtype == f32 else p.to(c.dtype)
+                      for n, c, p in zip(names, cols, packed.unbind(0))}), cnt
     idx = torch.nonzero(mask.reshape(-1)).reshape(-1)[:max_rows]
     safe = torch.zeros(max_rows, dtype=torch.long, device=mask.device)
     safe[: idx.numel()] = idx

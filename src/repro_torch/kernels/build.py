@@ -20,6 +20,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
@@ -128,3 +130,12 @@ def check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:
     if err != 0:
         msg = getattr(lib, f"{name}_error_string")(err).decode()
         raise RuntimeError(f"{name} launch failed: {msg} ({err})")
+
+
+def current_stream(index: int) -> int:
+    """The handle of device ``index``'s current CUDA stream, as
+    ``torch.cuda.current_stream(index).cuda_stream`` gives it, without
+    making a Stream object on every launch (PyTorch's own compiler reads
+    it the same way)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return raw(index) if raw is not None else torch.cuda.current_stream(index).cuda_stream

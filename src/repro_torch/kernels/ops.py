@@ -8,6 +8,8 @@ caller.  ``LAUNCHES`` counts, per wrapper, the kernel launches it made.
 """
 from __future__ import annotations
 
+from collections.abc import Sequence
+
 import torch
 
 from repro_torch.kernels import block_compact as bc
@@ -30,10 +32,10 @@ def reset_launches() -> None:
 
 def _route(cols: torch.Tensor, use_kernel: bool) -> bool:
     """True when the kernel runs; False for the plain version."""
+    if cols.is_cuda:
+        return use_kernel
     if not use_kernel or cols.device.type == "cpu":
         return False
-    if cols.device.type == "cuda":
-        return True
     raise ValueError(f"no kernel for device {cols.device}")
 
 
@@ -80,17 +82,25 @@ def group_filter_agg_multi(
 
 
 def block_compact(
-    cols: torch.Tensor, mask: torch.Tensor, cap: int, *, use_kernel: bool = True
+    cols: torch.Tensor | Sequence[torch.Tensor], mask: torch.Tensor, cap: int, *, use_kernel: bool = True
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Compact the rows of a [C, N] f32 block that ``mask`` selects.
+    """Compact the rows of C f32 columns that ``mask`` selects.
 
-    ``mask`` is [N] or [1, N] of any type; nonzero selects a row.  Returns
-    (out [C, cap] f32, count 0-d int32): ``out[:, j]`` is the j-th
-    qualifying row for ``j < min(count, cap)`` and zero beyond; ``count`` is
-    the total number of qualifying rows.  The count stays on the device.
+    ``cols`` is a [C, N] tensor or a sequence of C 1-D tensors of N rows on
+    one device (the kernel reads them where they lie; the plain version
+    stacks them).  ``mask`` is [N] or [1, N] of any type; nonzero selects a
+    row.  Returns (out [C, cap] f32, count 0-d int32): ``out[:, j]`` is the
+    j-th qualifying row for ``j < min(count, cap)`` and zero beyond;
+    ``count`` is the total number of qualifying rows.  The count stays on
+    the device.
     """
-    if not _route(cols, use_kernel):
-        return ref.block_compact_ref(cols, mask, cap)
+    seq = not isinstance(cols, torch.Tensor)
+    if seq:
+        cols = bc.columns(cols)
+    elif cols.dim() != 2:
+        raise ValueError(f"cols must be [C, N] or a sequence of 1-D columns, got shape {tuple(cols.shape)}")
+    if not _route(cols[0] if seq else cols, use_kernel):
+        return ref.block_compact_ref(torch.stack(cols) if seq else cols, mask, cap)
     out = bc.launch(cols, mask, cap)
     LAUNCHES["block_compact"] += 1
     return out
