@@ -18,9 +18,12 @@ in float32), and prints:
   * the card's name and power limit, as nvidia-smi reports them;
   * one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
     main path, its error against the plain version, its time, the plain
-    version's time and its bound on this card (K1/K2, K3, K4 and K8 also
-    their time on the card from torch.profiler, and K3 and K4 their device
-    launches a call, which must be 1);
+    version's time and its bound on this card (K1/K2, K3, K4, K8 and K6's
+    CUDA-core kernel also their time on the card from torch.profiler, and
+    K3, K4 and K6's CUDA-core kernel their device launches a call, which
+    must be 1; ``flash_attention_f32`` is K6's CUDA-core kernel at
+    accel_torch large, with Granite-3-8B's f32 prefill and both SDPA calls,
+    ``enable_gqa`` and K/V expanded, with their backends beside it);
   * as its last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -479,29 +482,37 @@ def compare_k5(label, e, c, d, f, dtype, gen, dev):
 
 
 def compare_k6(label, b, sq, sk, hq, hkv, dh, dtype, causal, gen, dev):
+    """K6 against its plain version; a second launch straight after the first
+    gives the same bits and, on the CUDA-core kernel, leaves every ticket of
+    the cut rows' merges at 0."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops as kops
 
     q = torch.randn((b, sq, hq, dh), generator=gen, device=dev).to(dtype)
     k = torch.randn((b, sk, hkv, dh), generator=gen, device=dev).to(dtype)
     v = torch.randn((b, sk, hkv, dh), generator=gen, device=dev).to(dtype)
     got = kops.flash_attention(q, k, v, causal=causal)
+    again = kops.flash_attention(q, k, v, causal=causal)
+    check(torch.equal(got, again), f"k6 {label}: a second launch straight after the first must give the same bits")
+    check(all(not bool(t.any()) for _, t in fa.WORKSPACES.values()), f"k6 {label}: a merge ticket is not back at 0")
     err = close(f"k6 {label}", got, kops.flash_attention(q, k, v, causal=causal, use_kernel=False), *ATTN_TOL[dtype])
     print(f"[k6] {label}: B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} dh={dh} {dtype} causal={causal} "
           f"max_abs_err {err:.3g}", flush=True)
     return err
 
 
-def k6_batch_independence(s, dh, gen, dev):
-    """K6 in bf16 at B = 2 and ragged S with one sequence's K and V all inf:
-    the other sequence's output is finite and equal, bit for bit, to that
+def k6_batch_independence(s, dh, gen, dev, dtype=torch.bfloat16):
+    """K6 at B = 2 and ragged S with one sequence's K and V all inf: the
+    other sequence's output is finite and equal, bit for bit, to that
     sequence run alone, both ways round.  A tile that read past Sk into the
-    neighbouring sequence would turn 0 x inf into NaN there."""
+    neighbouring sequence would turn 0 x inf into NaN there; a cut of a
+    row's keys that depended on B would change its bits."""
     from repro_torch.kernels import ops as kops
 
-    bf16, hq, hkv = torch.bfloat16, 32, 8
-    q = torch.randn((2, s, hq, dh), generator=gen, device=dev).to(bf16)
-    k = torch.randn((2, s, hkv, dh), generator=gen, device=dev).to(bf16)
-    v = torch.randn((2, s, hkv, dh), generator=gen, device=dev).to(bf16)
+    hq, hkv = 32, 8
+    q = torch.randn((2, s, hq, dh), generator=gen, device=dev).to(dtype)
+    k = torch.randn((2, s, hkv, dh), generator=gen, device=dev).to(dtype)
+    v = torch.randn((2, s, hkv, dh), generator=gen, device=dev).to(dtype)
     for bad in (0, 1):
         good = 1 - bad
         kb, vb = k.clone(), v.clone()
@@ -510,8 +521,49 @@ def k6_batch_independence(s, dh, gen, dev):
         alone = kops.flash_attention(q[good:good + 1], k[good:good + 1], v[good:good + 1], causal=True)[0]
         check(bool(torch.isfinite(both).all()), f"k6 batch independence S={s} dh={dh}: sequence {good} not finite")
         check(torch.equal(both, alone), f"k6 batch independence S={s} dh={dh}: sequence {good} differs from alone")
-    print(f"[k6] batch independence: B=2 S={s} dh={dh} bf16, either sequence's K/V inf: the other finite "
+    print(f"[k6] batch independence: B=2 S={s} dh={dh} {dtype}, either sequence's K/V inf: the other finite "
           f"and equal to it alone", flush=True)
+
+
+def k6_misaligned(gen, dev):
+    """f32 q, k and v that start 4 bytes past a 16-byte boundary (views into
+    one buffer): the wrapper hands the TMA loads aligned copies, and the
+    output equals the kernel's on aligned tensors bit for bit."""
+    from repro_torch.kernels import ops as kops
+
+    b, s, hq, hkv, dh = 1, 300, 4, 2, 64
+    sizes = (b * s * hq * dh, b * s * hkv * dh, b * s * hkv * dh)
+    buf = torch.randn(sum(sizes) + 3, generator=gen, device=dev)
+    q, k, v = (buf[1 + o:1 + o + n].view(b, s, h, dh)
+               for o, n, h in zip((0, sizes[0], sizes[0] + sizes[1]), sizes, (hq, hkv, hkv)))
+    check(all(t.data_ptr() % 16 for t in (q, k, v)), "k6 misaligned: the views are aligned")
+    got = kops.flash_attention(q, k, v, causal=True)
+    check(torch.equal(got, kops.flash_attention(q.clone(), k.clone(), v.clone(), causal=True)),
+          "k6 misaligned: differs from aligned copies")
+    err = close("k6 misaligned", got, kops.flash_attention(q, k, v, causal=True, use_kernel=False),
+                *ATTN_TOL[torch.float32])
+    print(f"[k6] f32 views 4 bytes off 16: equal to aligned copies, max_abs_err {err:.3g}", flush=True)
+
+
+def k6_schedule_check() -> None:
+    """The CUDA-core kernel's schedule as the library exports it
+    (flash_attention_f32_schedule) equals the Python mirror segment for
+    segment, at the main paths' and the checks' sequence shapes."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+
+    lib = build.bind("flash_attention", fa._SIGNATURES)
+    shapes = [(s, s, True) for s in (1, 4, 17, 31, 63, 64, 65, 100, 127, 128, 129, 257, 300, 512, 513, 1025, 2047,
+                                     2048, 4096)]
+    shapes += [(100, 300, False), (128, 256, False), (200, 70, False), (2048, 2048, False)]
+    for sq, sk, causal in shapes:
+        got = fa.library_schedule(lib, sq, sk, causal)
+        check(got == (fa.plan(sq, sk, causal), fa.schedule(sq, sk, causal)),
+              f"k6 schedule Sq={sq} Sk={sk} causal={causal}: library {got[0]} != mirror {fa.plan(sq, sk, causal)}")
+    p = fa.plan(2048, 2048, True)
+    print(f"[k6] schedule: library == python mirror at {len(shapes)} shapes; S=2048 causal: {p.pieces} pieces "
+          f"of {p.w} tiles a (sequence, head), {sum(s.count > 1 for s in fa.schedule(2048, 2048, True))} "
+          f"partial segments", flush=True)
 
 
 def sass_counts(name: str, ops: tuple[str, ...]) -> dict[str, int]:
@@ -567,8 +619,19 @@ def k5_k6_phase(dev):
         for s in (4, 17, 31):
             compare_k6("granite short prefill", 1, s, s, 32, 8, 128, dtype, True, gen, dev)
         err = compare_k6("granite prefill", 1, 2048, 2048, 32, 8, 128, dtype, True, gen, dev)
-        if dtype == bf16:
-            errs["attn_granite"] = err
+        errs["attn_granite" if dtype == bf16 else "attn_granite_f32"] = err
+    # The CUDA-core path (f32, bf16 at dh 32) around its 64-row tiles and its
+    # pieces of ceil(n / 4) tiles (1 at n <= 4, 2 to 8, 3 from 513 tokens).
+    for s in (1, 63, 65, 129, 255, 257, 511, 513, 1025, 2047):
+        compare_k6("f32 tile edges", 1, s, s, 4, 2, 64, f32, True, gen, dev)
+    for s, dh in ((65, 128), (513, 128), (257, 32), (1000, 32)):
+        compare_k6("f32 tile edges", 2, s, s, 8, 2, dh, f32, True, gen, dev)
+    compare_k6("bf16 dh 32 tile edges", 2, 513, 513, 8, 2, 32, bf16, True, gen, dev)
+    k6_schedule_check()
+    k6_misaligned(gen, dev)
+    for dh in (64, 128):
+        k6_batch_independence(300, dh, gen, dev, f32)
+    k6_batch_independence(300, 32, gen, dev, bf16)
     # The tensor-core path (bf16, dh 64 and 128) around its 128-row and 64-key tiles.
     for s in (1, 63, 65, 127, 129, 2047):
         compare_k6("granite heads", 1, s, s, 32, 8, 128, bf16, True, gen, dev)
@@ -1074,6 +1137,8 @@ def lm_route_phase(arch, dev):
             for k, fn in off.items():
                 setattr(kops, k, fn)
         check(set(launched) == set(on), f"{arch} {label}: launched {launched}, want {on}")
+        if label == "f32 kernel":
+            f32_launches = launched
         for lg in (lp, ld):
             check(bool(torch.isfinite(lg).all()) and lg.shape == (2, cfg.padded_vocab), f"{arch} {label}: logits")
         logits[label] = (lp, ld)
@@ -1101,6 +1166,7 @@ def lm_route_phase(arch, dev):
             fails.append(f"{sname}: bf16 kernel vs plain route {r['bf16 kernel vs bf16 plain']} > "
                          f"{LM_ROUTE_RATIO} x {plain_err}")
     check(not fails, f"{arch} route: " + "; ".join(fails))
+    out["f32 kernel route launches"] = f32_launches
     del params, logits
     free_card()
     return out
@@ -1249,8 +1315,10 @@ def kernel_entry(kname, source, replaces, launches, run, run_plain, bytes_ms, op
 def new_kernel_entries(tables, name, launches, errs):
     """K3-K6 at the main paths' shapes: pushdown scale 1.0, selectivity 0.5
     for K3 and K4, accel_torch large (f32) for K5, Granite-3-8B's 2,048-token
-    prefill (bf16) for K6, where its time on the main paths goes; K6 at
-    accel large goes to a ``[times]`` line."""
+    prefill (bf16) for K6's tensor-core kernel, where its time on the main
+    paths goes, and accel_torch large (f32) for K6's CUDA-core kernel
+    (``flash_attention_f32``, with Granite's 2,048-token prefill in f32
+    beside it)."""
     from repro_torch.engine import ops
     from repro_torch.kernels import ops as kops
     from repro_torch.tasks.plugins.accel import _SIZES
@@ -1290,29 +1358,55 @@ def new_kernel_entries(tables, name, launches, errs):
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     def k6_calls(b, sq, hq, hkv, dh, dtype):
-        """K6, its plain version and SDPA on one causal shape, with the bytes
-        (q, k, v, out once) and the operations (q.k and p.v on the visible
-        pairs) of the call."""
+        """K6, its plain version and SDPA (with ``enable_gqa``, and with K/V
+        expanded to Hq heads) on one causal shape, with the bytes (q, k, v,
+        out once) and the operations (q.k and p.v on the visible pairs) of
+        the call."""
         q = torch.randn((b, sq, hq, dh), generator=gen, device=dev).to(dtype)
         k = torch.randn((b, sq, hkv, dh), generator=gen, device=dev).to(dtype)
         v = torch.randn((b, sq, hkv, dh), generator=gen, device=dev).to(dtype)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))  # SDPA's [B, H, S, dh]
+        ke, ve = (x.repeat_interleave(hq // hkv, dim=1) for x in (kt, vt))
         run = lambda: kops.flash_attention(q, k, v, causal=True)  # noqa: E731
         lib = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)  # noqa: E731
+        lib_expanded = lambda: sdpa(qt, ke, ve, is_causal=True)  # noqa: E731
         lib_err = float((lib().transpose(1, 2).float() - run().float()).abs().max())
         nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
         nops = 4 * dh * b * hq * sq * (sq + 1) // 2
-        return run, lambda: kops.flash_attention(q, k, v, causal=True, use_kernel=False), lib, lib_err, nbytes, nops
+        plain = lambda: kops.flash_attention(q, k, v, causal=True, use_kernel=False)  # noqa: E731
+        return run, plain, lib, lib_err, nbytes, nops, lib_expanded
 
-    # K6 at accel_torch large (f32), the accel path's shape.
-    run, plain, lib, lib_err, nbytes, nops = k6_calls(1, s, 4, 2, 64, torch.float32)
-    accel = {"ms": time_ms(run), "plain_ms": time_ms(plain, reps=20, warmup=2), "library_ms": time_ms(lib),
-             "bound_ms": max(1e3 * nbytes / bw, 1e3 * nops / flops)}
-    print(f"[times] flash_attention at accel large (B=1 S={s} Hq=4 Hkv=2 dh=64 f32 causal): "
-          f"{json.dumps(accel)}; sdpa vs kernel max_abs_err {lib_err:.3g}", flush=True)
+    def k6_f32_times(b, sq, hq, hkv, dh):
+        """K6's CUDA-core kernel on one f32 causal shape: one call and its
+        device time and launches, the plain version, both SDPA calls with
+        their backends, and the operations bound."""
+        run, plain, lib, lib_err, nbytes, nops, lib_expanded = k6_calls(b, sq, hq, hkv, dh, torch.float32)
+        device_ms, per_call = device_profile(run, ("flash_attention",))
+        check(round(per_call) == 1, f"flash_attention f32 S={sq} dh={dh}: {per_call} device launches a call")
+        bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * nops / flops
+        return {"ms": time_ms(run), "device_ms": device_ms, "launches_per_call": round(per_call),
+                "plain_ms": time_ms(plain, reps=20, warmup=2), "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "library_ms": time_ms(lib), "library": f"SDPA, enable_gqa ({sdpa_backend(lib)})",
+                "library_expanded_ms": time_ms(lib_expanded),
+                "library_expanded": f"SDPA, K/V expanded to Hq heads ({sdpa_backend(lib_expanded)})",
+                "library_max_abs_err": lib_err}
+
+    # K6's CUDA-core kernel at accel_torch large (f32), the accel path's shape,
+    # and at Granite-3-8B's 2,048-token prefill in f32.
+    accel = k6_f32_times(1, s, 4, 2, 64)
+    granite_f32 = k6_f32_times(1, 2048, 32, 8, 128)
+    granite_f32["max_abs_err"] = errs["attn_granite_f32"]
+    k6_f32_entry = {"name": "flash_attention_f32", "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+                    "replaces": "src/repro/kernels/flash_attention.py:76", "launches": launches["flash_attention_f32"],
+                    "max_abs_err": errs["attn_large"], **accel,
+                    "shape": f"accel large: B=1 S={s} Hq=4 Hkv=2 dh=64 f32 causal (CUDA-core kernel)",
+                    "granite_prefill_f32": granite_f32}
+    print(f"[times] flash_attention f32 (CUDA cores): accel large {json.dumps(accel)}; granite f32 prefill "
+          f"{json.dumps(granite_f32)}", flush=True)
     # K6 at Granite-3-8B's 2,048-token prefill, bf16: the entry.
     b, sg, hq, hkv, dh = 1, 2048, 32, 8, 128
-    k6, k6p, k6lib, lib_err, k6_bytes, k6_ops = k6_calls(b, sg, hq, hkv, dh, torch.bfloat16)
+    k6, k6p, k6lib, lib_err, k6_bytes, k6_ops, _ = k6_calls(b, sg, hq, hkv, dh, torch.bfloat16)
     print(f"[times] sdpa vs flash_attention kernel at granite prefill: max_abs_err {lib_err:.3g}", flush=True)
 
     compact_t = time_ms(lambda: ops.compact(scanned, mask, cap))
@@ -1351,6 +1445,7 @@ def new_kernel_entries(tables, name, launches, errs):
         entry("flash_attention", "src/repro/kernels/flash_attention.py:76", k6, k6p, k6_bytes, k6_ops,
               errs["attn_granite"], k6lib, f"granite prefill: B={b} S={sg} Hq={hq} Hkv={hkv} dh={dh} bf16 causal",
               rate=bf16_flops),
+        k6_f32_entry,
     ]
 
 
@@ -1428,6 +1523,48 @@ def lm_kernel_entries(name, launches, errs):
     return [k7_entry, k8_entry]
 
 
+def f32_route_times(name):
+    """The f32 kernels of lm_route_phase's float32 route (K7's and K8's first,
+    CUDA-core designs; B = 2, a 100-token prompt): K7 at the first decode step
+    (Granite-3-8B's heads, a 256-slot cache, 101 valid keys) and K8 at the
+    prefill (Mamba2-2.7B's heads, 100 steps padded to 128), each one call,
+    on the card, its plain version and its bound at the f32 rate."""
+    from repro_torch.kernels import ops as kops
+
+    bw, flops, _ = peaks(name)
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(16)
+    b, s, hq, hkv, dh, kvl = 2, 256, 32, 8, 128, 101
+    q = torch.randn((b, hq, dh), generator=gen, device=dev)
+    k = torch.randn((b, s, hkv, dh), generator=gen, device=dev)
+    v = torch.randn((b, s, hkv, dh), generator=gen, device=dev)
+    kv_len = torch.full((b,), kvl, dtype=torch.int32, device=dev)
+    k7 = lambda: kops.decode_attention(q, k, v, kv_len)  # noqa: E731
+    k7_bytes, k7_ops = 4 * (2 * q.numel() + 2 * b * kvl * hkv * dh), 4 * dh * hq * kvl * b
+    b8, s8, h, p, n, chunk = 2, 128, 80, 64, 128, 64
+    nc, pairs = s8 // chunk, chunk * (chunk + 1) // 2
+    x = torch.randn((b8, s8, h, p), generator=gen, device=dev)
+    bm, cm = (0.5 * torch.randn((b8, s8, n), generator=gen, device=dev) for _ in range(2))
+    dt = torch.nn.functional.softplus(torch.randn((b8, s8, h), generator=gen, device=dev))
+    a = -torch.exp(torch.linspace(0.0, 2.77, h, device=dev))
+    k8 = lambda: kops.ssd_intra(x, bm, cm, dt, a, chunk=chunk)  # noqa: E731
+    k8_bytes = 4 * (x.numel() + bm.numel() + cm.numel() + dt.numel() + h + x.numel() + b8 * nc * h * p * n)
+    k8_ops = b8 * nc * (pairs * 2 * n + h * pairs * (3 + 2 * p) + h * chunk * p * (1 + 2 * n))
+    out = {}
+    for label, run, plain, nbytes, nops, names in (
+            ("decode_attention f32 (Granite decode step, B=2 S=256 kv_len=101)", k7,
+             lambda: kops.decode_attention(q, k, v, kv_len, use_kernel=False), k7_bytes, k7_ops, ("decode",)),
+            ("ssd_intra f32 (Mamba2 prefill, B=2 S=128 Q=64)", k8,
+             lambda: kops.ssd_intra(x, bm, cm, dt, a, chunk=chunk, use_kernel=False), k8_bytes, k8_ops,
+             ("ssd_intra",))):
+        device_ms, per_call = device_profile(run, names)
+        bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * nops / flops
+        out[label] = {"ms": time_ms(run), "device_ms": device_ms, "device_launches_per_call": per_call,
+                      "plain_ms": time_ms(plain, reps=20, warmup=2), "bound_ms": max(bytes_ms, ops_ms),
+                      "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    print(f"[times] f32 route kernels: {json.dumps(out)}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -1454,21 +1591,23 @@ def main() -> int:
         for line in log.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"[build] {src}: {line.strip()}", flush=True)
-    # The redesigned kernels (K6's, K7's and K8's tensor-core kernels, K5,
-    # K1/K2's scan, K3 and K4) keep every value in registers (ptxas reports
-    # only on a build, not on a library already built).
-    tc_kernels = {"flash_attention": "flash_attention_tc_kernel", "gmm": "gmm_kernel",
-                  "decode_attention": "decode_mma_kernel", "group_filter_agg": "group_filter_agg_kernel",
-                  "ssd_intra": "ssd_intra_mma_kernel", "block_compact": "block_compact_kernel",
-                  "filter_agg": "filter_agg_kernel"}
-    redesigned = {fn: info for src, kern in tc_kernels.items() for fn, info in ptxas_report(logs[src]).items()
-                  if kern in fn}
-    # dh 64 / 128; f32 / bf16; dh 32 / 64 / 128; one scan kernel; P <= 64 / 128; one kernel each
-    want = {"flash_attention": 2, "gmm": 2, "decode_attention": 3, "group_filter_agg": 1, "ssd_intra": 2,
+    # The redesigned kernels (K6's tensor-core and CUDA-core kernels, K7's
+    # and K8's tensor-core kernels, K5, K1/K2's scan, K3 and K4) keep every
+    # value in registers (ptxas reports only on a build, not on a library
+    # already built).
+    tc_kernels = {"flash_attention": ("flash_attention_tc_kernel", "flash_attention_kernel"), "gmm": ("gmm_kernel",),
+                  "decode_attention": ("decode_mma_kernel",), "group_filter_agg": ("group_filter_agg_kernel",),
+                  "ssd_intra": ("ssd_intra_mma_kernel",), "block_compact": ("block_compact_kernel",),
+                  "filter_agg": ("filter_agg_kernel",)}
+    redesigned = {fn: info for src, kerns in tc_kernels.items() for fn, info in ptxas_report(logs[src]).items()
+                  if any(kern in fn for kern in kerns)}
+    # dh 64 / 128 (tensor cores) and f32 dh 32 / 64 / 128 and bf16 dh 32 (CUDA cores); f32 / bf16;
+    # dh 32 / 64 / 128; one scan kernel; P <= 64 / 128; one kernel each
+    want = {"flash_attention": 6, "gmm": 2, "decode_attention": 3, "group_filter_agg": 1, "ssd_intra": 2,
             "block_compact": 1, "filter_agg": 1}
     for fn, info in redesigned.items():
         if any(k in fn for k in ("decode_mma_kernel", "group_filter_agg_kernel", "ssd_intra_mma_kernel",
-                                 "block_compact_kernel", "filter_agg_kernel")):
+                                 "block_compact_kernel", "filter_agg_kernel", "flash_attention_kernel")):
             print(f"[build] {fn}: {json.dumps(info)}", flush=True)
     check(len(redesigned) == sum(n for src, n in want.items() if logs[src])
           and not any(info["spill_bytes"] for info in redesigned.values()),
@@ -1507,6 +1646,7 @@ def main() -> int:
         "lm": ("decode_attention", "ssd_intra", "flash_attention"),
     }
     launches = dict.fromkeys(kops.LAUNCHES, 0)
+    path_counts = {}
     for path, kernels in path_kernels.items():
         kops.reset_launches()
         if path == "query":
@@ -1521,12 +1661,16 @@ def main() -> int:
         else:
             lm = lm_path(dev)
         counts = dict(kops.LAUNCHES)
+        path_counts[path] = counts
         print(f"[launches] {path} path: {json.dumps(counts)}", flush=True)
         for kname in kernels:
             check(counts[kname] > 0, f"{kname} was not launched on the {path} path")
         for kname, count in counts.items():
             launches[kname] += count
     print(f"[launches] main paths: {json.dumps(launches)}", flush=True)
+    # K6's CUDA-core kernel on the main paths: the accel path's attention is
+    # f32 (the LM paths run bf16 at dh 128, on the tensor cores).
+    launches["flash_attention_f32"] = path_counts["accel"]["flash_attention"]
 
     verify_server(plans, trace, report)
     pushdown_plans_agree(pd_ctx.scratch)
@@ -1542,6 +1686,7 @@ def main() -> int:
     entries = kernel_entries(plans, name, launches, per_query, per_step, errs)
     entries += new_kernel_entries(pd_ctx.scratch, name, launches, errs)
     entries += lm_kernel_entries(name, launches, errs)
+    f32_route_times(name)
     print(f"[times] per query at sf1 (ms): {json.dumps(per_query_times(plans))}", flush=True)
     print(f"[lm] summary: {json.dumps({'paths': lm, 'route_rel_l2': lm_route})}", flush=True)
     pd_task.clean(pd_ctx)

@@ -23,6 +23,20 @@ their output is wrong and is not checked.  The committed K7 also runs on the
 cache rearranged to [B * Hkv, S, 1, dh], so that each head's keys are
 contiguous, to show what the cache layout costs.
 
+K6's CUDA-core kernel (f32) runs at accel_torch large and Granite-3-8B's
+2,048-token prefill beside its first design
+(``csrc/variants/flash_attention_f32_first.cu``, the first C interface),
+SDPA with ``enable_gqa`` and with K/V expanded to Hq heads (each with its
+backend), a block a query tile (balance off), other ring depths, three
+blocks an SM, the score steps and P V keys unrolled further, and exp2f or
+expf for ex2.approx.  The arms marked "diagnostic" leave out the products
+(loads only), one of them, the loads (products only) or the cut rows'
+partials and merges.  Every other arm is held to the plain version (2e-4)
+with a repeat bit-equal and the tickets back at 0, and each is timed one
+call per event pair, back to back and on the card.  accel_torch's attention
+workload then runs through the committed kernel and through the first
+design behind the first design's wrapper, in turns (ops/s and latency).
+
 K1/K2 (``group_filter_agg``) run at TPC-H Q1 at scale factor 1, alone
 (B = 1) and as a batch of 8 programs, beside ``k1 first design``: the
 kernel's first design, kept as ``csrc/variants/group_filter_agg_first.cu``
@@ -127,6 +141,44 @@ VARIANTS = {
         "  // Arrival: the last of the sequence's valid splits combines them.\n", "  if (s > 0) return;\n")]),
 }
 K6_SHAPES = [(1, 2048, 32, 8, 128), (1, 17, 32, 8, 128), (8, 512, 32, 8, 128)]  # B, S, Hq, Hkv, dh; bf16 causal
+# f32 causal: accel_torch large and Granite-3-8B's 2,048-token prefill.
+K6_F32_SHAPES = [(1, 2048, 4, 2, 64), (1, 2048, 32, 8, 128)]
+FIRST_K6 = "variants/flash_attention_f32_first"
+PROBE_K6 = "variants/shared_load_probe"
+PROBE_MODES = ("1 address", "2 (by half-warp)", "4 (one a quarter)", "4 (half x quarter parity)", "16 (lane % 16)",
+               "8 (lane % 8)", "32 (lane)", "32 strided (8-way bank conflict)")
+_K6_STAGES = "  static constexpr int kStages = DH > 64 ? 3 : 2;          // ring chunks: K and V of a tile, or 3 halves"
+_K6_NO_SCORES = ("      scores<T, DH>(sc, qt, kc, rg, kh, cg);",
+                 "      for (auto& row : sc) for (float& x : row) x = 0.0f;")
+_K6_NO_PV = ("        pv<T, DH, kOCols>(o, pw, take(0), c, rg, kh, cg);", "        (void)take(0);")
+_K6_EXP = '  float y;  // 2^x\n  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));\n  return y;'
+VARIANTS.update({
+    "k6 f32 first design": (FIRST_K6, []),
+    "k6 shared-load probe": (PROBE_K6, []),
+    "k6 f32 balance off (a block a query tile)": ("flash_attention", [("  p.rows = !p.causal;", "  p.rows = 1;")]),
+    "k6 f32 3 stages": ("flash_attention", [(_K6_STAGES, "  static constexpr int kStages = 3;")]),
+    "k6 f32 4 stages (dh 128: one block an SM)": ("flash_attention", [(_K6_STAGES, "  static constexpr int kStages = 4;")]),
+    "k6 f32 6 stages (one block an SM)": ("flash_attention", [(_K6_STAGES, "  static constexpr int kStages = 6;")]),
+    "k6 f32 score steps unrolled by 2": ("flash_attention", [(
+        "#pragma unroll 1\n  for (int st = 0; st < kHalfD / kN; ++st, q += 16 * kN)",
+        "#pragma unroll 2\n  for (int st = 0; st < kHalfD / kN; ++st, q += 16 * kN)")]),
+    "k6 f32 P V 16 keys a step": ("flash_attention", [(
+        "#pragma unroll 1\n  for (int t0 = 0; t0 < kMine; t0 += 8)", "#pragma unroll 2\n  for (int t0 = 0; t0 < kMine; t0 += 8)")]),
+    "k6 f32 3 blocks an SM": ("flash_attention", [
+        ("__launch_bounds__(kThreads, 2)\nflash_attention_kernel(", "__launch_bounds__(kThreads, 3)\nflash_attention_kernel(")]),
+    "k6 f32 exp2f": ("flash_attention", [(_K6_EXP, "  return exp2f(x);")]),
+    "k6 f32 expf": ("flash_attention", [(_K6_EXP, "  return expf(__fmul_rn(x, 0.69314718055994531f));")]),
+    "k6 f32 loads only (diagnostic)": ("flash_attention", [_K6_NO_SCORES, _K6_NO_PV]),
+    "k6 f32 scores only (diagnostic)": ("flash_attention", [_K6_NO_PV]),
+    "k6 f32 P V only (diagnostic)": ("flash_attention", [_K6_NO_SCORES]),
+    "k6 f32 rows never cut (diagnostic)": ("flash_attention", [("    if (count > 1) {", "    if (false) {")]),
+    "k6 f32 products only (diagnostic)": ("flash_attention", [
+        ("  hopper::mbar_arrive_expect_tx(bar, L::kChunkBytes);", "  hopper::mbar_arrive(bar);"),
+        ("    for (int bx = 0; bx < L::kQChunkBoxes; ++bx)\n      hopper::tma_load_4d(",
+         "    for (int bx = 0; bx < 0; ++bx)\n      hopper::tma_load_4d("),
+        ("  for (int bx = 0; bx < L::kBoxes; ++bx)\n    hopper::tma_load_4d(",
+         "  for (int bx = 0; bx < 0; ++bx)\n    hopper::tma_load_4d(")]),
+})
 K5_SHAPE = (4, 2048, 256, 256)  # accel_torch large, f32
 K7_SHAPE = (8, 4096, 32, 8, 128, 2064)  # B, S, Hq, Hkv, dh, kv_len; bf16
 K7_SPLITS = (256, 512)  # keys a split: the committed split_size at S = 4096, and twice it
@@ -266,6 +318,11 @@ K3_FIRST_SIGNATURES = {
     "block_compact_error_string": ([_I32], ctypes.c_char_p),
     "block_compact_launch": ([_PTR, _PTR, _I64, _I32, _I64, _PTR, _PTR, _PTR, _PTR, _PTR], _I32),
 }
+K6_FIRST_SIGNATURES = {
+    "flash_attention_error_string": ([_I32], ctypes.c_char_p),
+    "flash_attention_launch": ([_PTR] * 4 + [_I32] * 8 + [_F32, _PTR], _I32),
+}
+PROBE_SIGNATURES = {"shared_load_probe": ([_I32, _I32, _I32], _F32)}
 K8_FIRST_SIGNATURES = {
     "ssd_intra_error_string": ([_I32], ctypes.c_char_p),
     "ssd_intra_launch": ([_PTR] * 7 + [_I32] * 7 + [_PTR], _I32),
@@ -294,7 +351,7 @@ def build_variants(out_dir: Path) -> dict[str, ctypes.CDLL]:
             continue
         text = (build.CSRC / f"{src}.cu").read_text()
         for old, new in edits:
-            if old not in text or (name.startswith(("k3", "k4", "k8")) and text.count(old) != 1):
+            if old not in text or (name.startswith(("k3", "k4", "k8", "k6 f32")) and text.count(old) != 1):
                 raise RuntimeError(f"{name}: {old!r} is not in {src}.cu once")
             text = text.replace(old, new)
         cu = out_dir / f"v{i}.cu"
@@ -308,11 +365,12 @@ def build_variants(out_dir: Path) -> dict[str, ctypes.CDLL]:
             raise RuntimeError(f"{name}: nvcc failed\n{log}")
         spilled = [line.strip() for line in log.splitlines() if "spill stores" in line and " 0 bytes spill" not in line]
         print(f"[build] {name}: {len(spilled)} function(s) spill: {spilled}", flush=True)
-        if name.startswith(("k1", "k3", "k4", "k8")):
+        if name.startswith(("k1", "k3", "k4", "k8", "k6 f32")):
             print(f"[build] {name}: {json.dumps(ptxas_report(log))}", flush=True)
         lib = ctypes.CDLL(str(out_dir / f"libv{i}.so"))
         signatures = {FIRST: FIRST_SIGNATURES, FIRST_K8: K8_FIRST_SIGNATURES, FIRST_K4: K4_FIRST_SIGNATURES,
-                      FIRST_K3: K3_FIRST_SIGNATURES}.get(src) or {
+                      FIRST_K3: K3_FIRST_SIGNATURES, FIRST_K6: K6_FIRST_SIGNATURES,
+                      PROBE_K6: PROBE_SIGNATURES}.get(src) or {
             "flash_attention": fa, "gmm": moe_gmm, "decode_attention": da, "group_filter_agg": gfa,
             SHARED: gfa, "ssd_intra": ssd_scan, "filter_agg": filter_scan, "block_compact": bc}[src]._SIGNATURES
         for fn, (argtypes, restype) in signatures.items():
@@ -778,10 +836,11 @@ def k6_variants(libs, dev, gen):
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         calls = {"sdpa": lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)}
         for name, lib in libs.items():
-            if name.startswith("k6"):
+            if name.startswith("k6") and "f32" not in name and "probe" not in name:
                 out = torch.empty_like(q)
                 calls[name] = lambda lib=lib, out=out: lib.flash_attention_launch(
-                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, s, hq, hkv, dh, 1, 1, dh**-0.5, stream)
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, None, b, s, s, hq, hkv, dh, 1, 1,
+                    dh**-0.5, stream)
                 if calls[name]() != 0:
                     raise RuntimeError(f"{name}: launch failed")
                 torch.cuda.synchronize()
@@ -794,6 +853,157 @@ def k6_variants(libs, dev, gen):
                 res[name].append([time_ms(calls[name]), burst_ms(calls[name])])
         print(f"[variants] k6 B={b} S={s} Hq={hq} Hkv={hkv} dh={dh} bf16 causal, [single-call ms, burst ms] x2: "
               f"{json.dumps(res)}", flush=True)
+
+
+def accel_first_vs_committed(first, rounds=2):
+    """accel_torch's attention workload (small, medium, large; ops/s and
+    average latency) through the committed kernel and through the first
+    design, in turns: the first design takes ``kops.flash_attention``'s place
+    for its turn."""
+    from repro_torch.core.task import TaskContext
+    from repro_torch.kernels import ops as kops
+    from repro_torch.tasks import TASKS
+
+    from repro_torch.kernels import flash_attention as fa
+
+    committed = kops.flash_attention
+
+    def first_design(q, k, v, *, causal=True, use_kernel=True):
+        """The first design behind the first design's wrapper (its checks, its
+        launch, the launch counter), so the arms differ in the kernel and
+        the workspace alone."""
+        if not (q.is_cuda and use_kernel):
+            return committed(q, k, v, causal=causal, use_kernel=use_kernel)
+        if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+            raise ValueError("the kernel runs on CUDA tensors of one device")
+        if q.dtype not in fa.DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+            raise ValueError("q, k and v must all be float32 or bfloat16")
+        fa.check_shapes(q, k, v, causal)
+        b, sq, hq, dh = q.shape
+        sk, hkv = k.shape[1], k.shape[2]
+        if dh not in fa.HEAD_DIMS or min(b, sq, sk) < 1 or max(b, hq) > 65535:
+            raise ValueError("shape out of the kernel's range")
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out = torch.empty_like(q)
+        checked("k6 f32 first design", first, "flash_attention", first.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk, hq, hkv, dh, int(causal),
+            fa.DTYPES[q.dtype], dh**-0.5, torch.cuda.current_stream(q.device).cuda_stream))
+        kops.LAUNCHES["flash_attention"] += 1
+        return out
+
+    task = TASKS["accel_torch"]()
+    ctx = TaskContext(iters=20, warmup=5, device="cuda")
+    res = {}
+    try:
+        for rnd in range(rounds):
+            for arm, fn in (("committed", committed), ("first design", first_design))[::1 if rnd % 2 == 0 else -1]:
+                kops.flash_attention = fn
+                for size in ("small", "medium", "large"):
+                    m = task.execute_test(ctx, {"workload": "attention", "size": size, "impl": "kernel"}).metrics
+                    res.setdefault(f"{arm} {size}", []).append([m["ops_per_s"], m["avg_latency_us"]])
+    finally:
+        kops.flash_attention = committed
+    print(f"[variants] accel_torch attention [ops_per_s, avg_latency_us] x{rounds}: {json.dumps(res)}", flush=True)
+
+
+def host_share(first, q, k, v, ws, tickets, stream, calls=200):
+    """Host time of one call of K6 f32 (no synchronisation between calls, so
+    the card runs behind): through kops.flash_attention, through its launch
+    module, and the bare library calls of both designs."""
+    import time
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
+
+    lib = build.bind("flash_attention", fa._SIGNATURES)
+    b, s, hq, dh = q.shape
+    hkv = k.shape[2]
+    out = torch.empty_like(q)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    arms = {
+        "kops.flash_attention": lambda: kops.flash_attention(q, k, v),
+        "flash_attention.launch": lambda: fa.launch(q, k, v, True),
+        "library call": lambda: lib.flash_attention_launch(*ptrs, ws.data_ptr(), tickets.data_ptr(), b, s, s, hq,
+                                                             hkv, dh, 1, 0, dh**-0.5, stream),
+        "first design's library call": lambda: first.flash_attention_launch(*ptrs, b, s, s, hq, hkv, dh, 1, 0,
+                                                                               dh**-0.5, stream),
+    }
+    res = {}
+    for name, fn in arms.items():
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        res[name] = 1e6 * (time.perf_counter() - t0) / calls
+        torch.cuda.synchronize()
+    print(f"[variants] k6 f32 host us a call at B={b} S={s} (no sync between calls): {json.dumps(res)}", flush=True)
+
+
+def shared_load_costs(lib, iters=1000):
+    """SM cycles a 16-byte shared load costs by the distinct addresses of a
+    warp (csrc/variants/shared_load_probe.cu), at 1.98 GHz."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    res = {}
+    for mode, label in enumerate(PROBE_MODES):
+        ms = lib.shared_load_probe(mode, iters, sms)
+        if ms < 0:
+            raise RuntimeError(f"shared-load probe mode {mode}: launch failed ({-ms:g})")
+        res[label] = ms * 1e6 / (8 * 8 * iters * 32) * 1.98
+    print(f"[variants] LDS.128 SM cycles a warp-load by distinct addresses: {json.dumps(res)}", flush=True)
+
+
+def k6_f32_variants(libs, dev, gen):
+    """K6's CUDA-core kernel (f32, causal) at K6_F32_SHAPES for the committed
+    source, its first design and every "k6 f32" arm, beside SDPA with
+    ``enable_gqa`` and with K/V expanded to Hq heads: each non-diagnostic arm
+    held to the plain version (2e-4) with a repeat bit-equal and the tickets
+    back at 0, then one call per event pair, back to back and on the card."""
+    from chip_smoke import ATTN_TOL, close, sdpa_backend
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
+
+    stream = torch.cuda.current_stream().cuda_stream
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for b, s, hq, hkv, dh in K6_F32_SHAPES:
+        q, k, v = (torch.randn((b, s, h, dh), generator=gen, device=dev) for h in (hq, hkv, hkv))
+        want = kops.flash_attention(q, k, v, use_kernel=False)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        ke, ve = (x.repeat_interleave(hq // hkv, dim=1) for x in (kt, vt))
+        calls = {"sdpa, enable_gqa": lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
+                 "sdpa, K/V expanded to Hq heads": lambda: sdpa(qt, ke, ve, is_causal=True)}
+        backends = {name: sdpa_backend(fn) for name, fn in calls.items()}
+        ws, tickets = fa.workspace(q.device, stream, *fa.workspace_sizes(b, s, s, hq, dh, True))
+        for name, lib in libs.items():
+            if not (name == "k6 committed" or name.startswith("k6 f32")):
+                continue
+            out = torch.empty_like(q)
+            if name == "k6 f32 first design":
+                args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+            else:
+                args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ws.data_ptr(), tickets.data_ptr())
+
+            def run(lib=lib, args=args, out=out, name=name):
+                checked(name, lib, "flash_attention",
+                        lib.flash_attention_launch(*args, b, s, s, hq, hkv, dh, 1, 0, dh**-0.5, stream))
+                return out
+
+            calls[name] = run
+            got = run().clone()
+            if "diagnostic" not in name:
+                close(f"{name} B={b} S={s} dh={dh}", got, want, *ATTN_TOL[torch.float32])
+                if not torch.equal(got, run()) or bool(tickets.any()):
+                    raise RuntimeError(f"{name}: a repeat differs or leaves a ticket set")
+        if dh == 64:
+            accel_first_vs_committed(libs["k6 f32 first design"])
+            host_share(libs["k6 f32 first design"], q, k, v, ws, tickets, stream)
+            shared_load_costs(libs["k6 shared-load probe"])
+        print(f"[variants] k6 f32 B={b} S={s} Hq={hq} Hkv={hkv} dh={dh} causal: every arm but the diagnostics "
+              f"within {ATTN_TOL[torch.float32]} of the plain version, repeats equal, tickets 0; SDPA backends "
+              f"{json.dumps(backends)}", flush=True)
+        timed_arms(f"k6 f32 B={b} S={s} Hq={hq} Hkv={hkv} dh={dh} causal", calls)
 
 
 def k5_variants(libs, dev, gen):
@@ -897,7 +1107,7 @@ def main() -> int:
     if "k3" in SECTIONS:
         k3_variants(libs, dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    for section, fn in (("k6", k6_variants), ("k5", k5_variants), ("k7", k7_variants)):
+    for section, fn in (("k6", k6_f32_variants), ("k6", k6_variants), ("k5", k5_variants), ("k7", k7_variants)):
         if section in SECTIONS:
             fn(libs, dev, gen)
     return 0
