@@ -11,9 +11,10 @@ paths (the ``dbms_torch`` and ``serving_torch`` tasks and a ``QueryServer``
 over TPC-H scale factor 1 under open-loop load; the whole ``pushdown_torch``
 parameter space, with its plans held to one another; the whole
 ``accel_torch`` parameter space; LM serving through ``launch.serve`` for
-Granite-3-8B and Mamba2-2.7B at full width and depth, then at long context,
-with the kernel route held to the plain one and to the plain route computed
-in float32), and prints:
+Granite-3-8B and Mamba2-2.7B at full width and depth, then at long context
+in bf16 and in float32 (K7's and K8's CUDA-core kernels, their launches
+checked against layers x calls), with the kernel route held to the plain one
+and to the plain route computed in float32), and prints:
 
   * the card's name and power limit, as nvidia-smi reports them;
   * one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
@@ -23,7 +24,11 @@ in float32), and prints:
     K3, K4 and K6's CUDA-core kernel their device launches a call, which
     must be 1; ``flash_attention_f32`` is K6's CUDA-core kernel at
     accel_torch large, with Granite-3-8B's f32 prefill and both SDPA calls,
-    ``enable_gqa`` and K/V expanded, with their backends beside it);
+    ``enable_gqa`` and K/V expanded, with their backends beside it;
+    ``decode_attention_f32`` and ``ssd_intra_f32`` are K7's and K8's
+    CUDA-core kernels at Granite-3-8B's long decode and Mamba2-2.7B's
+    prefill in float32, with their device time and device launches a call,
+    and K7's beside SDPA in float32 three ways with their backends);
   * as its last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -644,11 +649,12 @@ def k5_k6_phase(dev):
     return errs
 
 
-def compare_k7(label, b, s, hq, hkv, dh, lens, dtype, gen, dev):
+def compare_k7(label, b, s, hq, hkv, dh, lens, dtype, gen, dev, profile=False):
     """K7 against its plain version; a second launch straight after the first
     gives the same bits and leaves the arrival counters at 0; cache contents
     past kv_len (inf keys, NaN values) change no bit; each slot alone equals
-    the slot in the batch."""
+    the slot in the batch; with ``profile``, a call is one device launch
+    (torch.profiler)."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ops as kops
 
@@ -671,8 +677,13 @@ def compare_k7(label, b, s, hq, hkv, dh, lens, dtype, gen, dev):
     for i in range(b):
         alone = kops.decode_attention(q[i : i + 1], k[i : i + 1], v[i : i + 1], kv_len[i : i + 1])
         check(torch.equal(alone, got[i : i + 1]), f"k7 {label}: slot {i} alone != slot {i} in the batch")
+    launches = ""
+    if profile:
+        per_call = device_profile(lambda: kops.decode_attention(q, k, v, kv_len), ("decode",))[1]
+        check(per_call == 1, f"k7 {label}: {per_call} device launches a call, want 1")
+        launches = ", 1 device launch a call"
     print(f"[k7] {label}: B={b} S={s} Hq={hq} Hkv={hkv} dh={dh} kv_len={list(lens)} {dtype} max_abs_err {err:.3g}; "
-          f"tail ignored, each slot alone == in the batch, repeats equal (torch.equal), counters 0", flush=True)
+          f"tail ignored, each slot alone == in the batch, repeats equal (torch.equal), counters 0{launches}", flush=True)
     return err
 
 
@@ -699,24 +710,32 @@ def compare_k8(label, b, s, h, p, n, chunk, dtype, gen, dev):
 def k7_k8_phase(dev):
     """K7 at Granite-3-8B's decode shape and K8 at Mamba2-2.7B's prefill shape,
     then the reference's sweep shapes and ragged ones, in bf16 and f32; K7
-    in bf16 also at G = 1, 8 and 16 with kv_len 1 and on both sides of a
-    split edge."""
+    also at G = 1, 8 and 16 with kv_len 1 and on both sides of a split edge
+    (f32 also at dh 16, tiny's width); K8 in f32 also at tiny's Q 8, P 8,
+    N 16 and where a block's heads run out before its head count."""
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ssd_scan
 
     gen = torch.Generator(device=dev).manual_seed(14)
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
         errs[f"k7_{tag}"] = compare_k7("granite decode", 8, 4096, 32, 8, 128,
-                                       (1, 17, 4095, 4096, 2048, 2064, 64, 65), dtype, gen, dev)
+                                       (1, 17, 4095, 4096, 2048, 2064, 64, 65), dtype, gen, dev, profile=True)
         for b, s, hq, hkv, dh, lens in [(2, 256, 8, 4, 64, (100, 256)), (1, 512, 4, 1, 128, (1,)),
                                         (3, 128, 6, 2, 32, (128, 64, 17)), (4, 300, 32, 8, 128, (5, 300, 299, 1))]:
             compare_k7("sweep" if s != 300 else "ragged S", b, s, hq, hkv, dh, lens, dtype, gen, dev)
-        if dtype == torch.bfloat16:  # the tensor-core kernel's 16-row Q tile, its split edges and warp steps
-            for g, hkv, dh in [(1, 8, 128), (8, 4, 128), (16, 2, 128), (16, 1, 64), (1, 2, 32)]:
-                for s in (4096, 1000):
-                    split = da.split_size(s)
-                    compare_k7(f"G={g}", 4, s, g * hkv, hkv, dh, (1, split - 1, split, split + 1), dtype, gen, dev)
+        # The tensor-core kernel's 16-row Q tile; the CUDA-core kernel's head rows, lanes a key and
+        # slots (every G tile up to 16); both kernels' split edges and warp steps.
+        for g, hkv, dh in [(1, 8, 128), (8, 4, 128), (16, 2, 128), (16, 1, 64), (1, 2, 32)]:
+            for s in (4096, 1000):
+                split = da.split_size(s)
+                compare_k7(f"G={g}", 4, s, g * hkv, hkv, dh, (1, split - 1, split, split + 1), dtype, gen, dev)
+        if dtype == torch.float32:  # tiny's dh 16 (the bf16 kernel does not take it)
+            for g, hkv in [(2, 2), (1, 8), (8, 2), (16, 1), (3, 2)]:
+                split = da.split_size(1000)
+                compare_k7(f"dh 16 G={g}", 4, 1000, g * hkv, hkv, 16, (1, split - 1, split, split + 1), dtype, gen,
+                           dev, profile=g == 2)
         errs[f"k8_{tag}"] = compare_k8("mamba2 prefill", 1, 2048, 80, 64, 128, 64, dtype, gen, dev)
         for b, s, h, p, n, chunk in [(1, 128, 2, 16, 16, 128), (2, 256, 4, 32, 16, 128), (1, 256, 2, 64, 32, 256)]:
             compare_k8("sweep", b, s, h, p, n, chunk, dtype, gen, dev)
@@ -724,6 +743,17 @@ def k7_k8_phase(dev):
         for s in (4, 17, 31):  # launch.serve's prompts: one chunk of Q = S at Mamba2's width
             compare_k8("mamba2 short prefill", 1, s, 80, 64, 128, 64, dtype, gen, dev)
         compare_k8("ragged P/N", 1, 96, 5, 128, 200, 48, dtype, gen, dev)
+    # f32: tiny's widths, and the CUDA-core kernel's heads a block (from H and
+    # the chunks alone) where the last block has fewer heads than the others.
+    f32 = torch.float32
+    compare_k8("tiny Q=8 P=8 N=16", 2, 64, 4, 8, 16, 8, f32, gen, dev)
+    for h, nc, p, n in [(9, 100, 8, 16), (83, 32, 64, 128), (16, 132, 8, 16)]:
+        hpb = ssd_scan.f32_block_heads(h, nc)
+        compare_k8(f"block edge: {hpb} heads a block, last {h - (h - 1) // hpb * hpb}", 1, 64 * nc, h, p, n, 64, f32,
+                   gen, dev)
+    compare_k8("P=5 N=17", 2, 34, 3, 5, 17, 17, f32, gen, dev)
+    compare_k8("N in slices", 1, 128, 9, 64, 1000, 64, f32, gen, dev)
+    compare_k8("Q=65", 1, 130, 6, 64, 128, 65, f32, gen, dev)
     # bf16: the tensor-core kernel's edges (16-row tiles, 64-row bands, its
     # staged N slice, rows that are not whole 16-byte copies).
     bf16 = torch.bfloat16
@@ -1013,7 +1043,7 @@ def device_share(label, fn, calls=3):
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     tops = "; ".join(f"{e.key[:48]} {e.self_device_time_total / calls / 1e3:.3f} ms" for e in top)
     names = {"flash_attention": ("flash_attention",),
-             "decode_attention": ("decode_mma", "decode_split", "decode_combine"),
+             "decode_attention": ("decode_mma", "decode_f32"),
              "ssd_intra": ("ssd_intra",)}  # the port's kernels by their CUDA function names
     ours = {k: sum(e.self_device_time_total for e in kernels if any(n in e.key for n in ns))
             for k, ns in names.items()}
@@ -1024,15 +1054,19 @@ def device_share(label, fn, calls=3):
     return busy_us / wall_us
 
 
-def lm_long_phase(arch, dev):
+def lm_long_phase(arch, dev, compute_dtype="bfloat16"):
     """Long context: Granite with 8 slots of 2,048-token prompts, Mamba2 with
-    one (32 chunks), max_len 4096, 32 new tokens each."""
+    one (32 chunks), max_len 4096, 32 new tokens each, at full width and
+    depth, computing in ``compute_dtype`` (float32: weights, cache and
+    activations in float32, so K7 and K8 run their CUDA-core kernels)."""
     from repro_torch.configs.base import get_arch
     from repro_torch.kernels import ops as kops
     from repro_torch.models.model import Model
     from repro_torch.runtime.serve_loop import Request, SlotServer
 
-    cfg = get_arch(arch)
+    cfg = dataclasses.replace(get_arch(arch), compute_dtype=compute_dtype)
+    label = f"{arch} long context" + (" in float32" if compute_dtype == "float32" else "")
+    at_start = dict(kops.LAUNCHES)
     slots, plen, max_len, new = (1 if cfg.is_attention_free else 8), 2048, 4096, 32
     model = Model(cfg, device=dev)
     params = model.init(0)
@@ -1064,37 +1098,45 @@ def lm_long_phase(arch, dev):
     total = time.perf_counter() - t0
     delta = {k: kops.LAUNCHES[k] - before[k] for k in before}
     done = server.completed
-    check(len(done) == slots and all(len(c.tokens) == new for c in done), f"{arch} long: every request completes")
+    check(len(done) == slots and all(len(c.tokens) == new for c in done), f"{label}: every request completes")
     layers = LM_LAYERS[arch]
     kname = "ssd_intra" if cfg.is_attention_free else "decode_attention"
     want = server.prefill_calls * layers if cfg.is_attention_free else server.decode_calls * layers
-    check(delta[kname] == want, f"{arch} long: {kname} launched {delta[kname]}, want {want}")
+    check(delta[kname] == want, f"{label}: {kname} launched {delta[kname]}, want {want}")
     decode_ms = 1e3 * sorted(steps[1:])[len(steps[1:]) // 2]
     tokens = sum(len(c.tokens) for c in done)
     # Where a step's time goes: one more decode step on the filled cache, and a prefill.
     index = torch.tensor(server.lengths, dtype=torch.int32, device=dev)
     last = torch.zeros((slots, 1), dtype=torch.int32, device=dev)
-    device_share(f"{arch} decode step, {slots} slot(s) at ~{plen + new} keys",
-                 lambda: model.decode(params, {"tokens": last}, server.cache, index))
-    device_share(f"{arch} prefill of {plen} tokens", prefill_once, calls=1)
+    tag = arch + (" float32" if compute_dtype == "float32" else "")
+    decode_share = device_share(f"{tag} decode step, {slots} slot(s) at ~{plen + new} keys",
+                                lambda: model.decode(params, {"tokens": last}, server.cache, index))
+    prefill_share = device_share(f"{tag} prefill of {plen} tokens", prefill_once, calls=1)
     out = {"prefill_ms": prefill_ms, "decode_step_ms": decode_ms, "tokens_per_s": tokens / total,
-           "first_step_ms": 1e3 * steps[0], "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-    print(f"[lm] {arch} long context: {slots} slot(s) x {plen}-token prompt, max_len {max_len}, {new} new tokens: "
+           "first_step_ms": 1e3 * steps[0], "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "decode_device_share": decode_share, "prefill_device_share": prefill_share,
+           # every kernel launch of the phase, its timing and profiling calls included
+           "launches": {k: n - at_start[k] for k, n in kops.LAUNCHES.items() if n > at_start[k]}}
+    print(f"[lm] {label}: {slots} slot(s) x {plen}-token prompt, max_len {max_len}, {new} new tokens: "
           f"prefill {prefill_ms:.2f} ms a prompt, decode step {decode_ms:.2f} ms (median of {len(steps) - 1}), "
           f"first step (prefills + decode) {1e3 * steps[0]:.1f} ms, {tokens} tokens in {total:.3f}s "
-          f"({tokens / total:.1f} tok/s), peak {out['peak_gb']:.1f} GB", flush=True)
+          f"({tokens / total:.1f} tok/s), peak {out['peak_gb']:.1f} GB, card busy {100 * decode_share:.1f}% of a decode "
+          f"step and {100 * prefill_share:.1f}% of a prefill; {kname} launched {delta[kname]} = {layers} layers x "
+          f"{want // layers} calls", flush=True)
     del server, params, model
     free_card()
     return out
 
 
 def lm_path(dev):
-    """LM serving for both models, each freed before the next."""
+    """LM serving for both models, each freed before the next: launch.serve's
+    defaults, then long context in bf16 and in float32."""
     out = {}
     for arch in LM_LAYERS:
         out[f"{arch} serve"] = lm_serve_phase(arch)
         free_card()
         out[f"{arch} long"] = lm_long_phase(arch, dev)
+        out[f"{arch} long float32"] = lm_long_phase(arch, dev, "float32")
     return out
 
 
@@ -1523,6 +1565,78 @@ def lm_kernel_entries(name, launches, errs):
     return [k7_entry, k8_entry]
 
 
+def lm_f32_kernel_entries(name, launches):
+    """The float32 kernels of the float32 long-context phase, at its shapes:
+    K7's CUDA-core kernel at Granite-3-8B's long-context decode (8 slots, a
+    4096-slot cache, 2,064 valid keys each), beside SDPA in float32 three
+    ways (bool kv_len mask with enable_gqa, K/V expanded to Hq heads, the
+    cache cut to kv_len) with their backends, and K8's at Mamba2-2.7B's
+    2,048-token prefill.  Each: one call, its device time and device
+    launches, the plain version, the error against it on the same inputs,
+    and the bound at the float32 rate."""
+    from repro_torch.kernels import ops as kops
+
+    bw, flops, _ = peaks(name)
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(17)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def entry(kname, replaces, run, plain, nbytes, nops, tol, shape, device_names):
+        got, want = run(), plain()
+        err = max(close(f"{kname} {shape}", g, w, *tol) for g, w in zip(got, want)) if isinstance(got, tuple) \
+            else close(f"{kname} {shape}", got, want, *tol)
+        device_ms, per_call = device_profile(run, device_names)
+        check(round(per_call) == 1, f"{kname}: {per_call} device launches a call")
+        bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * nops / flops
+        return {"name": f"{kname}_f32", "route": "cuda", "source": f"src/repro_torch/csrc/{kname}.cu",
+                "replaces": replaces, "launches": launches[kname], "launches_per_call": round(per_call),
+                "max_abs_err": err, "ms": time_ms(run), "device_ms": device_ms,
+                "plain_ms": time_ms(plain, reps=20, warmup=2), "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": None, "shape": shape}
+
+    b, s, hq, hkv, dh, kvl = 8, 4096, 32, 8, 128, 2064
+    q = torch.randn((b, hq, dh), generator=gen, device=dev)
+    k = torch.randn((b, s, hkv, dh), generator=gen, device=dev)
+    v = torch.randn((b, s, hkv, dh), generator=gen, device=dev)
+    kv_len = torch.full((b,), kvl, dtype=torch.int32, device=dev)
+    k7 = entry("decode_attention", "src/repro/kernels/decode_attention.py:67",
+               lambda: kops.decode_attention(q, k, v, kv_len),
+               lambda: kops.decode_attention(q, k, v, kv_len, use_kernel=False),
+               4 * (2 * q.numel() + 2 * b * kvl * hkv * dh), 4 * dh * hq * kvl * b, ATTN_TOL[torch.float32],
+               f"granite long-context decode: B={b} S={s} Hq={hq} Hkv={hkv} dh={dh} kv_len={kvl} f32", ("decode",))
+    qt, kt, vt = q[:, :, None], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()  # SDPA's [B, H, S, dh]
+    mask = (torch.arange(s, device=dev)[None] < kv_len[:, None])[:, None, None, :]
+    ke, ve = (t.repeat_interleave(hq // hkv, dim=1) for t in (kt, vt))
+    kc, vc = kt[:, :, :kvl].contiguous(), vt[:, :, :kvl].contiguous()
+    libs = {"library": lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True),
+            "library_expanded": lambda: sdpa(qt, ke, ve, attn_mask=mask),
+            "library_cut": lambda: sdpa(qt, kc, vc, enable_gqa=True)}
+    what = {"library": f"SDPA f32, bool kv_len mask over {s} slots, enable_gqa",
+            "library_expanded": f"SDPA f32, bool kv_len mask, K/V expanded to {hq} heads",
+            "library_cut": "SDPA f32 over the cache cut to kv_len, no mask, enable_gqa"}
+    want = kops.decode_attention(q, k, v, kv_len)
+    for key, fn in libs.items():
+        lib_err = float((fn()[:, :, 0] - want).abs().max())
+        k7[f"{key}_ms"] = time_ms(fn)
+        k7[key] = f"{what[key]} ({sdpa_backend(fn)}; max_abs_err {lib_err:.3g} from the kernel)"
+    del q, k, v, qt, kt, vt, ke, ve, kc, vc, libs, want
+    free_card()
+
+    b8, s8, h, p, n, chunk = 1, 2048, 80, 64, 128, 64
+    nc, pairs = s8 // chunk, chunk * (chunk + 1) // 2
+    x = torch.randn((b8, s8, h, p), generator=gen, device=dev)
+    bm, cm = (0.5 * torch.randn((b8, s8, n), generator=gen, device=dev) for _ in range(2))
+    dt = torch.nn.functional.softplus(torch.randn((b8, s8, h), generator=gen, device=dev))
+    a = -torch.exp(torch.linspace(0.0, 2.77, h, device=dev))
+    k8 = entry("ssd_intra", "src/repro/kernels/ssd_scan.py:57", lambda: kops.ssd_intra(x, bm, cm, dt, a, chunk=chunk),
+               lambda: kops.ssd_intra(x, bm, cm, dt, a, chunk=chunk, use_kernel=False),
+               4 * (2 * x.numel() + bm.numel() + cm.numel() + dt.numel() + h + b8 * nc * h * p * n),
+               b8 * nc * (pairs * 2 * n + h * pairs * (3 + 2 * p) + h * chunk * p * (1 + 2 * n)), SSD_TOL,
+               f"mamba2 prefill: B={b8} S={s8} H={h} P={p} N={n} Q={chunk} f32 x/B/C", ("ssd_intra",))
+    print(f"[times] f32 kernels at full width: {json.dumps([k7, k8])}", flush=True)
+    return [k7, k8]
+
+
 def f32_route_times(name):
     """The f32 kernels of lm_route_phase's float32 route (K7's and K8's first,
     CUDA-core designs; B = 2, a 100-token prompt): K7 at the first decode step
@@ -1596,18 +1710,21 @@ def main() -> int:
     # value in registers (ptxas reports only on a build, not on a library
     # already built).
     tc_kernels = {"flash_attention": ("flash_attention_tc_kernel", "flash_attention_kernel"), "gmm": ("gmm_kernel",),
-                  "decode_attention": ("decode_mma_kernel",), "group_filter_agg": ("group_filter_agg_kernel",),
-                  "ssd_intra": ("ssd_intra_mma_kernel",), "block_compact": ("block_compact_kernel",),
+                  "decode_attention": ("decode_mma_kernel", "decode_f32_kernel"),
+                  "group_filter_agg": ("group_filter_agg_kernel",),
+                  "ssd_intra": ("ssd_intra_mma_kernel", "ssd_intra_f32_kernel"), "block_compact": ("block_compact_kernel",),
                   "filter_agg": ("filter_agg_kernel",)}
     redesigned = {fn: info for src, kerns in tc_kernels.items() for fn, info in ptxas_report(logs[src]).items()
                   if any(kern in fn for kern in kerns)}
     # dh 64 / 128 (tensor cores) and f32 dh 32 / 64 / 128 and bf16 dh 32 (CUDA cores); f32 / bf16;
-    # dh 32 / 64 / 128; one scan kernel; P <= 64 / 128; one kernel each
-    want = {"flash_attention": 6, "gmm": 2, "decode_attention": 3, "group_filter_agg": 1, "ssd_intra": 2,
+    # bf16 dh 32 / 64 / 128 and f32 dh 16 / 32 / 64 / 128 x G tiles 1 / 2 / 4 / 8 / 16; one scan kernel;
+    # P <= 64 / 128 in bf16 and in f32; one kernel each
+    want = {"flash_attention": 6, "gmm": 2, "decode_attention": 3 + 20, "group_filter_agg": 1, "ssd_intra": 4,
             "block_compact": 1, "filter_agg": 1}
     for fn, info in redesigned.items():
         if any(k in fn for k in ("decode_mma_kernel", "group_filter_agg_kernel", "ssd_intra_mma_kernel",
-                                 "block_compact_kernel", "filter_agg_kernel", "flash_attention_kernel")):
+                                 "block_compact_kernel", "filter_agg_kernel", "flash_attention_kernel",
+                                 "decode_f32_kernel", "ssd_intra_f32_kernel")):
             print(f"[build] {fn}: {json.dumps(info)}", flush=True)
     check(len(redesigned) == sum(n for src, n in want.items() if logs[src])
           and not any(info["spill_bytes"] for info in redesigned.values()),
@@ -1669,7 +1786,7 @@ def main() -> int:
             launches[kname] += count
     print(f"[launches] main paths: {json.dumps(launches)}", flush=True)
     # K6's CUDA-core kernel on the main paths: the accel path's attention is
-    # f32 (the LM paths run bf16 at dh 128, on the tensor cores).
+    # f32, and so is Granite's float32 long-context prefill (added below).
     launches["flash_attention_f32"] = path_counts["accel"]["flash_attention"]
 
     verify_server(plans, trace, report)
@@ -1683,9 +1800,17 @@ def main() -> int:
     queries.fused_query_batch(plans["q6"], [{}] * 4)
     per_query["group_filter_agg_multi"] = kops.LAUNCHES["group_filter_agg_multi"]
 
+    # The float32 kernels' launches on the LM path are the float32 long-context
+    # phases' (the counters do not tell the types apart); the rest are bf16.
+    f32_launches = {k: sum(lm[f"{arch} long float32"]["launches"].get(k, 0) for arch in LM_LAYERS)
+                    for k in ("decode_attention", "ssd_intra", "flash_attention")}
+    for kname, count in f32_launches.items():
+        launches[kname] -= count
+    launches["flash_attention_f32"] += f32_launches["flash_attention"]
     entries = kernel_entries(plans, name, launches, per_query, per_step, errs)
     entries += new_kernel_entries(pd_ctx.scratch, name, launches, errs)
     entries += lm_kernel_entries(name, launches, errs)
+    entries += lm_f32_kernel_entries(name, f32_launches)
     f32_route_times(name)
     print(f"[times] per query at sf1 (ms): {json.dumps(per_query_times(plans))}", flush=True)
     print(f"[lm] summary: {json.dumps({'paths': lm, 'route_rel_l2': lm_route})}", flush=True)

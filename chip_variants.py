@@ -4,7 +4,7 @@
 Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_variants.py                # every section
-    python3 chip_variants.py --only k3 k4   # one or more of k1, server, k6, k5, k7, k8, k3, k4
+    python3 chip_variants.py --only k3 k4   # one or more of k1, server, k6, k5, k7, k8, k3, k4, k8f32, k7f32
 
 Each variant is a copy of ``src/repro_torch/csrc/<source>.cu`` with a few
 constants edited; the copies are built with the port's own nvcc flags under
@@ -91,6 +91,23 @@ within 2e-5) and K3's to the plain version with ``torch.equal``, on
 outputs filled with NaN first, and a repeat must be bit-equal with the
 workspace back at 0; then each is timed one call per event pair, back to
 back, and on the card with its device launches a call (torch.profiler).
+
+K8's and K7's float32 CUDA-core kernels (``k8f32``, ``k7f32``) run at the
+full-width shapes (Mamba2-2.7B's 2,048-token prefill, Granite-3-8B's
+long-context decode) and at the float32 route check's (B 2, 128 steps; B 2,
+101 keys), beside their first designs (``csrc/variants/ssd_intra_first.cu``
+on float32 inputs, ``csrc/variants/decode_attention_f32_first.cu`` in two
+launches),
+K8 with 1, 2, 4 and 8 heads a block, other unrolling of its step loops and
+ex2.approx for the decay, K7 with other ring depths and beside SDPA in
+float32 three ways (bool ``kv_len`` mask with ``enable_gqa``, K/V expanded,
+the cache cut to ``kv_len``) with their backends.  Their arms marked
+"diagnostic" leave out work to show where the time goes: K8's loads, stores
+or products (all of them, or C B^T, y's or the state's), the M^T and x * seg
+builds or the head loop's barriers; K7's products and softmax, or the last
+block's combine.  Every other arm is held to the plain version (2e-4) with a
+repeat bit-equal, then each is timed one call per event pair, back to back
+and on the card with its device launches a call.
 
 The ``QueryServer`` runs the smoke's server phase in turns over four arms
 (a batch's results demultiplexed per slot or once, and that with the heap
@@ -255,6 +272,71 @@ VARIANTS.update({
     "k8 no y products (diagnostic)": ("ssd_intra", [_K8_NO_CB, _K8_NO_Y]),
     "k8 no state products (diagnostic)": ("ssd_intra", [_K8_NO_STATE]),
 })
+# float32 K8 (ssd_intra_f32_kernel) and K7 (decode_f32_kernel) at full width.
+FIRST_K7F32 = "variants/decode_attention_f32_first"
+K8F32_SHAPES = [(1, 2048, 80, 64, 128, 64), (2, 128, 80, 64, 128, 64)]  # Mamba2's prefill; the float32 route's
+K7F32_SHAPES = [(8, 4096, 32, 8, 128, 2064), (2, 256, 32, 8, 128, 101)]  # Granite's long decode; the route's
+_K8F32_HEADS = "  const int hpb = f32_block_heads(h, s / q);"
+_K8F32_NO_LOADS = [("      hopper::cp_async16(d, sp, 16u);", "      if (ld < 0) hopper::cp_async16(d, sp, 16u);"),
+                   ("    s_dt[hh * qp + i] = i < q ? dt[(row0 + i) * h_total + h0 + hh] : 0.0f;",
+                    "    s_dt[hh * qp + i] = 0.0f;")]
+# Stores gated on a bound no launch reaches: the products stay live, nothing is written.
+_K8F32_NO_STORES = [("  if (left <= 0) return;\n  if (vec) {", "  if (left <= 0 || left < (1 << 30)) return;\n  if (vec) {")]
+_K8F32_NO_PRODUCTS = [("      cb_accumulate(cb, s_c, s_b, (n_dim + 3) / 4, rb, cj);",
+                       "      if (q < 0) cb_accumulate(cb, s_c, s_b, (n_dim + 3) / 4, rb, cj);"),
+                      ("#pragma unroll 4\n  for (int j = 0; j < jn; ++j) {", "#pragma unroll 4\n  for (int j = 0; j < 0; ++j) {"),
+                      ("#pragma unroll 4\n  for (int j = 0; j < jmax; ++j) {", "#pragma unroll 4\n  for (int j = 0; j < 0; ++j) {")]
+_K8F32_NO_BUILDS = [("      build_mt(s_mt, cb, lc, dth, 0, 0, q, rb, cj);", "      if (q < 0) build_mt(s_mt, cb, lc, dth, 0, 0, q, rb, cj);"),
+                    ("    for (int idx = tid; idx < jn * (kPT / 4); idx += kFThreads) {",
+                     "    for (int idx = tid; idx < 0; idx += kFThreads) {")]
+_K8F32_NO_BARRIERS = [("    __syncthreads();             // visible to all; every warp is done with step t - 1",
+                       "    if (q < 0) __syncthreads();"),
+                      ("      __syncthreads();\n      // The head's tasks, dealt by weight",
+                       "      if (q < 0) __syncthreads();\n      // The head's tasks, dealt by weight")]
+VARIANTS.update({
+    "k8f32 committed": ("ssd_intra", []),
+    "k8f32 first design": (FIRST_K8, []),
+    **{f"k8f32 {k} heads a block": ("ssd_intra", [(_K8F32_HEADS, f"  const int hpb = min({k}, h);")])
+       for k in (1, 2, 4, 5, 8)},
+    "k8f32 up to 8 heads a block (5 at Mamba2's prefill)": ("ssd_intra", [
+        ("constexpr int kFMaxHeads = 16;", "constexpr int kFMaxHeads = 8;")]),
+    "k8f32 expf for the decay": ("ssd_intra", [(
+        "cb[k][kk], decay_exp(__fsub_rn(li[k], lj))", "cb[k][kk], expf(__fsub_rn(li[k], lj))")]),
+    **{f"k8f32 steps unrolled by {u}": ("ssd_intra", [
+        ("#pragma unroll 4\n  for (int j = 0; j < jn; ++j) {", f"#pragma unroll {u}\n  for (int j = 0; j < jn; ++j) {{"),
+        ("#pragma unroll 4\n  for (int j = 0; j < jmax; ++j) {", f"#pragma unroll {u}\n  for (int j = 0; j < jmax; ++j) {{")])
+       for u in (2, 8)},
+    "k8f32 loads only (diagnostic)": ("ssd_intra", [*_K8F32_NO_PRODUCTS, *_K8F32_NO_STORES]),
+    "k8f32 stores only (diagnostic)": ("ssd_intra", [*_K8F32_NO_PRODUCTS, *_K8F32_NO_LOADS]),
+    "k8f32 products only (diagnostic)": ("ssd_intra", [*_K8F32_NO_LOADS, *_K8F32_NO_STORES]),
+    "k8f32 loads and stores only (diagnostic)": ("ssd_intra", _K8F32_NO_PRODUCTS),
+    "k8f32 loads and products only (diagnostic)": ("ssd_intra", _K8F32_NO_STORES),
+    "k8f32 no state products (diagnostic)": ("ssd_intra", [_K8F32_NO_PRODUCTS[1]]),
+    "k8f32 no y products (diagnostic)": ("ssd_intra", [_K8F32_NO_PRODUCTS[2]]),
+    "k8f32 products only, no C B^T (diagnostic)": ("ssd_intra", [*_K8F32_NO_LOADS, *_K8F32_NO_STORES,
+                                                                   _K8F32_NO_PRODUCTS[0]]),
+    "k8f32 products only, no M^T or x seg (diagnostic)": ("ssd_intra", [*_K8F32_NO_LOADS, *_K8F32_NO_STORES,
+                                                                          *_K8F32_NO_BUILDS]),
+    "k8f32 products only, no barriers in the head loop (diagnostic)": ("ssd_intra", [
+        *_K8F32_NO_LOADS, *_K8F32_NO_STORES, *_K8F32_NO_BARRIERS]),
+    "k8f32 state products only (diagnostic)": ("ssd_intra", [
+        *_K8F32_NO_LOADS, *_K8F32_NO_STORES, _K8F32_NO_PRODUCTS[0], _K8F32_NO_PRODUCTS[2], *_K8F32_NO_BUILDS]),
+    "k8f32 state products only, no barriers (diagnostic)": ("ssd_intra", [
+        *_K8F32_NO_LOADS, *_K8F32_NO_STORES, _K8F32_NO_PRODUCTS[0], _K8F32_NO_PRODUCTS[2], *_K8F32_NO_BUILDS,
+        *_K8F32_NO_BARRIERS]),
+    "k8f32 no decay exponentials (diagnostic)": ("ssd_intra", [(
+        "cb[k][kk], decay_exp(__fsub_rn(li[k], lj))", "cb[k][kk], __fsub_rn(li[k], lj)")]),
+    "k7f32 committed": ("decode_attention", []),
+    "k7f32 first design": (FIRST_K7F32, []),
+    "k7f32 2 stages": ("decode_attention", [("constexpr int kF32Stages = 3;", "constexpr int kF32Stages = 2;")]),
+    "k7f32 4 stages": ("decode_attention", [("constexpr int kF32Stages = 3;", "constexpr int kF32Stages = 4;")]),
+    "k7f32 loads only (diagnostic)": ("decode_attention", [(
+        "    // Scores: this lane's dims in order, then the sum over the key's kL lanes.\n",
+        "    if (s > 0) continue;\n")]),
+    "k7f32 no final combine (diagnostic)": ("decode_attention", [(
+        "  // Arrival: the last of the sequence's valid splits combines them in split\n"
+        "  // order and sets the counter back to 0.\n", "  if (s > 0) return;\n")]),
+})
 FIRST_K4 = "variants/filter_agg_first"
 FIRST_K3 = "variants/block_compact_first"
 _K4_STAGES = "constexpr int kStages = 4;"
@@ -351,7 +433,7 @@ def build_variants(out_dir: Path) -> dict[str, ctypes.CDLL]:
             continue
         text = (build.CSRC / f"{src}.cu").read_text()
         for old, new in edits:
-            if old not in text or (name.startswith(("k3", "k4", "k8", "k6 f32")) and text.count(old) != 1):
+            if old not in text or (name.startswith(("k3", "k4", "k8", "k6 f32", "k7f32")) and text.count(old) != 1):
                 raise RuntimeError(f"{name}: {old!r} is not in {src}.cu once")
             text = text.replace(old, new)
         cu = out_dir / f"v{i}.cu"
@@ -365,10 +447,11 @@ def build_variants(out_dir: Path) -> dict[str, ctypes.CDLL]:
             raise RuntimeError(f"{name}: nvcc failed\n{log}")
         spilled = [line.strip() for line in log.splitlines() if "spill stores" in line and " 0 bytes spill" not in line]
         print(f"[build] {name}: {len(spilled)} function(s) spill: {spilled}", flush=True)
-        if name.startswith(("k1", "k3", "k4", "k8", "k6 f32")):
+        if name.startswith(("k1", "k3", "k4", "k8", "k6 f32", "k7f32")):
             print(f"[build] {name}: {json.dumps(ptxas_report(log))}", flush=True)
         lib = ctypes.CDLL(str(out_dir / f"libv{i}.so"))
         signatures = {FIRST: FIRST_SIGNATURES, FIRST_K8: K8_FIRST_SIGNATURES, FIRST_K4: K4_FIRST_SIGNATURES,
+                      FIRST_K7F32: da._SIGNATURES,
                       FIRST_K3: K3_FIRST_SIGNATURES, FIRST_K6: K6_FIRST_SIGNATURES,
                       PROBE_K6: PROBE_SIGNATURES}.get(src) or {
             "flash_attention": fa, "gmm": moe_gmm, "decode_attention": da, "group_filter_agg": gfa,
@@ -536,7 +619,7 @@ def k8_variants(libs, dev):
              "fill y and states (zero_)": lambda: (yz.zero_(), stz.zero_()),
              "fill states (zero_)": lambda: stz.zero_()}
     for name, lib in libs.items():
-        if not name.startswith("k8"):
+        if name.split()[0] != "k8":
             continue
         y = torch.empty((b, s, h, p), dtype=torch.float32, device=dev)
         st = torch.empty((b, s // q, h, p, n), dtype=torch.float32, device=dev)
@@ -1054,7 +1137,7 @@ def k7_variants(libs, dev, gen):
     calls = {"sdpa masked": lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True),
              "sdpa cut": lambda: sdpa(qt, kc, vc, enable_gqa=True)}
     for name, lib in libs.items():
-        if name.startswith("k7"):
+        if name.split()[0] == "k7":
             for split in K7_SPLITS if "diagnostic" not in name else K7_SPLITS[:1]:
                 call = calls[f"{name}, split {split}"] = lambda lib=lib, split=split: da.call(lib, q, k, v, kv_len, split)
                 err = float((call().float() - want).abs().max())
@@ -1078,7 +1161,84 @@ def k7_variants(libs, dev, gen):
           f"{json.dumps({name: kernel_device_ms(fn) for name, fn in calls.items()})}", flush=True)
 
 
-SECTIONS = ("k1", "server", "k6", "k5", "k7", "k8", "k3", "k4")
+def k8f32_variants(libs, dev, gen):
+    """float32 K8 at Mamba2-2.7B's 2,048-token prefill and the float32
+    route's prefill for every k8f32 arm and the plain version; see the
+    module note."""
+    from chip_smoke import SSD_TOL, close, device_profile, time_ms
+    from repro_torch.kernels import ops as kops
+
+    for b, s, h, p, n, q in K8F32_SHAPES:
+        x = torch.randn((b, s, h, p), generator=gen, device=dev)
+        bm, cm = (0.5 * torch.randn((b, s, n), generator=gen, device=dev) for _ in range(2))
+        dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device=dev))
+        a = -torch.exp(torch.linspace(0.0, 2.77, h, device=dev))
+        want = kops.ssd_intra(x, bm, cm, dt, a, chunk=q, use_kernel=False)
+        stream = torch.cuda.current_stream().cuda_stream
+        calls = {"plain": lambda: kops.ssd_intra(x, bm, cm, dt, a, chunk=q, use_kernel=False)}
+        for name, lib in libs.items():
+            if not name.startswith("k8f32"):
+                continue
+            y = torch.full((b, s, h, p), float("nan"), device=dev)
+            st = torch.full((b, s // q, h, p, n), float("nan"), device=dev)
+            tail = [0, stream] if name == "k8f32 first design" else [0, 16, stream]  # the first C interface
+            args = [t.data_ptr() for t in (x, bm, cm, dt, a, y, st)] + [b, s, h, p, n, q] + tail
+
+            def run(lib=lib, args=args, y=y, st=st, name=name):
+                checked(name, lib, "ssd_intra", lib.ssd_intra_launch(*args))
+                return y, st
+
+            calls[name] = run
+            got = run()
+            if "diagnostic" not in name:
+                close(f"{name} y", got[0], want[0], *SSD_TOL)
+                close(f"{name} states", got[1], want[1], *SSD_TOL)
+                y1, st1 = got[0].clone(), got[1].clone()
+                if not (torch.equal(y1, run()[0]) and torch.equal(st1, st)):
+                    raise RuntimeError(f"{name}: a repeated launch differs")
+        print(f"[variants] k8f32 B={b} S={s} H={h} P={p} N={n} Q={q} f32: every arm within {SSD_TOL} of the plain "
+              f"version, repeats equal", flush=True)
+        timed_arms(f"k8f32 B={b} S={s} H={h} P={p} N={n} Q={q} f32", calls)
+
+
+def k7f32_variants(libs, dev, gen):
+    """float32 K7 at Granite-3-8B's long-context decode and the float32
+    route's first decode step for every k7f32 arm, beside SDPA in float32
+    three ways (bool kv_len mask with enable_gqa, K/V expanded to Hq heads,
+    the cache cut to kv_len), each with its backend."""
+    from chip_smoke import sdpa_backend
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops as kops
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for b, s, hq, hkv, dh, kvl in K7F32_SHAPES:
+        q = torch.randn((b, hq, dh), generator=gen, device=dev)
+        k, v = (torch.randn((b, s, hkv, dh), generator=gen, device=dev) for _ in range(2))
+        kv_len = torch.full((b,), kvl, dtype=torch.int32, device=dev)
+        want = kops.decode_attention(q, k, v, kv_len, use_kernel=False)
+        qt, kt, vt = q[:, :, None], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        mask = (torch.arange(s, device=dev)[None] < kv_len[:, None])[:, None, None, :]
+        ke, ve = (t.repeat_interleave(hq // hkv, dim=1) for t in (kt, vt))
+        kc, vc = kt[:, :, :kvl].contiguous(), vt[:, :, :kvl].contiguous()
+        calls = {"sdpa masked (enable_gqa)": lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True),
+                 "sdpa masked, K/V expanded": lambda: sdpa(qt, ke, ve, attn_mask=mask),
+                 "sdpa cut (enable_gqa)": lambda: sdpa(qt, kc, vc, enable_gqa=True)}
+        backends = {name: sdpa_backend(fn) for name, fn in calls.items()}
+        for name, lib in libs.items():
+            if name.startswith("k7f32"):
+                call = calls[name] = lambda lib=lib: da.call(lib, q, k, v, kv_len, da.split_size(s))
+                if "diagnostic" not in name:
+                    err = float((call() - want).abs().max())
+                    if not err <= 2e-4 + 2e-4 * float(want.abs().max()):
+                        raise RuntimeError(f"{name}: max abs error {err}")
+                    if not torch.equal(call(), call()):
+                        raise RuntimeError(f"{name}: a repeated launch differs")
+        print(f"[variants] k7f32 B={b} S={s} Hq={hq} Hkv={hkv} dh={dh} kv_len={kvl} f32: arms within 2e-4 of the plain "
+              f"version; SDPA backends {json.dumps(backends)}", flush=True)
+        timed_arms(f"k7f32 B={b} S={s} Hq={hq} Hkv={hkv} dh={dh} kv_len={kvl} f32", calls)
+
+
+SECTIONS = ("k1", "server", "k6", "k5", "k7", "k8", "k3", "k4", "k8f32", "k7f32")
 
 
 def main() -> int:
@@ -1107,7 +1267,8 @@ def main() -> int:
     if "k3" in SECTIONS:
         k3_variants(libs, dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    for section, fn in (("k6", k6_f32_variants), ("k6", k6_variants), ("k5", k5_variants), ("k7", k7_variants)):
+    for section, fn in (("k6", k6_f32_variants), ("k6", k6_variants), ("k5", k5_variants), ("k7", k7_variants),
+                        ("k8f32", k8f32_variants), ("k7f32", k7f32_variants)):
         if section in SECTIONS:
             fn(libs, dev, gen)
     return 0

@@ -73,32 +73,74 @@
 //     every bf16 shape; nothing goes back to the first design.
 //   * Deterministic: no atomics, and every sum runs in a fixed order.
 //
-// f32 x/B/C: ssd_intra_kernel, the port's first design, on the CUDA cores.
-//   It is not on the bf16 serving path and is kept as it was.
-//   Bound: operations.  Its products M x and x B run on f32 values at the
-//   f32 rate of the CUDA cores (~30 operations a byte at Mamba2's shape).
-//   Design (simple and right first):
-//   * One block of 256 threads per (group of 4 heads, chunk, sequence).
-//     C B^T does not depend on the head, so the block computes each
-//     32-row tile of it once into shared memory ([32, Q] f32) and uses it
-//     for its 4 heads.
-//   * Any Q up to 256 without a Q x Q matrix in shared memory: rows are
-//     taken in 32-row tiles, and within one only the 32-column tiles on or
-//     below the diagonal are computed.  Ragged tiles load zeros and store
-//     nothing past Q.
-//   * The in-chunk cumsum is sequential, one thread per head, in f32.
-//     exp(lcum_i - lcum_j) is evaluated only where j <= i, where it is at
-//     most 1, so the masked upper triangle never overflows.
-//   * M = (C B^T * decay) * dt per 32 x 32 tile in shared memory; thread
-//     (row, column group) accumulates y over the diagonal-and-below tiles in
-//     registers.  The state takes N in 64-wide slices: x * seg and B stream
-//     through shared memory in 32-step tiles, thread (p, n) group
-//     accumulating a 8 x 4 register tile.
-//   * Every product is an explicit __fmaf_rn / __fmul_rn.
+// f32 x/B/C: ssd_intra_f32_kernel, on the CUDA cores (no TF32 and no
+//   split of f32 operands: the reference is exact f32).
+//   Bound: bytes and operations tie.  At Mamba2-2.7B's 2,048-token prefill
+//   (B 1, H 80, P 64, N 128, Q 64) x is 42 MB, y 42 MB and the states 84 MB
+//   (0.051 ms at 3.35 TB/s), and the products 3.41 GFLOP (0.051 ms at 67
+//   TFLOP/s), 80% of them the state's [P, Q] x [Q, N] a head.  The first
+//   design (csrc/variants/ssd_intra_first.cu, for both types) scanned the
+//   cumsum on one thread a head, loaded x by scalar loads between barriers,
+//   read one shared float per FMA, read x twice from device memory and
+//   stored the states 4 bytes at a time.  This design:
+//   * A block of 4 warps takes hpb heads of a chunk, two blocks an SM
+//     (__launch_bounds__(128, 2), 107 KB of shared memory at Mamba2's
+//     widths).  hpb comes from (H, nc) alone (f32_block_heads): the count
+//     that fits the card's 264 block slots in the fewest waves for its
+//     work (10 heads at Mamba2's prefill, 256 blocks in one wave; 1 at the
+//     float32 route's 2 chunks and at launch.serve's one-chunk prompts).  A
+//     head's arithmetic does not depend on hpb or B.
+//   * Loads.  C and B ([Q, N] in rows of 128 floats, so the products'
+//     offsets are constants; 16-byte chunks swizzled by row) and the first
+//     head's x by 16-byte cp.async before any arithmetic; each later
+//     head's x ([Q, P], rows H P apart) goes into the other of two buffers
+//     while the current head computes.  x is read from device memory once:
+//     y = M x and the state (x seg)^T B both read it from shared memory.
+//     Rows and columns that are not whole 16-byte chunks (P = 5, N = 17)
+//     load by 4-byte copies.
+//   * The in-chunk cumsum: a warp per head, each lane summing a run of
+//     consecutive steps, a shuffle scan adding the runs before it.
+//   * C B^T once a block ([Q, Q] f32 in registers, an 8 x 4 tile a
+//     thread, 12 16-byte loads feeding 128 FMAs); per head the threads turn
+//     it into M^T = (C B^T exp(lcum_i - lcum_j) dt_j)^T in shared memory
+//     (the decay by ex2.approx, 4% of the kernel's time against expf) and
+//     x seg beside it.
+//   * Products from register tiles: the state in 16 x 128 tiles of (P, N),
+//     8 x 8 a lane (per step, 4 16-byte loads feed 64 FMAs); y in 32 x 32
+//     tiles of (rows, P), 8 x 4 a lane (3 loads, 32 FMAs), over the steps
+//     j <= the tile's last row.  The head's tasks are dealt to the warps by
+//     weight, the least loaded first.  A 16-byte shared load costs 2 SM
+//     cycles for up to 4 addresses a warp and 4 for 8 or more
+//     (csrc/variants/shared_load_probe.cu), which these tiles keep below
+//     the FMAs' time.
+//   * Stores: a lane's columns are 4 consecutive floats at 32 (y) or 64
+//     (states) floats apart, so each 16-byte store instruction of a warp
+//     writes whole 128-byte lines of y rows and state rows straight from
+//     the registers (4-byte stores where P or N is not a multiple of 4).
+//   * Any Q <= 256, P <= 128 and N >= 1: a chunk of more than 64 steps is
+//     taken as 64-step tiles and bands, N wider than 128 columns in slices
+//     staged in turn, C B^T of each (band, tile) recomputed from them, and
+//     the tiles after the first add to the y and state rows stored before.
+//   * Deterministic: no atomics, and every sum runs in a fixed order.
+//   Measured on an H100 (PERF.md, section 6): ~0.155 ms on the card at
+//   Mamba2's prefill against its 0.051 ms bound (first design ~0.70).  The
+//   products set it: alone they take ~0.14 ms, the state's ~0.09 of that
+//   (~45% of the f32 FMA rate with the grid's 8 warps an SM); loads alone
+//   take 0.046, stores alone 0.063, and the head loop's barriers nothing
+//   measurable (chip_variants.py --only k8f32).  Staging B and C in rows of
+//   N floats (bounds checked per lane) cost 10%, and 5 heads a block in two
+//   waves 7%, against 128-float rows and 10 heads in one wave; loads a step
+//   ahead, other unrolling and loop orders did not help.
+//   What was hard: C B^T stays in registers only in a mapping (rows rb +
+//   8 k, columns cj + 16 kk) that reads C and B off each other's banks
+//   and writes M^T two to a bank; x * seg and M^T overlay C to keep two
+//   blocks an SM; and the grid had to fill the card from H and the chunks
+//   alone, never B.
 //
 // Both: the build passes --fmad=false (for group_filter_agg.cu's
 // bit-equality), so every product and sum outside the tensor cores is an
-// explicit _rn intrinsic; accurate expf, since the tolerance is 2e-4.
+// explicit _rn intrinsic; accurate expf (but for f32 M's decay, above),
+// since the tolerance is 2e-4.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -107,186 +149,416 @@
 
 namespace {
 
-// ---- f32: the first design on the CUDA cores ---------------------------------
-constexpr int kThreads = 256;
-constexpr int kHeads = 4;  // heads of a block
-constexpr int kT = 32;     // row / column tile of the chunk
-constexpr int kNS = 64;    // state columns (N) of a slice
+// ---- f32: ssd_intra_f32_kernel on the CUDA cores -------------------------------
 constexpr int kMaxQ = 256;
 constexpr int kMaxP = 128;
+constexpr int kFT = 64;           // steps of a j tile, rows of an i band
+constexpr int kFWarps = 4;
+constexpr int kFThreads = 32 * kFWarps;
+constexpr int kFNS = 128;         // N columns of a staged slice of B and C, and floats of its rows
+constexpr int kFMPitch = 68;      // floats of a row of M^T: the scalar writes of M fall two to a bank
+constexpr int kFMaxHeads = 16;    // heads a block may take
+constexpr int kFSlots = 264;      // blocks an H100 holds at once: 132 SMs x 2
 
-size_t smem_floats(int q, int p) {
-  return 3 * kHeads * q          // lcum, dt, seg
-         + kT * (q + 1)          // C B^T rows of a row tile
-         + 2 * kT * (kT + 1)     // C and B staging for C B^T
-         + kT * (kT + 1)         // M tile
-         + kT * p                // x tile (x * seg for the state)
-         + kT * kNS;             // B tile for the state
+// Heads a block takes, from (H, nc) alone: the count that minimises the
+// card's waves x a block's work, a head weighing 3 and the block's C B^T 2
+// (kernels/ssd_scan.py's f32_block_heads mirrors it).
+__host__ __device__ inline int f32_block_heads(int h, int nc) {
+  int best = 1;
+  int64_t best_cost = INT64_MAX;
+  for (int k = 1; k <= kFMaxHeads && k <= h; ++k) {
+    const int64_t blocks = static_cast<int64_t>((h + k - 1) / k) * nc;
+    const int64_t cost = (blocks + kFSlots - 1) / kFSlots * (3 * k + 2);
+    if (cost < best_cost) best = k, best_cost = cost;
+  }
+  return best;
 }
 
-__global__ void __launch_bounds__(kThreads)
-ssd_intra_kernel(const float* __restrict__ x, const float* __restrict__ bm, const float* __restrict__ cm,
-                 const float* __restrict__ dt, const float* __restrict__ a, float* __restrict__ y,
-                 float* __restrict__ st, int s, int h_total, int p_dim, int n_dim, int q) {
-  const int h0 = blockIdx.x * kHeads;
-  const int c = blockIdx.y;
-  const int b = blockIdx.z;
-  const int nc = gridDim.y;
-  const int tid = threadIdx.x;
-  const int64_t row0 = static_cast<int64_t>(b) * s + static_cast<int64_t>(c) * q;  // first step of the chunk
+// Bytes of shared memory of a block (kernels/ssd_scan.py's f32_smem_bytes):
+// B [kFT, kFNS]; a region holding C [kFT, kFNS], or M^T [kFT, kFMPitch]
+// then x * seg [kFT, kPT]; two x buffers [kFT, kPT]; dt, lcum and seg
+// [heads, qp] (qp: Q rounded up to kFT).  Rows of B and C are kFNS floats
+// whatever N is, so the products' loads need no bound and their offsets are
+// constants.
+__host__ inline int f32_smem_bytes(int q, int p_tile, int heads) {
+  const int qp = (q + kFT - 1) / kFT * kFT;
+  const int region = kFNS > kFMPitch + p_tile ? kFNS : kFMPitch + p_tile;
+  return 4 * (kFT * kFNS + kFT * region + 2 * kFT * p_tile + 3 * heads * qp);
+}
 
-  extern __shared__ float smem[];
-  float* s_lcum = smem;                    // [kHeads][q]
-  float* s_dt = s_lcum + kHeads * q;       // [kHeads][q]
-  float* s_seg = s_dt + kHeads * q;        // [kHeads][q]
-  float* s_cb = s_seg + kHeads * q;        // [kT][q + 1]
-  float* s_c = s_cb + kT * (q + 1);        // [kT][kT + 1]
-  float* s_b = s_c + kT * (kT + 1);        // [kT][kT + 1]
-  float* s_m = s_b + kT * (kT + 1);        // [kT][kT + 1]
-  float* s_x = s_m + kT * (kT + 1);        // [kT][p_dim]
-  float* s_bs = s_x + kT * p_dim;          // [kT][kNS]
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
 
-  // Cumulative log-decay per head, in step order.
-  if (tid < kHeads) {
-    const int h = h0 + tid;
-    float l = 0.0f;
-    for (int i = 0; i < q; ++i) {
-      const float d = h < h_total ? dt[(row0 + i) * h_total + h] : 0.0f;
-      l = __fadd_rn(l, __fmul_rn(d, h < h_total ? a[h] : 0.0f));
-      s_lcum[tid * q + i] = l;
-      s_dt[tid * q + i] = d;
+// e^x for M's decay, x <= 0: ex2.approx of x log2(e) (~2 ulp, plus |x| 2^-24
+// from the scaling; results below 2^-126 are 0), against expf's ~20
+// instructions.  chip_smoke.py holds every f32 shape to 2e-4 with it.
+__device__ __forceinline__ float decay_exp(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(__fmul_rn(x, 1.4426950408889634f)));
+  return y;
+}
+
+// Rows [0, rows) and columns [0, width) of an f32 matrix (row i at src + i *
+// ld) into shared rows of `pitch` floats, 16-byte chunk k of row i at chunk
+// k ^ (i & 7) when swz.  vec: 16-byte cp.async (rows 16-byte aligned, width
+// a multiple of 4); else 4-byte copies, zeros up to the next multiple of 4.
+__device__ __forceinline__ void stage_f32(float* dst, int pitch, const float* src, int64_t ld, int rows, int width,
+                                          bool swz, bool vec, int tid) {
+  const int chunks = (width + 3) / 4;
+  for (int idx = tid; idx < rows * chunks; idx += kFThreads) {
+    const int i = idx / chunks, k = idx % chunks;
+    float* d = dst + i * pitch + 4 * (swz ? k ^ (i & 7) : k);
+    const float* sp = src + i * ld + 4 * k;
+    if (vec) {
+      hopper::cp_async16(d, sp, 16u);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[e] = 4 * k + e < width ? sp[e] : 0.0f;
     }
-    for (int i = 0; i < q; ++i)
-      s_seg[tid * q + i] = __fmul_rn(expf(l - s_lcum[tid * q + i]), s_dt[tid * q + i]);
+  }
+}
+
+// cb[k][kk] += C_i . B_j over `chunks` staged 16-byte chunks, i = rb + 8 k
+// and j = cj + 16 kk of the tile: 12 16-byte loads feed 128 FMAs, and the
+// two rows a warp's C load reads (and the 16 of a B load, two to a bank
+// group) sit in distinct banks by the swizzle.
+__device__ __forceinline__ void cb_accumulate(float (&cb)[8][4], const float* sc, const float* sb, int chunks, int rb,
+                                              int cj) {
+#pragma unroll 1
+  for (int kc = 0; kc < chunks; ++kc) {
+    float4 bv[4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) bv[kk] = ld4(sb + (cj + 16 * kk) * kFNS + 4 * (kc ^ (cj & 7)));
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float4 cv = ld4(sc + (rb + 8 * k) * kFNS + 4 * (kc ^ rb));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float t = __fmaf_rn(cv.x, bv[kk].x, cb[k][kk]);
+        t = __fmaf_rn(cv.y, bv[kk].y, t);
+        t = __fmaf_rn(cv.z, bv[kk].z, t);
+        cb[k][kk] = __fmaf_rn(cv.w, bv[kk].w, t);
+      }
+    }
+  }
+}
+
+// M^T of band ib and tile jb from the thread's C B^T values:
+// M^T[j][i] = C B^T_ij exp(lcum_i - lcum_j) dt_j where step j <= step i < q,
+// else 0 (a select: C and B rows past q are never loaded).
+__device__ __forceinline__ void build_mt(float* mt, const float (&cb)[8][4], const float* lc, const float* dth,
+                                         int ib, int jb, int q, int rb, int cj) {
+  float li[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) li[k] = lc[kFT * ib + rb + 8 * k];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int j = cj + 16 * kk, gj = kFT * jb + j;
+    const float lj = lc[gj], dj = dth[gj];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int i = rb + 8 * k, gi = kFT * ib + i;
+      mt[j * kFMPitch + i] =
+          gj <= gi && gi < q ? __fmul_rn(__fmul_rn(cb[k][kk], decay_exp(__fsub_rn(li[k], lj))), dj) : 0.0f;
+    }
+  }
+}
+
+// The state's 8 x 8 register tile of a lane: rows 16 ps + 8 pg + r of P,
+// columns 4 ng + 64 k + e of the staged N slice (lane = 16 pg + ng): per
+// step j, two 16-byte loads of x * seg (two addresses a warp) and two of B
+// (16, swizzled) feed 64 FMAs.
+template <int kPT>
+__device__ __forceinline__ void state_tile(float (&acc)[8][8], const float* xs, const float* sb, int jn, int ps,
+                                           int lane) {
+  const int pg = lane >> 4, ng = lane & 15;
+  const float* xr = xs + 16 * ps + 8 * pg;
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.0f;
+#pragma unroll 4
+  for (int j = 0; j < jn; ++j) {
+    const float4 xa = ld4(xr + j * kPT), xb = ld4(xr + j * kPT + 4);
+    const float* br = sb + j * kFNS;
+    const float4 b0 = ld4(br + 4 * (ng ^ (j & 7))), b1 = ld4(br + 4 * ((16 + ng) ^ (j & 7)));
+    const float xv[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[r][c] = __fmaf_rn(xv[r], bv[c], acc[r][c]);
+  }
+}
+
+// y's 8 x 4 register tile of a lane: rows 32 rb2 + 8 rg + r of the band,
+// columns 32 cq + 4 cg + e (lane = 8 rg + cg): per step j, two 16-byte
+// loads of M^T (4 addresses a warp) and one of x (8) feed 32 FMAs.
+template <int kPT>
+__device__ __forceinline__ void y_tile(float (&acc)[8][4], const float* mt, const float* xt, int jmax, int rb2,
+                                       int cq, int lane) {
+  const int rg = lane >> 3, cg = lane & 7;
+  const float* mr = mt + 32 * rb2 + 8 * rg;
+  const float* xr = xt + 32 * cq + 4 * cg;
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
+#pragma unroll 4
+  for (int j = 0; j < jmax; ++j) {
+    const float4 ma = ld4(mr + j * kFMPitch), mb = ld4(mr + j * kFMPitch + 4), xv = ld4(xr + j * kPT);
+    const float mv[8] = {ma.x, ma.y, ma.z, ma.w, mb.x, mb.y, mb.z, mb.w};
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      acc[r][0] = __fmaf_rn(mv[r], xv.x, acc[r][0]);
+      acc[r][1] = __fmaf_rn(mv[r], xv.y, acc[r][1]);
+      acc[r][2] = __fmaf_rn(mv[r], xv.z, acc[r][2]);
+      acc[r][3] = __fmaf_rn(mv[r], xv.w, acc[r][3]);
+    }
+  }
+}
+
+// Four values at out[0..3] (only those below `left`; 16 bytes at once where
+// vec), added to what is there when `add`.
+__device__ __forceinline__ void put4(float* out, float4 v, int left, bool vec, bool add) {
+  if (left <= 0) return;
+  if (vec) {
+    if (add) {
+      const float4 o = ld4(out);
+      v = make_float4(__fadd_rn(o.x, v.x), __fadd_rn(o.y, v.y), __fadd_rn(o.z, v.z), __fadd_rn(o.w, v.w));
+    }
+    *reinterpret_cast<float4*>(out) = v;
+    return;
+  }
+  const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    if (c < left) out[c] = add ? __fadd_rn(out[c], e[c]) : e[c];
+}
+
+// One state task: rows 16 ps .. of P, the staged N slice from column n0.
+template <int kPT>
+__device__ __forceinline__ void state_task(float* sh, int p_dim, int n_dim, int n0, const float* xs, const float* sb,
+                                           int jn, int ps, bool add, bool vec, int lane) {
+  float acc[8][8];
+  state_tile<kPT>(acc, xs, sb, jn, ps, lane);
+  const int pg = lane >> 4, ng = lane & 15;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int p = 16 * ps + 8 * pg + r;
+    if (p >= p_dim) break;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int n = n0 + 4 * ng + 64 * k;
+      put4(sh + static_cast<int64_t>(p) * n_dim + n,
+           make_float4(acc[r][4 * k], acc[r][4 * k + 1], acc[r][4 * k + 2], acc[r][4 * k + 3]), n_dim - n, vec, add);
+    }
+  }
+}
+
+// One y task: rows 32 rb2 .. of band ib (global step row0 + kFT ib + i),
+// columns 32 cq ..; steps below jmax.
+template <int kPT>
+__device__ __forceinline__ void y_task(float* yh, int64_t x_ld, int p_dim, int q, int ib, const float* mt,
+                                       const float* xt, int jmax, int rb2, int cq, bool add, bool vec, int lane) {
+  float acc[8][4];
+  y_tile<kPT>(acc, mt, xt, jmax, rb2, cq, lane);
+  const int rg = lane >> 3, cg = lane & 7, p = 32 * cq + 4 * cg;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int i = kFT * ib + 32 * rb2 + 8 * rg + r;
+    if (i >= q) break;
+    put4(yh + i * x_ld + p, make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]), p_dim - p, vec, add);
+  }
+}
+
+// Deals task u of a step to the warp with the least work so far (every
+// thread deals alike); true when it is this warp's.
+__device__ __forceinline__ bool mine(int (&load)[kFWarps], int weight, int warp) {
+  int best = 0;
+#pragma unroll
+  for (int w = 1; w < kFWarps; ++w)
+    if (load[w] < load[best]) best = w;
+  load[best] += weight;
+  return best == warp;
+}
+
+// flags: bit 0 B and C rows by 16-byte copies, bit 1 x rows by 16-byte
+// copies, bit 2 y by 16-byte stores, bit 3 states by 16-byte stores.
+template <int kPT>  // P columns of an x tile: 64 for P <= 64, 128 for P <= 128
+__global__ void __launch_bounds__(kFThreads, 2)
+ssd_intra_f32_kernel(const float* __restrict__ x, const float* __restrict__ bm, const float* __restrict__ cm,
+                     const float* __restrict__ dt, const float* __restrict__ a, float* __restrict__ y,
+                     float* __restrict__ st, int s, int h_total, int p_dim, int n_dim, int q, int hpb, int flags) {
+  const int c = blockIdx.y, b = blockIdx.z, nc = gridDim.y;
+  const int h0 = blockIdx.x * hpb, heads = min(hpb, h_total - h0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rb = tid >> 4, cj = tid & 15;  // this thread's C B^T rows rb + 8 k and columns cj + 16 kk
+  const int n_t = (q + kFT - 1) / kFT, n_s = (n_dim + kFNS - 1) / kFNS, qp = n_t * kFT;
+  const bool one = n_t == 1 && n_s == 1;  // C B^T once for the block, B staged for every head
+  const bool vec_bc = flags & 1, vec_x = flags & 2, vec_y = flags & 4, vec_st = flags & 8;
+  const int64_t row0 = static_cast<int64_t>(b) * s + static_cast<int64_t>(c) * q;  // first step of the chunk
+  const int64_t x_ld = static_cast<int64_t>(h_total) * p_dim;
+  const int n_ps = (p_dim + 15) / 16, n_yq = (p_dim + 31) / 32;  // state and y tasks across P
+
+  extern __shared__ __align__(16) float smem[];
+  float* s_b = smem;                     // [kFT][kFNS]
+  float* s_c = s_b + kFT * kFNS;         // [kFT][kFNS], over M^T and x * seg
+  float* s_mt = s_c;                     // [kFT][kFMPitch]
+  float* s_xs = s_c + kFT * kFMPitch;    // [kFT][kPT]
+  float* s_x = s_c + kFT * max(kFNS, kFMPitch + kPT);  // [2][kFT][kPT]
+  float* s_dt = s_x + 2 * kFT * kPT;     // [heads][qp], zeros past q
+  float* s_lc = s_dt + hpb * qp;         // [heads][qp]
+  float* s_seg = s_lc + hpb * qp;        // [heads][qp], zeros past q
+
+  const int steps = heads * n_t;  // (head, j tile), head-major
+  auto load_x = [&](int t) {
+    const int jb = t % n_t;
+    stage_f32(s_x + (t & 1) * kFT * kPT, kPT, x + (row0 + kFT * jb) * x_ld + (h0 + t / n_t) * p_dim, x_ld,
+              min(kFT, q - kFT * jb), p_dim, false, vec_x, tid);
+  };
+  auto load_bc = [&](float* dst, const float* src, int j0, int n0) {  // rows j0.. and columns n0.. of B or C
+    stage_f32(dst, kFNS, src + (row0 + j0) * n_dim + n0, n_dim, min(kFT, q - j0), min(kFNS, n_dim - n0), true,
+              vec_bc, tid);
+  };
+
+  // Every load in flight first: C and B (one N slice, one tile) with the
+  // first head's x, then dt.
+  if (one) {
+    load_bc(s_c, cm, 0, 0);
+    load_bc(s_b, bm, 0, 0);
+  }
+  load_x(0);
+  hopper::cp_async_commit();
+  for (int idx = tid; idx < qp * heads; idx += kFThreads) {
+    const int i = idx / heads, hh = idx % heads;
+    s_dt[hh * qp + i] = i < q ? dt[(row0 + i) * h_total + h0 + hh] : 0.0f;
   }
   __syncthreads();
 
-  // y: thread owns row ti of the row tile and columns tp, tp + 8, ... of P.
-  constexpr int kPC = kMaxP / 8;
-  const int ti = tid / 8;
-  const int tp = tid % 8;
-  for (int i0 = 0; i0 < q; i0 += kT) {
-    // C B^T for rows i0 .. i0 + 31, columns 0 .. i0 + 31 (the causal part).
-    for (int j0 = 0; j0 <= i0; j0 += kT) {
-      float cb[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      for (int n0 = 0; n0 < n_dim; n0 += kT) {
-        __syncthreads();  // staging and C B^T rows are no longer read
-        for (int idx = tid; idx < kT * kT; idx += kThreads) {
-          const int r = idx / kT, nn = idx % kT;
-          const bool n_ok = n0 + nn < n_dim;
-          s_c[r * (kT + 1) + nn] =
-              n_ok && i0 + r < q ? cm[(row0 + i0 + r) * n_dim + n0 + nn] : 0.0f;
-          s_b[r * (kT + 1) + nn] =
-              n_ok && j0 + r < q ? bm[(row0 + j0 + r) * n_dim + n0 + nn] : 0.0f;
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int nn = 0; nn < kT; ++nn) {
-          const float cv = s_c[ti * (kT + 1) + nn];
+  // lcum and seg, one warp per head: lane l sums steps [l e, l e + e), then
+  // a shuffle scan adds the sums of the lanes before it.
+  for (int hh = warp; hh < heads; hh += kFWarps) {
+    const float ah = a[h0 + hh];
+    const float* dth = s_dt + hh * qp;
+    float* lc = s_lc + hh * qp;
+    const int e_len = qp / 32;  // 2 to 8
+    float run[8];
+    float sum = 0.0f;
 #pragma unroll
-          for (int k = 0; k < 4; ++k) cb[k] = __fmaf_rn(cv, s_b[(tp + 8 * k) * (kT + 1) + nn], cb[k]);
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        if (j0 + tp + 8 * k < q) s_cb[ti * (q + 1) + j0 + tp + 8 * k] = cb[k];
+    for (int e = 0; e < 8; ++e) {
+      const int i = lane * e_len + e;
+      if (e < e_len) sum = e == 0 ? __fmul_rn(dth[i], ah) : __fadd_rn(sum, __fmul_rn(dth[i], ah));
+      run[e] = sum;
     }
-
-    for (int hh = 0; hh < kHeads && h0 + hh < h_total; ++hh) {
-      const int h = h0 + hh;
-      const float* lcum = s_lcum + hh * q;
-      const float* dth = s_dt + hh * q;
-      float acc[kPC];
+    float incl = sum;
 #pragma unroll
-      for (int k = 0; k < kPC; ++k) acc[k] = 0.0f;
-      for (int j0 = 0; j0 <= i0; j0 += kT) {
-        __syncthreads();  // C B^T rows are written; M and x tiles are no longer read
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int ii = i0 + ti, jj = j0 + tp + 8 * k;
-          float mv = 0.0f;
-          if (ii < q && jj <= ii) {
-            const float decay = expf(lcum[ii] - lcum[jj]);
-            mv = __fmul_rn(__fmul_rn(s_cb[ti * (q + 1) + jj], decay), dth[jj]);
-          }
-          s_m[ti * (kT + 1) + tp + 8 * k] = mv;
-        }
-        for (int idx = tid; idx < kT * p_dim; idx += kThreads) {
-          const int r = idx / p_dim, pp = idx % p_dim;
-          s_x[idx] = j0 + r < q ? x[((row0 + j0 + r) * h_total + h) * p_dim + pp] : 0.0f;
-        }
-        __syncthreads();
-#pragma unroll 4
-        for (int j = 0; j < kT; ++j) {
-          const float mv = s_m[ti * (kT + 1) + j];
-#pragma unroll
-          for (int k = 0; k < kPC; ++k)
-            if (tp + 8 * k < p_dim) acc[k] = __fmaf_rn(mv, s_x[j * p_dim + tp + 8 * k], acc[k]);
-        }
-      }
-      if (i0 + ti < q) {
-        float* yrow = y + ((row0 + i0 + ti) * h_total + h) * p_dim;
-#pragma unroll
-        for (int k = 0; k < kPC; ++k)
-          if (tp + 8 * k < p_dim) yrow[tp + 8 * k] = acc[k];
-      }
+    for (int d = 1; d < 32; d <<= 1) {
+      const float o = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl = __fadd_rn(o, incl);
     }
+    float before = __shfl_up_sync(0xffffffffu, incl, 1);
+    if (lane == 0) before = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (e < e_len) lc[lane * e_len + e] = __fadd_rn(before, run[e]);
+    __syncwarp();
+    const float l_last = lc[q - 1];
+    for (int i = lane; i < qp; i += 32)
+      s_seg[hh * qp + i] = i < q ? __fmul_rn(expf(__fsub_rn(l_last, lc[i])), dth[i]) : 0.0f;
   }
 
-  // States: thread owns p = sp + 16 u (u < 8) and n = n0 + sn + 16 w (w < 4).
-  const int sp = tid / 16;
-  const int sn = tid % 16;
-  for (int hh = 0; hh < kHeads && h0 + hh < h_total; ++hh) {
-    const int h = h0 + hh;
-    const float* seg = s_seg + hh * q;
-    for (int n0 = 0; n0 < n_dim; n0 += kNS) {
-      float acc[8][4];
+  float cb[8][4];
+  for (int t = 0; t < steps; ++t) {
+    const int hh = t / n_t, jb = t % n_t, h = h0 + hh;
+    const int jn = min(kFT, q - kFT * jb);  // steps of this tile
+    const float* xt = s_x + (t & 1) * kFT * kPT;
+    const float* lc = s_lc + hh * qp;
+    const float* dth = s_dt + hh * qp;
+    const float* seg = s_seg + hh * qp + kFT * jb;
+    float* yh = y + row0 * x_ld + h * p_dim;
+    float* sh = st + ((static_cast<int64_t>(b) * nc + c) * h_total + h) * p_dim * n_dim;
+    hopper::cp_async_wait<0>();  // x(t), and C and B at t = 0
+    __syncthreads();             // visible to all; every warp is done with step t - 1
+    if (t + 1 < steps) {         // the next step's x in flight while this one computes
+      load_x(t + 1);
+      hopper::cp_async_commit();
+    }
+    if (one && t == 0) {
 #pragma unroll
-      for (int u = 0; u < 8; ++u)
+      for (int k = 0; k < 8; ++k)
 #pragma unroll
-        for (int w = 0; w < 4; ++w) acc[u][w] = 0.0f;
-      for (int j0 = 0; j0 < q; j0 += kT) {
-        __syncthreads();  // the previous x * seg and B tiles are no longer read
-        for (int idx = tid; idx < kT * p_dim; idx += kThreads) {
-          const int r = idx / p_dim, pp = idx % p_dim;
-          const int j = j0 + r;
-          s_x[idx] = j < q ? __fmul_rn(x[((row0 + j) * h_total + h) * p_dim + pp], seg[j]) : 0.0f;
-        }
-        for (int idx = tid; idx < kT * kNS; idx += kThreads) {
-          const int r = idx / kNS, nn = idx % kNS;
-          const int j = j0 + r;
-          s_bs[idx] = j < q && n0 + nn < n_dim ? bm[(row0 + j) * n_dim + n0 + nn] : 0.0f;
-        }
+        for (int kk = 0; kk < 4; ++kk) cb[k][kk] = 0.0f;
+      cb_accumulate(cb, s_c, s_b, (n_dim + 3) / 4, rb, cj);
+      __syncthreads();  // C is read; its space takes M^T and x * seg
+    }
+    // x * seg for the state (rows past jn are never read).
+    for (int idx = tid; idx < jn * (kPT / 4); idx += kFThreads) {
+      const int j = idx / (kPT / 4);
+      const float4 v = ld4(xt + 4 * idx);
+      const float sj = seg[j];
+      *reinterpret_cast<float4*>(s_xs + 4 * idx) =
+          make_float4(__fmul_rn(v.x, sj), __fmul_rn(v.y, sj), __fmul_rn(v.z, sj), __fmul_rn(v.w, sj));
+    }
+    if (one) {
+      build_mt(s_mt, cb, lc, dth, 0, 0, q, rb, cj);
+      __syncthreads();
+      // The head's tasks, dealt by weight: a state task's step costs two of
+      // a y task's.
+      int load[kFWarps] = {0, 0, 0, 0};
+      for (int ps = 0; ps < n_ps; ++ps)
+        if (mine(load, 2 * jn, warp)) state_task<kPT>(sh, p_dim, n_dim, 0, s_xs, s_b, jn, ps, false, vec_st, lane);
+      for (int rb2 = 1; rb2 >= 0; --rb2) {
+        if (32 * rb2 >= jn) continue;
+        const int jmax = min(32 * (rb2 + 1), jn);
+        for (int cq = 0; cq < n_yq; ++cq)
+          if (mine(load, jmax, warp)) y_task<kPT>(yh, x_ld, p_dim, q, 0, s_mt, xt, jmax, rb2, cq, false, vec_y, lane);
+      }
+      continue;
+    }
+    // More than one tile or N slice: the state slice by slice, then y band
+    // by band, each staging its B (and C) slices; outputs of tiles after the
+    // first add to what the earlier tiles stored.
+    __syncthreads();  // x * seg is written
+    const bool add = jb > 0;
+    for (int ns = 0; ns < n_s; ++ns) {
+      load_bc(s_b, bm, kFT * jb, kFNS * ns);
+      hopper::cp_async_commit();
+      hopper::cp_async_wait<0>();
+      __syncthreads();
+      int load[kFWarps] = {0, 0, 0, 0};
+      for (int ps = 0; ps < n_ps; ++ps)
+        if (mine(load, 1, warp))
+          state_task<kPT>(sh, p_dim, n_dim, kFNS * ns, s_xs, s_b, jn, ps, add, vec_st, lane);
+      __syncthreads();  // B is read
+    }
+    for (int ib = jb; ib < n_t; ++ib) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) cb[k][kk] = 0.0f;
+      for (int ns = 0; ns < n_s; ++ns) {
+        load_bc(s_c, cm, kFT * ib, kFNS * ns);
+        load_bc(s_b, bm, kFT * jb, kFNS * ns);
+        hopper::cp_async_commit();
+        hopper::cp_async_wait<0>();
         __syncthreads();
-#pragma unroll 4
-        for (int r = 0; r < kT; ++r) {
-          float bv[4];
-#pragma unroll
-          for (int w = 0; w < 4; ++w) bv[w] = s_bs[r * kNS + sn + 16 * w];
-#pragma unroll
-          for (int u = 0; u < 8; ++u) {
-            if (sp + 16 * u >= p_dim) break;
-            const float xv = s_x[r * p_dim + sp + 16 * u];
-#pragma unroll
-            for (int w = 0; w < 4; ++w) acc[u][w] = __fmaf_rn(xv, bv[w], acc[u][w]);
-          }
-        }
+        cb_accumulate(cb, s_c, s_b, (min(kFNS, n_dim - kFNS * ns) + 3) / 4, rb, cj);
+        __syncthreads();  // C and B are read
       }
-      float* out = st + ((static_cast<int64_t>(b) * nc + c) * h_total + h) * p_dim * n_dim;
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int pp = sp + 16 * u;
-        if (pp >= p_dim) break;
-#pragma unroll
-        for (int w = 0; w < 4; ++w) {
-          const int n = n0 + sn + 16 * w;
-          if (n < n_dim) out[static_cast<int64_t>(pp) * n_dim + n] = acc[u][w];
-        }
+      build_mt(s_mt, cb, lc, dth, ib, jb, q, rb, cj);
+      __syncthreads();
+      const int rows = min(kFT, q - kFT * ib);
+      int load[kFWarps] = {0, 0, 0, 0};
+      for (int rb2 = 1; rb2 >= 0; --rb2) {
+        if (32 * rb2 >= rows) continue;
+        const int jmax = ib == jb ? min(32 * (rb2 + 1), jn) : jn;
+        for (int cq = 0; cq < n_yq; ++cq)
+          if (mine(load, jmax, warp)) y_task<kPT>(yh, x_ld, p_dim, q, ib, s_mt, xt, jmax, rb2, cq, add, vec_y, lane);
       }
+      __syncthreads();  // M^T is read
     }
   }
 }
-
 
 // ---- bf16: the tensor-core kernel --------------------------------------------
 using bf16 = __nv_bfloat16;
@@ -722,14 +994,18 @@ int launch_tc(const bf16* x, const bf16* bm, const bf16* cm, const float* dt, co
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int kPT>
 int launch_f32(const float* x, const float* bm, const float* cm, const float* dt, const float* a, float* y,
                float* st, int b, int s, int h, int p, int n, int q, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats(q, p);
-  cudaError_t err = cudaFuncSetAttribute(ssd_intra_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  const int hpb = f32_block_heads(h, s / q);
+  const int smem = f32_smem_bytes(q, kPT, hpb);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(ssd_intra_f32_kernel<kPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((h + kHeads - 1) / kHeads, s / q, b);
-  ssd_intra_kernel<<<grid, kThreads, smem, stream>>>(x, bm, cm, dt, a, y, st, s, h, p, n, q);
+  const int flags = (n % 4 == 0 && aligned16(bm) && aligned16(cm) ? 1 : 0) | (p % 4 == 0 && aligned16(x) ? 2 : 0) |
+                    (p % 4 == 0 && aligned16(y) ? 4 : 0) | (n % 4 == 0 && aligned16(st) ? 8 : 0);
+  const dim3 grid((h + hpb - 1) / hpb, s / q, b);
+  ssd_intra_f32_kernel<kPT><<<grid, kFThreads, smem, stream>>>(x, bm, cm, dt, a, y, st, s, h, p, n, q, hpb, flags);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -756,9 +1032,12 @@ int ssd_intra_launch(const void* x, const void* bm, const void* cm, const void* 
   const float* af = static_cast<const float*>(a);
   float* yf = static_cast<float*>(y);
   float* sf = static_cast<float*>(st);
-  if (dtype == 0)
-    return launch_f32(static_cast<const float*>(x), static_cast<const float*>(bm), static_cast<const float*>(cm),
-                      dtf, af, yf, sf, b, s, h, p, n, q, stream_);
+  if (dtype == 0) {
+    const float *xf = static_cast<const float*>(x), *bf = static_cast<const float*>(bm),
+                *cf = static_cast<const float*>(cm);
+    if (p <= 64) return launch_f32<64>(xf, bf, cf, dtf, af, yf, sf, b, s, h, p, n, q, stream_);
+    return launch_f32<128>(xf, bf, cf, dtf, af, yf, sf, b, s, h, p, n, q, stream_);
+  }
   if (dtype != 1 || chunk_n < 16 || chunk_n % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const bf16 *xb = static_cast<const bf16*>(x), *bb = static_cast<const bf16*>(bm), *cb = static_cast<const bf16*>(cm);
   if (p <= 64) return launch_tc<8>(xb, bb, cb, dtf, af, yf, sf, b, s, h, p, n, q, chunk_n, stream_);

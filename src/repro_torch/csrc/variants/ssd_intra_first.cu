@@ -1,7 +1,7 @@
 // The first design of csrc/ssd_intra.cu (f32 products on the CUDA cores for
 // both input types), kept unchanged for chip_variants.py, which times it
-// beside the current one ("k8 first design").  Nothing else builds or loads
-// it.  csrc/ssd_intra.cu still runs this design for float32 inputs.
+// beside the current kernels, on bf16 inputs ("k8 first design") and on
+// float32 ones ("k8f32 first design").  Nothing else builds or loads it.
 //
 // Mamba2 SSD intra-chunk step for Hopper (sm_90a).
 //

@@ -6,9 +6,11 @@ bfloat16, output in q's type.  Counterpart of the JAX package's
 ``kernels/decode_attention.py``.  The kernel masks the ragged tail of S
 itself, so no shape is padded; the keys are cut into splits whose size
 depends on S alone (:func:`split_size`), never on B, so a sequence's result
-has the same bits in any batch.  The splits' partials and the bf16 kernel's
+has the same bits in any batch.  The splits' partials and the kernels'
 arrival counters live in a workspace kept per device and stream
-(:data:`WORKSPACES`), so a call allocates only its output.
+(:data:`WORKSPACES`), so a call allocates only its output.  Both types are
+one launch a call: the last block of a (sequence, KV head) to arrive
+combines its splits.
 """
 from __future__ import annotations
 
@@ -28,9 +30,12 @@ _SIGNATURES = {
 }
 #: The kernel's input types and their codes in ``decode_attention_launch``.
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+#: Head dims each type's kernel takes: the CUDA-core (float32) kernel also
+#: ``tiny``'s 16; the tensor-core (bfloat16) kernel steps dh by 16-wide k16
+#: steps of two 8-column tiles and takes 32, 64 and 128.
+HEAD_DIMS = {torch.float32: (16, 32, 64, 128), torch.bfloat16: (32, 64, 128)}
 MAX_GROUP = 16  # query heads of one KV head
-TILE = 64  # keys a block takes at a step (16 a warp in the bf16 kernel)
+TILE = 64  # the unit of a split's keys
 MAX_SPLITS = 16
 
 #: (device, stream) -> (partials, arrival counters) of the launches there.
@@ -73,22 +78,24 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: torc
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: torch.Tensor) -> torch.Tensor:
-    """Run the CUDA kernel; returns [B, Hq, dh] in q's type on q's device."""
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError(f"the kernel runs on CUDA tensors of one device, got {q.device}, {k.device}, {v.device}")
+    """Run the CUDA kernel; returns [B, Hq, dh] in q's type on q's device.
+    Types, shapes and head dims are checked before the device, so what a
+    kernel does not take raises on any device."""
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k and v must all be float32 or bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     check_shapes(q, k, v, kv_len)
     b, hq, dh = q.shape
     s, hkv = k.shape[1], k.shape[2]
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head dim must be one of {HEAD_DIMS}, got {dh}")
+    if dh not in HEAD_DIMS[q.dtype]:
+        raise ValueError(f"head dim must be one of {HEAD_DIMS[q.dtype]} for {q.dtype}, got {dh}")
     if hq // hkv > MAX_GROUP or min(b, s) < 1 or max(b, hkv) > 65535:
         raise ValueError(f"shape out of the kernel's range: B={b} S={s} Hq={hq} Hkv={hkv}")
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"the kernel runs on CUDA tensors of one device, got {q.device}, {k.device}, {v.device}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if q.data_ptr() % 4 or k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("k and v must start on a 16-byte boundary and q on a 4-byte one "
-                         "(the kernel loads 16 bytes of a cache row and two q values at a time)")
+    if q.data_ptr() % (16 if q.dtype == torch.float32 else 4) or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("k and v must start on a 16-byte boundary and q on a 16-byte (float32) or 4-byte "
+                         "(bfloat16) one: the kernels load 16 bytes of a cache row, and 4 or 2 q values, at a time")
     if kv_len.dtype != torch.int32 or kv_len.device != q.device or not kv_len.is_contiguous():
         kv_len = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
     return call(build.bind("decode_attention", _SIGNATURES), q, k, v, kv_len, split_size(s))

@@ -6,9 +6,11 @@ in float32 or bfloat16.  Counterpart of the JAX package's
 ``kernels/ssd_scan.py``; the inter-chunk recurrence stays with the caller
 (``models/ssm.ssd_chunked``), as it stays outside the Pallas kernel.
 
-bfloat16 inputs run the tensor-core kernel, float32 inputs the first
-design on the CUDA cores (see the source's note).  The tensor-core kernel
-stages C and B ``chunk_width(Q, P, N)`` columns of N at a time.
+bfloat16 inputs run the tensor-core kernel, float32 inputs the CUDA-core
+kernel (see the source's note).  The tensor-core kernel stages C and B
+``chunk_width(Q, P, N)`` columns of N at a time; the CUDA-core kernel takes
+``f32_block_heads(H, S / Q)`` heads a block and stages N in slices of
+``F32_N_SLICE`` columns (``f32_smem_bytes`` mirrors its shared memory).
 """
 from __future__ import annotations
 
@@ -34,6 +36,42 @@ MAX_HEAD_DIM = 128
 #: source is 4; ``chip_variants.py`` builds copies with 1, 2 and 8).
 SMEM_BUDGET = 224 * 1024
 MAX_BLOCK_HEADS = 8
+
+
+#: The CUDA-core (float32) kernel's constants (``kFT``, ``kFNS``,
+#: ``kFMPitch``, ``kFMaxHeads`` and ``kFSlots`` in the source): steps of a
+#: tile, N columns of a staged slice of B or C (and floats of its rows),
+#: floats of a row of M^T, the most heads a block takes, and the blocks an
+#: H100 holds at once (132 SMs x 2).
+F32_TILE = 64
+F32_N_SLICE = 128
+F32_M_PITCH = 68
+F32_MAX_BLOCK_HEADS = 16
+F32_SLOTS = 264
+
+
+def f32_block_heads(h: int, nc: int) -> int:
+    """Heads a block of the CUDA-core kernel takes, from H and the chunks of a
+    sequence alone (never B): the count that minimises the card's waves times
+    a block's work, a head weighing 3 and the block's C B^T 2."""
+    best, best_cost = 1, None
+    for k in range(1, min(F32_MAX_BLOCK_HEADS, h) + 1):
+        cost = -(-(-(-h // k) * nc) // F32_SLOTS) * (3 * k + 2)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = k, cost
+    return best
+
+
+def f32_smem_bytes(q: int, p: int, heads: int) -> int:
+    """Shared memory of one block of the CUDA-core kernel: B ``[64, 128]``; a
+    region holding C ``[64, 128]``, or M^T ``[64, 68]`` then x * seg ``[64,
+    Pt]``; two x buffers ``[64, Pt]``; dt, lcum and seg ``[heads, Qp]`` (Pt =
+    64 for P <= 64, else 128; Qp = Q rounded up to 64).  N does not enter:
+    B and C rows are 128 floats, N wider than that goes in slices."""
+    pt = 64 if p <= 64 else 128
+    qp = -(-q // F32_TILE) * F32_TILE
+    region = max(F32_N_SLICE, F32_M_PITCH + pt)
+    return 4 * (F32_TILE * F32_N_SLICE + F32_TILE * region + 2 * F32_TILE * pt + 3 * heads * qp)
 
 
 def _round16(v: int) -> int:
