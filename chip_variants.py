@@ -293,6 +293,10 @@ _K8F32_NO_BARRIERS = [("    __syncthreads();             // visible to all; ever
                        "    if (q < 0) __syncthreads();"),
                       ("      __syncthreads();\n      // The head's tasks, dealt by weight",
                        "      if (q < 0) __syncthreads();\n      // The head's tasks, dealt by weight")]
+_K7F32_NO_PRODUCTS = ("    // Scores: this lane's dims in order, then the sum over the key's kL lanes.\n",
+                      "    if (s > 0) continue;\n")
+_K7F32_NO_LOADS = ("      hopper::cp_async16(dst + half * kT * DH + 4 * f32_chunk<DH, kG>(r, col / 4), (half ? v : k) + off,",
+                   "      if (s < 0) hopper::cp_async16(dst + half * kT * DH + 4 * f32_chunk<DH, kG>(r, col / 4), (half ? v : k) + off,")
 VARIANTS.update({
     "k8f32 committed": ("ssd_intra", []),
     "k8f32 first design": (FIRST_K8, []),
@@ -330,9 +334,9 @@ VARIANTS.update({
     "k7f32 first design": (FIRST_K7F32, []),
     "k7f32 2 stages": ("decode_attention", [("constexpr int kF32Stages = 3;", "constexpr int kF32Stages = 2;")]),
     "k7f32 4 stages": ("decode_attention", [("constexpr int kF32Stages = 3;", "constexpr int kF32Stages = 4;")]),
-    "k7f32 loads only (diagnostic)": ("decode_attention", [(
-        "    // Scores: this lane's dims in order, then the sum over the key's kL lanes.\n",
-        "    if (s > 0) continue;\n")]),
+    "k7f32 loads only (diagnostic)": ("decode_attention", [_K7F32_NO_PRODUCTS]),
+    "k7f32 products only (diagnostic)": ("decode_attention", [_K7F32_NO_LOADS]),
+    "k7f32 partials, combine and stores only (diagnostic)": ("decode_attention", [_K7F32_NO_LOADS, _K7F32_NO_PRODUCTS]),
     "k7f32 no final combine (diagnostic)": ("decode_attention", [(
         "  // Arrival: the last of the sequence's valid splits combines them in split\n"
         "  // order and sets the counter back to 0.\n", "  if (s > 0) return;\n")]),
