@@ -14,7 +14,12 @@ parameter space, with its plans held to one another; the whole
 Granite-3-8B and Mamba2-2.7B at full width and depth, then at long context
 in bf16 and in float32 (K7's and K8's CUDA-core kernels, their launches
 checked against layers x calls), with the kernel route held to the plain one
-and to the plain route computed in float32), and prints:
+and to the plain route computed in float32; then the whole parameter space
+of the seven resource tasks (``compute_torch``, ``strings_torch``,
+``memory_torch``, ``storage_torch``, ``index_offload_torch``,
+``network_torch`` on NCCL, ``quantize_torch``) with each point's output held
+after its timing and no bandwidth above the card's peak or, for h2d / d2h,
+the host link's), and prints:
 
   * the card's name and power limit, as nvidia-smi reports them;
   * one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
@@ -28,7 +33,10 @@ and to the plain route computed in float32), and prints:
     ``decode_attention_f32`` and ``ssd_intra_f32`` are K7's and K8's
     CUDA-core kernels at Granite-3-8B's long decode and Mamba2-2.7B's
     prefill in float32, with their device time and device launches a call,
-    and K7's beside SDPA in float32 three ways with their backends);
+    and K7's beside SDPA in float32 three ways with their backends;
+    ``alu_chain``, ``int_matmul``, ``quantize`` and ``dequantize`` are the
+    resource tasks' kernels, held bit for bit against their plain versions,
+    each alu_chain's 256 steps counted in its SASS);
   * as its last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -40,7 +48,9 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import itertools
 import json
+import math
 import random
 import re
 import subprocess
@@ -48,6 +58,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -1242,7 +1253,11 @@ def device_profile(fn, names=("",), calls=20) -> tuple[float, float]:
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a trace now and then comes back without its device events
+    seen = None
+    # A trace now and then comes back without its device events, or with one
+    # of a kernel's launches dropped (19 of 20 calls): take one whose every
+    # kernel launched a whole number of times a call, else the last read.
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
@@ -1251,8 +1266,12 @@ def device_profile(fn, names=("",), calls=20) -> tuple[float, float]:
                   if e.device_type == DeviceType.CUDA and e.count and any(k in e.key for k in names)]
         us = sum(e.self_device_time_total / e.count * max(1, round(e.count / calls)) for e in events)
         if us > 0:
-            return us / 1e3, sum(e.count for e in events) / calls
-    raise RuntimeError(f"check failed: the profiler's traces have no device time for {names}")
+            seen = us / 1e3, sum(e.count for e in events) / calls
+            if all(e.count % calls == 0 for e in events):
+                return seen
+    if seen is None:
+        raise RuntimeError(f"check failed: the profiler's traces have no device time for {names}")
+    return seen
 
 
 def kernel_device_ms(fn, names=("",), calls=20) -> float:
@@ -1679,6 +1698,395 @@ def f32_route_times(name):
     print(f"[times] f32 route kernels: {json.dumps(out)}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Resource microbenchmarks (paper §3.4, Fig. 14): the seven tasks, and the
+# three kernels their points launch (alu_chain, int_matmul, quantize).
+RESOURCE_TASKS = ("compute_torch", "strings_torch", "memory_torch", "storage_torch",
+                  "index_offload_torch", "network_torch", "quantize_torch")
+RESOURCE_KERNELS = ("alu_chain", "int_matmul", "quantize", "dequantize")
+# PCIe 5.0 x16, one direction (32 GT/s x 16 lanes, 128b/130b): no h2d or d2h
+# copy can beat it, so a faster reading timed an enqueue, not the copy.
+HOST_LINK = 32e9 * 16 / 8 * 128 / 130
+CHAIN = 256  # tasks/compute.py's _CHAIN: dependent steps an element
+CHAIN_TYPES = (torch.int8, torch.int32, torch.bfloat16, torch.float32)
+CHAIN_OPS = ("add", "sub", "mul", "div")
+# Per-SM, per-clock rates of the chains' instructions (CUDA C++ Programming
+# Guide, arithmetic throughput for compute capability 9.0): float32 add and
+# multiply 128, 32-bit integer multiply-add 64.  An SM issues 128
+# thread-instructions a clock (4 schedulers x 32 lanes).
+SASS_RATE = {"FADD": 128, "FMUL": 128, "IMAD": 64}
+ISSUE_RATE = 128
+RESOURCE_TOL = {"sum": 1e-5,  # f32 tree sums of up to 2^28 terms against float64 (28 x 2^-24 = 1.7e-6 a side)
+                "matmul": 512 * 2.0**-24}  # compute's 512-term f32 products, the card against the CPU
+
+
+def points(space: dict) -> list[dict]:
+    keys = list(space)
+    return [dict(zip(keys, vals)) for vals in itertools.product(*(space[k] for k in keys))]
+
+
+def sass_by_function(name: str) -> dict[str, dict[str, int]]:
+    """Opcode counts (without modifiers) of each function in the built
+    library of csrc/<name>.cu, from cuobjdump -sass."""
+    from repro_torch.kernels import build
+
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
+                         capture_output=True, text=True, timeout=300, check=True).stdout
+    funcs: dict[str, dict[str, int]] = {}
+    cur = None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)", line)
+        if cur is not None and m:
+            cur[m.group(1)] = cur.get(m.group(1), 0) + 1
+    return funcs
+
+
+def chain_sass_check() -> dict[str, dict]:
+    """Each of the 16 chains keeps its 256 steps in SASS: the step's main
+    instruction (read from the card's SASS, printed) appears at least 256
+    times, so the compiler folded nothing.  Returns per chain its opcode
+    counts of 64 or more."""
+    from repro_torch.kernels import alu_chain as alu
+
+    codes = {v: k for k, v in alu.DTYPES.items()}
+    ops = {v: k for k, v in alu.OPS.items()}
+    out = {}
+    for fn, counts in sass_by_function("alu_chain").items():
+        m = re.search(r"alu_chain_kernelILi(\d)ELi(\d)E", fn)
+        if not m:
+            continue
+        label = f"{str(codes[int(m.group(1))]).split('.')[-1]}-{ops[int(m.group(2))]}"
+        big = {op: c for op, c in sorted(counts.items(), key=lambda kv: -kv[1]) if c >= 64}
+        out[label] = {"opcodes": big, "instructions": sum(counts.values())}
+        print(f"[sass] alu_chain {label}: {json.dumps(big)} of {sum(counts.values())}", flush=True)
+        for want in chain_instructions(label):
+            check(counts.get(want, 0) >= CHAIN, f"alu_chain {label}: {want} {counts.get(want, 0)} < {CHAIN} times: {big}")
+    check(len(out) == 16, f"alu_chain's library holds {len(out)} chains, not 16")
+    return out
+
+
+def chain_instructions(label: str) -> tuple[str, ...]:
+    """The SASS instructions every step of a chain issues once (an H100 build):
+    IMAD for the integers (add and sub as x * 1 + c; the division's sequence
+    issues more than one), FADD / FMUL for float32 (div multiplies by the
+    reciprocal), the same plus F2F (the rounding to bfloat16) for bfloat16."""
+    dtype, op = label.split("-")
+    if dtype.startswith("int"):
+        return ("IMAD",)
+    arith = "FADD" if op in ("add", "sub") else "FMUL"
+    return (arith, "F2F") if dtype == "bfloat16" else (arith,)
+
+
+def chain_input(dtype, n, gen, dev, task=True):
+    """The compute task's vector (uniform [1, 2) cast to the type), or values of both signs."""
+    if task:
+        return (1.0 + torch.rand(n, generator=gen, device=dev)).to(dtype)
+    if dtype.is_floating_point:
+        return (8.0 * torch.rand(n, generator=gen, device=dev) - 4.0).to(dtype)
+    info = torch.iinfo(dtype)
+    return torch.randint(info.min, info.max + 1, (n,), generator=gen, device=dev, dtype=torch.int64).to(dtype)
+
+
+def resource_kernels_phase(dev):
+    """alu_chain (16 chains), int_matmul and quantize / dequantize against their
+    plain versions on the card, bit for bit, at the tasks' shapes and beyond."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.tasks import compute
+    from repro_torch.tasks.plugins import quantize as qtask
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    errs = {}
+    for dtype in CHAIN_TYPES:
+        for op in CHAIN_OPS:
+            one = compute.operand(dtype)
+            for task_input, n in ((True, compute._VEC), (False, compute._VEC), (False, 1000)):
+                x = chain_input(dtype, n, gen, dev, task_input)
+                got, want = kops.alu_chain(x, op, one), kops.alu_chain(x, op, one, use_kernel=False)
+                check(got.dtype == dtype and torch.equal(got, want), f"alu_chain {dtype} {op} n={n}: not bit-equal")
+    errs["alu_chain"] = 0.0
+    print("[resources] alu_chain: 16 chains x (task input, both signs, n=1000) bit-equal", flush=True)
+    for dtype in (torch.int8, torch.int32):
+        ones = torch.ones((512, 512), dtype=dtype, device=dev)
+        info = torch.iinfo(dtype)
+        rnd = lambda *s: torch.randint(info.min, info.max + 1, s, generator=gen, device=dev,  # noqa: E731
+                                       dtype=torch.int64).to(dtype)
+        a, b, c = rnd(512, 512), rnd(512, 512), rnd(70, 37)
+        for label, (x, y) in {"task ones, b = a.T": (ones, ones.T), "random": (a, b), "random, b.T": (a, b.T),
+                              "ragged 37x70x45": (c.T, rnd(70, 45)), "ragged, b a view": (rnd(37, 70), c)}.items():
+            got, want = kops.int_matmul(x, y), kops.int_matmul(x, y, use_kernel=False)
+            check(got.dtype == dtype and torch.equal(got, want), f"int_matmul {dtype} {label}: not bit-equal")
+        check(bool((kops.int_matmul(ones, ones.T) == (0 if dtype == torch.int8 else 512)).all()),
+              f"int_matmul {dtype}: the task's ones must give {0 if dtype == torch.int8 else 512}")
+    errs["int_matmul"] = 0.0
+    print("[resources] int_matmul: int8 and int32, task / random / ragged / transposed views bit-equal", flush=True)
+    tie = torch.zeros(1024, device=dev)
+    tie[:6] = torch.tensor([127.0, 2.5, -3.5, 0.5, -0.5, 126.5], device=dev)
+    for n in qtask._SIZES.values():
+        x = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+        x[:1024] = 0.0  # a zero block: scale 0
+        x[1024:2048] = tie  # scale 1: quotients that tie at .5
+        x[2048:3072] *= 1e4
+        q, s = kops.quantize(x)
+        wq, ws = kops.quantize(x, use_kernel=False)
+        check(torch.equal(q, wq) and torch.equal(s, ws), f"quantize n={n}: not bit-equal")
+        check(q[1, :6].tolist() == [127, 2, -4, 0, 0, 126], f"quantize: ties {q[1, :6].tolist()}")
+        check(torch.equal(kops.dequantize(q, s), kops.dequantize(q, s, use_kernel=False)), f"dequantize n={n}")
+    errs["quantize"] = errs["dequantize"] = 0.0
+    print(f"[resources] quantize / dequantize: payloads {list(qtask._SIZES)} bit-equal", flush=True)
+    for dtype in (torch.int32, torch.int8):  # the calls torch lacks, for PERF.md
+        a = torch.ones((512, 512), dtype=dtype, device=dev)
+        try:
+            torch.matmul(a, a.T)
+            print(f"[resources] torch.matmul {dtype} on the card: ran", flush=True)
+        except RuntimeError as e:
+            print(f"[resources] torch.matmul {dtype} on the card: {str(e).splitlines()[0]}", flush=True)
+    return errs
+
+
+def check_outputs(name, params, fn, args, ctx, calls):
+    """One more call of a point's timed callable, held against what it must
+    give: the plain route on the same inputs, or the data it moved.
+    ``calls`` counts this call and the timed ones (index writes add up)."""
+    from repro_torch import checkpoint as ckpt_lib
+    from repro_torch.kernels import ops as kops
+    from repro_torch.tasks import compute, index_offload, memory, storage
+
+    out = fn(*args)
+    torch.cuda.synchronize()
+
+    def sum_close(got, want64, label):
+        e = rel_err(got.cpu().double(), want64)
+        check(e <= RESOURCE_TOL["sum"], f"{label}: sum rel err {e}")
+
+    label = f"{name} {params}"
+    if name == "compute_torch":
+        dtype = compute._DTYPES[params["data_type"]]
+        if params["operation"] == "matmul" and dtype.is_floating_point:
+            want = torch.matmul(*(a.cpu().float() for a in args))
+            e = rel_err(out.float().cpu(), want)
+            check(e <= (RESOURCE_TOL["matmul"] if dtype == torch.float32 else ATTN_TOL[dtype][0]), f"{label}: {e}")
+        elif params["operation"] == "matmul":
+            check(torch.equal(out.cpu(), kops.int_matmul(*(a.cpu() for a in args))), label)
+        else:
+            check(torch.equal(out.cpu(), kops.alu_chain(args[0].cpu(), params["operation"],
+                                                        compute.operand(dtype))), label)
+    elif name == "strings_torch":
+        check(torch.equal(out.cpu(), fn(*(a.cpu() for a in args))), label)
+    elif name == "memory_torch":
+        n = memory._SIZES[params["object_size"]]
+        kind = (params["pattern"], params["operation"])
+        if kind == ("sequential", "read"):
+            sum_close(out, args[0].double().sum().cpu(), label)
+        elif kind == ("sequential", "write"):
+            check(out.numel() == n and bool((out == 1.5).all()), label)
+        elif kind == ("random", "read"):
+            sum_close(out, torch.take(args[0].double(), args[1]).sum(dim=1).cpu(), label)
+        else:
+            want = torch.arange(n, dtype=torch.float32, device=out.device)
+            want[args[1]] = 1.0
+            check(torch.equal(out, want), label)
+    elif name == "storage_torch":
+        nbytes, depth = storage._SIZES[params["access_size"]], int(params["depth"])
+        n = nbytes // 4
+        io = params["io_type"]
+        if io == "h2d":
+            check(all(o.is_cuda for o in out), f"{label}: outputs must be on the card")
+            want = [torch.from_numpy(np.random.default_rng(i).random(n, np.float32)) for i in range(depth)]
+            check(all(torch.equal(o.cpu(), w) for o, w in zip(out, want)), label)
+        elif io == "d2h":
+            check(all(o.is_pinned() for o in out), f"{label}: outputs must be pinned host memory")
+            check(all(torch.equal(o, torch.arange(n, dtype=torch.float32) + i) for i, o in enumerate(out)), label)
+        else:
+            if io == "ckpt_write":
+                d = Path(ctx.scratch["tmp"]) / f"w{nbytes}_{depth}"
+                out = ckpt_lib.restore(d, like={f"b{i}": 0 for i in range(depth)}, device="cpu")
+            tree, step = out
+            check(step == 0 and all(torch.equal(tree[f"b{i}"].cpu(), torch.arange(n, dtype=torch.float32))
+                                    for i in range(depth)), label)
+    elif name == "index_offload_torch":
+        keys, values = ctx.scratch[params["scale"]]
+        nk = keys.shape[0]
+        cut = int(nk * (1.0 - float(params["split_ratio"])))
+        count = int(params["lanes"]) * index_offload._BATCH
+        if params["operation"] == "read":  # each partition's int32 sum, from the host
+            gen = torch.Generator(device=keys.device).manual_seed(13)
+            q = index_offload._queries(gen, keys, count, params["pattern"]).cpu().numpy()
+            k, v = keys.cpu().numpy(), values.cpu().numpy().astype(np.int64)
+            boundary = k[cut] if cut < nk else np.iinfo(np.int32).max
+            parts = ((k[:cut], v[:cut], np.where(q < boundary, q, k[0])),
+                     (k[cut:], v[cut:], np.where(q >= boundary, q, k[nk - 1])))
+            for got, (pk, pv, pq) in zip(out, parts):
+                want = int(pv[np.clip(np.searchsorted(pk, pq), 0, len(pk) - 1)].sum()) if len(pk) else 0
+                check(got.dtype == torch.int32 and int(got) & 0xFFFFFFFF == want & 0xFFFFFFFF, label)
+        else:  # each call adds one a query in each partition, in place
+            for got, part in zip(out, (values[:cut], values[cut:])):
+                if part.numel():
+                    added = int((got.long() - part.long()).sum())
+                    check(added == calls * count, f"{label}: {added} increments after {calls} calls")
+    elif name == "network_torch":
+        x = args[0]
+        n = x.numel()
+        if params["schedule"] == "shardmap":  # at world size 1 every collective gives its input back
+            check(torch.equal(out.reshape(-1), x.reshape(-1)), label)
+        elif params["collective"] in ("all_reduce", "reduce_scatter"):
+            check(bool((out == out.reshape(-1)[0]).all()), label)
+            sum_close(out.reshape(-1)[:1], x.double().sum().reshape(1).cpu(), label)
+        elif params["collective"] == "all_gather":
+            check(torch.equal(out, x + 1.0), label)
+        else:
+            check(out.shape == (n, 1) and torch.equal(out.reshape(-1), x.reshape(-1)), label)
+    elif name == "quantize_torch":
+        op = params["operation"]
+        if op == "quantize":
+            want = kops.quantize(args[0], use_kernel=False)
+        elif op == "dequantize":
+            want = kops.dequantize(*args, use_kernel=False)
+        else:
+            want = kops.dequantize(*kops.quantize(args[0], use_kernel=False), use_kernel=False)
+        for g, w in zip(out if isinstance(out, tuple) else (out,), want if isinstance(want, tuple) else (want,)):
+            check(torch.equal(g, w), label)
+
+
+def resources_phase(dev, name):
+    """Every point of the seven resource tasks on the card, each point's output
+    checked once more after its timing (those launches do not count), and no
+    bytes reading above the card's memory peak (h2d / d2h above the host link)."""
+    import torch.distributed as dist
+
+    from repro_torch.core.task import TaskContext
+    from repro_torch.kernels import ops as kops
+    from repro_torch.tasks import TASKS
+
+    bw = peaks(name)[0]
+    summary = {}
+    for tname in RESOURCE_TASKS:
+        task = TASKS[tname]()
+        mod = sys.modules[type(task).__module__]
+        real, seen = mod.measure, {}
+
+        def capture(fn, *args, **kw):
+            seen["fn"], seen["args"] = fn, args
+            return real(fn, *args, **kw)
+
+        ctx = TaskContext(iters=5, warmup=2, device=dev)
+        t0 = time.perf_counter()
+        mod.measure = capture
+        rows = []
+        try:
+            task.prepare(ctx)
+            if tname == "network_torch":
+                check(dist.get_backend() == "nccl" and dist.get_world_size() == 1, "network_torch: NCCL at world 1")
+            for params in points(task.param_space):
+                m = task.execute_test(ctx, params).metrics
+                before = dict(kops.LAUNCHES)
+                check_outputs(tname, params, seen["fn"], seen["args"], ctx, ctx.warmup + ctx.iters + 1)
+                kops.LAUNCHES.update(before)
+                if "bandwidth_gb_s" in m:
+                    check(m["bandwidth_gb_s"] * 1e9 <= bw, f"{tname} {params}: {m['bandwidth_gb_s']} GB/s above the card's peak")
+                if params.get("io_type") in ("h2d", "d2h"):
+                    check(m["bandwidth_gb_s"] * 1e9 <= HOST_LINK, f"{tname} {params}: above the host link")
+                check(all(math.isfinite(v) and v >= 0 for v in m.values()), f"{tname} {params}: {m}")
+                rows.append("/".join(str(v) for v in params.values()) + ":" +
+                            ",".join(f"{k}={v:.6g}" for k, v in m.items() if k != "split_ratio"))
+        finally:
+            mod.measure = real
+            task.clean(ctx)
+        check(len(rows) == len(points(task.param_space)), f"{tname} ran {len(rows)} points")
+        secs = time.perf_counter() - t0
+        summary[tname] = secs
+        print(f"[resources] {tname} {len(rows)} points {secs:.1f}s " + " ".join(rows), flush=True)
+    free_card()
+    return summary
+
+
+def resource_kernel_entries(name, launches, errs, chains):
+    """The four new kernels at the resource path's shapes: alu_chain at the
+    compute task's 65,536 elements (float32 add in the entry, all 16 chains
+    beside it with their device time and ALU bounds), int_matmul at n = 512
+    (int32; int8 beside it), quantize and dequantize at the 256 MB payload."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.tasks import compute
+    from repro_torch.tasks.plugins import quantize as qtask
+
+    bw, flops, _ = peaks(name)
+    dev = "cuda"
+    props = torch.cuda.get_device_properties(0)
+    clock = float(subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                                 capture_output=True, text=True, timeout=60, check=True).stdout.strip()) * 1e6
+    sm_rate = props.multi_processor_count * clock
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x32 = 1.0 + torch.rand(compute._VEC, generator=gen, device=dev)
+    steps = compute._VEC * compute._CHAIN
+
+    per_chain = {}
+    for dtype in CHAIN_TYPES:
+        for op in CHAIN_OPS:
+            x, one = x32.to(dtype), compute.operand(dtype)
+            run = lambda: kops.alu_chain(x, op, one)  # noqa: E731
+            label = f"{str(dtype).split('.')[-1]}-{op}"
+            sass = chains[label]
+            main = max((o for o in sass["opcodes"] if o in SASS_RATE), key=lambda o: sass["opcodes"][o], default=None)
+            device_ms = kernel_device_ms(run, ("alu_chain",))
+            per_chain[label] = {
+                "ms": time_ms(run), "device_ms": device_ms,
+                "main_instruction": main,
+                "alu_bound_ms": 1e3 * steps / (SASS_RATE[main] * sm_rate) if main else None,
+                "issue_bound_ms": 1e3 * compute._VEC * sass["instructions"] / (ISSUE_RATE * sm_rate),
+            }
+    print(f"[resources] alu_chain per chain (clock {clock / 1e6:.0f} MHz, {props.multi_processor_count} SMs): "
+          f"{json.dumps(per_chain)}", flush=True)
+    x, one = x32, compute.operand(torch.float32)
+    alu = kernel_entry("alu_chain", "src/repro_torch/csrc/alu_chain.cu", "none (compute.py:36 _arith_fn, a jitted fori_loop)",
+                       launches["alu_chain"], lambda: kops.alu_chain(x, "add", one),
+                       lambda: kops.alu_chain(x, "add", one, use_kernel=False),
+                       1e3 * 8 * compute._VEC / bw, 1e3 * steps / flops, errs["alu_chain"], None,
+                       f"compute_torch float32 add: {compute._VEC} elements x {compute._CHAIN} steps")
+    alu["device_ms"] = per_chain["float32-add"]["device_ms"]
+    alu["chains"] = per_chain
+
+    n = 512
+    mm = {}
+    for dtype in (torch.int32, torch.int8):
+        a = torch.ones((n, n), dtype=dtype, device=dev)
+        mm[dtype] = (lambda a=a: kops.int_matmul(a, a.T)), (lambda a=a: kops.int_matmul(a, a.T, use_kernel=False))
+    imm = kernel_entry("int_matmul", "src/repro_torch/csrc/int_matmul.cu", "none (compute.py:59 _matmul_fn, XLA a @ b)",
+                       launches["int_matmul"], *mm[torch.int32], 1e3 * 3 * 4 * n * n / bw,
+                       1e3 * 2 * n**3 / (flops / 2), errs["int_matmul"], None,
+                       f"compute_torch int32 matmul n={n}, b = a.T (int32 multiply-adds at half the f32 rate)")
+    imm["device_ms"] = kernel_device_ms(mm[torch.int32][0], ("int_matmul",))
+    imm["int8_ms"] = time_ms(mm[torch.int8][0])
+    imm["int8_device_ms"] = kernel_device_ms(mm[torch.int8][0], ("int_matmul",))
+    imm["int8_bound_ms"] = max(1e3 * 3 * n * n / bw, 1e3 * 2 * n**3 / 1979e12)  # int8 tensor cores
+    a8 = torch.ones((n, n), dtype=torch.int8, device=dev)
+    try:
+        imm["int8_int_mm_ms"] = time_ms(lambda: torch._int_mm(a8, a8.T))
+        imm["int8_int_mm"] = "torch._int_mm(a, a.T): cuBLASLt int8 x int8 -> int32 accumulator and output (not wrapped)"
+    except RuntimeError as e:
+        imm["int8_int_mm"] = f"torch._int_mm refused: {str(e).splitlines()[0]}"
+
+    nq = qtask._SIZES["256MB"]
+    xq = torch.randn(nq, generator=gen, device=dev)
+    q, s = kops.quantize(xq)
+    qbytes = 4 * nq + nq + 4 * (nq // 1024)
+    quant = kernel_entry("quantize", "src/repro_torch/csrc/quantize.cu", "none (plugins/quantize.py:25 quantize)",
+                         launches["quantize"], lambda: kops.quantize(xq), lambda: kops.quantize(xq, use_kernel=False),
+                         1e3 * qbytes / bw, 1e3 * 5 * nq / flops, errs["quantize"], None,
+                         f"quantize_torch 256MB: {nq} f32 in blocks of 1024")
+    deq = kernel_entry("dequantize", "src/repro_torch/csrc/quantize.cu", "none (plugins/quantize.py:33 dequantize)",
+                       launches["dequantize"], lambda: kops.dequantize(q, s),
+                       lambda: kops.dequantize(q, s, use_kernel=False), 1e3 * qbytes / bw, 1e3 * nq / flops,
+                       errs["dequantize"], None, f"quantize_torch 256MB: {nq} int8 in blocks of 1024")
+    for e, fn in ((quant, lambda: kops.quantize(xq)), (deq, lambda: kops.dequantize(q, s))):
+        e["device_ms"] = kernel_device_ms(fn, ("quantize",))
+    print(f"[times] resource kernels: {json.dumps([alu, imm, quant, deq])}", flush=True)
+    return [alu, imm, quant, deq]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -1713,14 +2121,16 @@ def main() -> int:
                   "decode_attention": ("decode_mma_kernel", "decode_f32_kernel"),
                   "group_filter_agg": ("group_filter_agg_kernel",),
                   "ssd_intra": ("ssd_intra_mma_kernel", "ssd_intra_f32_kernel"), "block_compact": ("block_compact_kernel",),
-                  "filter_agg": ("filter_agg_kernel",)}
+                  "filter_agg": ("filter_agg_kernel",), "alu_chain": ("alu_chain_kernel",),
+                  "int_matmul": ("int_matmul_kernel",), "quantize": ("quantize_kernel",)}
     redesigned = {fn: info for src, kerns in tc_kernels.items() for fn, info in ptxas_report(logs[src]).items()
                   if any(kern in fn for kern in kerns)}
     # dh 64 / 128 (tensor cores) and f32 dh 32 / 64 / 128 and bf16 dh 32 (CUDA cores); f32 / bf16;
     # bf16 dh 32 / 64 / 128 and f32 dh 16 / 32 / 64 / 128 x G tiles 1 / 2 / 4 / 8 / 16; one scan kernel;
-    # P <= 64 / 128 in bf16 and in f32; one kernel each
+    # P <= 64 / 128 in bf16 and in f32; one kernel each; 4 types x 4 ops; int8 / int32;
+    # quantize and dequantize
     want = {"flash_attention": 6, "gmm": 2, "decode_attention": 3 + 20, "group_filter_agg": 1, "ssd_intra": 4,
-            "block_compact": 1, "filter_agg": 1}
+            "block_compact": 1, "filter_agg": 1, "alu_chain": 16, "int_matmul": 2, "quantize": 2}
     for fn, info in redesigned.items():
         if any(k in fn for k in ("decode_mma_kernel", "group_filter_agg_kernel", "ssd_intra_mma_kernel",
                                  "block_compact_kernel", "filter_agg_kernel", "flash_attention_kernel",
@@ -1728,12 +2138,13 @@ def main() -> int:
             print(f"[build] {fn}: {json.dumps(info)}", flush=True)
     check(len(redesigned) == sum(n for src, n in want.items() if logs[src])
           and not any(info["spill_bytes"] for info in redesigned.values()),
-          f"ptxas spills in K1-K8: {redesigned}")
+          f"ptxas spills in K1-K8 or the resource kernels: {redesigned}")
     for src, ops in (("flash_attention", ("HGMMA", "UTMALDG")), ("decode_attention", ("HMMA", "LDSM")),
                      ("ssd_intra", ("HMMA", "LDSM"))):
         sass = sass_counts(src, ops)
         print(f"[sass] {src}: {json.dumps(sass)}", flush=True)
         check(min(sass.values()) > 0, f"{src}'s library lacks its tensor-core or load instructions: {sass}")
+    chains = chain_sass_check()
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1754,6 +2165,7 @@ def main() -> int:
     errs["k4"] = k4_phase(pd_ctx.scratch, dev)
     errs.update(k5_k6_phase(dev))
     errs.update(k7_k8_phase(dev))
+    errs.update(resource_kernels_phase(dev))
 
     # The main paths, each with every launch counter at 0 just before it.
     path_kernels = {
@@ -1761,6 +2173,7 @@ def main() -> int:
         "pushdown": ("block_compact", "filter_agg"),
         "accel": ("filter_agg", "gmm", "flash_attention"),
         "lm": ("decode_attention", "ssd_intra", "flash_attention"),
+        "resources": RESOURCE_KERNELS,
     }
     launches = dict.fromkeys(kops.LAUNCHES, 0)
     path_counts = {}
@@ -1775,8 +2188,10 @@ def main() -> int:
             pushdown_phase(pd_task, pd_ctx)
         elif path == "accel":
             accel_phase(dev)
-        else:
+        elif path == "lm":
             lm = lm_path(dev)
+        else:
+            resources = resources_phase(dev, name)
         counts = dict(kops.LAUNCHES)
         path_counts[path] = counts
         print(f"[launches] {path} path: {json.dumps(counts)}", flush=True)
@@ -1811,9 +2226,11 @@ def main() -> int:
     entries += new_kernel_entries(pd_ctx.scratch, name, launches, errs)
     entries += lm_kernel_entries(name, launches, errs)
     entries += lm_f32_kernel_entries(name, f32_launches)
+    entries += resource_kernel_entries(name, launches, errs, chains)
     f32_route_times(name)
     print(f"[times] per query at sf1 (ms): {json.dumps(per_query_times(plans))}", flush=True)
     print(f"[lm] summary: {json.dumps({'paths': lm, 'route_rel_l2': lm_route})}", flush=True)
+    print(f"[resources] seconds a task: {json.dumps(resources)}", flush=True)
     pd_task.clean(pd_ctx)
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(card, flush=True)

@@ -12,16 +12,20 @@ from collections.abc import Sequence
 
 import torch
 
+from repro_torch.kernels import alu_chain as alu
 from repro_torch.kernels import block_compact as bc
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import filter_scan, moe_gmm, ref, ssd_scan
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import group_filter_agg as gfa
+from repro_torch.kernels import int_matmul as imm
+from repro_torch.kernels import quantize as qz
 
 LAUNCHES: dict[str, int] = {
     "group_filter_agg": 0, "group_filter_agg_multi": 0,
     "block_compact": 0, "filter_agg": 0, "gmm": 0, "flash_attention": 0,
     "decode_attention": 0, "ssd_intra": 0,
+    "alu_chain": 0, "int_matmul": 0, "quantize": 0, "dequantize": 0,
 }
 
 
@@ -179,4 +183,45 @@ def ssd_intra(
         return ref.ssd_intra_ref(x, bmat, cmat, dt, a, chunk)
     out = ssd_scan.launch(x, bmat, cmat, dt, a, chunk)
     LAUNCHES["ssd_intra"] += 1
+    return out
+
+
+def alu_chain(x: torch.Tensor, op: str, operand: torch.Tensor, *, use_kernel: bool = True) -> torch.Tensor:
+    """``x op operand`` applied ``ref.CHAIN`` (256) times to a 1-D tensor of
+    int8, int32, bfloat16 or float32, in its type: integers wrap and divide
+    by floor division, bfloat16 rounds after every step.  ``operand`` is a
+    0-d tensor of ``x``'s type."""
+    if not _route(x, use_kernel):
+        return ref.alu_chain_ref(x, op, operand)
+    out = alu.launch(x, op, operand)
+    LAUNCHES["alu_chain"] += 1
+    return out
+
+
+def int_matmul(a: torch.Tensor, b: torch.Tensor, *, use_kernel: bool = True) -> torch.Tensor:
+    """``a @ b`` of int8 or int32 matrices [M, K] x [K, N] in their type,
+    wrapping modulo 2^8 or 2^32 (any strides)."""
+    if not _route(a, use_kernel):
+        return ref.int_matmul_ref(a, b)
+    out = imm.launch(a, b)
+    LAUNCHES["int_matmul"] += 1
+    return out
+
+
+def quantize(x: torch.Tensor, *, use_kernel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-block (1024) absmax int8 quantization of float32 ``x`` (a multiple
+    of 1024 elements): (q [n / 1024, 1024] int8, scale [n / 1024, 1] f32)."""
+    if not _route(x, use_kernel):
+        return ref.quantize_ref(x)
+    out = qz.launch_quantize(x)
+    LAUNCHES["quantize"] += 1
+    return out
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor, *, use_kernel: bool = True) -> torch.Tensor:
+    """``float(q) * scale`` flattened: the inverse of :func:`quantize`."""
+    if not _route(q, use_kernel):
+        return ref.dequantize_ref(q, scale)
+    out = qz.launch_dequantize(q, scale)
+    LAUNCHES["dequantize"] += 1
     return out

@@ -5,6 +5,7 @@ them on the card.  They repeat the kernels' arithmetic, not their speed.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 #: Score of a masked key in attention: large and finite, never -inf, so no
@@ -194,3 +195,58 @@ def ssd_intra_ref(
     seg = torch.exp(l_last[:, :, None, :] - lcum) * dtc  # [B,nc,Q,H]
     states = torch.einsum("bckh,bckn,bckhp->bchpn", seg, bc, xc)
     return y.reshape(bsz, s, h, p), states
+
+
+#: tasks/compute.py's chain length; csrc/alu_chain.cu's kChain.
+CHAIN = 256
+
+
+def alu_chain_ref(x: torch.Tensor, op: str, operand: torch.Tensor) -> torch.Tensor:
+    """``x op operand`` applied ``CHAIN`` times, in ``x``'s type: integers
+    wrap and divide by floor division, bfloat16 rounds after every step.
+    ``operand`` is a 0-d tensor of ``x``'s type.  Float division multiplies
+    by the operand's reciprocal in its type, as the reference's compiled
+    program does (XLA folds ``x / c`` for a constant c into ``x * (1 / c)``)."""
+    if x.is_floating_point() and op == "div":
+        op, operand = "mul", torch.reciprocal(operand)
+    for _ in range(CHAIN):
+        if op == "add":
+            x = x + operand
+        elif op == "sub":
+            x = x - operand
+        elif op == "mul":
+            x = x * operand
+        elif op == "div":
+            x = x // operand
+        else:
+            raise ValueError(op)
+    return x
+
+
+def int_matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of int8 or int32 matrices in their own type, wrapping: summed
+    in int64 on the host (PyTorch has no integer product on the card; int64
+    is exact mod 2^64 for any K), then narrowed, which keeps the low bits."""
+    wide = torch.matmul(a.to(torch.int64).cpu(), b.to(torch.int64).cpu())
+    return wide.to(a.dtype).to(a.device)
+
+
+#: 1 / 127 rounded to float32: XLA folds the reference's ``max|x| / 127.0``
+#: into a multiply by it.
+INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def quantize_ref(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-block (1024) absmax int8 quantization: (q [n / 1024, 1024] int8,
+    scale [n / 1024, 1] f32), with the reference's arithmetic: scale =
+    max|x| * INV_127, q by IEEE division (of tensors: PyTorch on the card
+    divides by a scalar through its reciprocal), rounded half to even."""
+    blocks = x.reshape(-1, 1024)
+    scale = torch.amax(blocks.abs(), dim=1, keepdim=True) * INV_127
+    q = torch.round(blocks / torch.clamp_min(scale, 1e-12)).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_ref(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``float(q) * scale``, flattened."""
+    return (q.to(torch.float32) * scale).reshape(-1)

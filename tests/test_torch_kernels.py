@@ -14,11 +14,13 @@ import numpy as np  # noqa: E402
 
 from repro.kernels import ops as jkops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import alu_chain, int_matmul  # noqa: E402
 from repro_torch.kernels import block_compact as bc  # noqa: E402
 from repro_torch.kernels import build, filter_scan, moe_gmm, ssd_scan  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.kernels import quantize as qk  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -346,7 +348,8 @@ def test_flash_attention_rejects_what_the_kernel_cannot_take(q, k, causal):
 
 
 NEW_SOURCES = {"block_compact": bc, "filter_agg": filter_scan, "gmm": moe_gmm, "flash_attention": fa,
-               "decode_attention": da, "ssd_intra": ssd_scan}
+               "decode_attention": da, "ssd_intra": ssd_scan, "alu_chain": alu_chain,
+               "int_matmul": int_matmul, "quantize": qk}
 
 
 @pytest.mark.parametrize("name,module", list(NEW_SOURCES.items()))

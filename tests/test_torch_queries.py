@@ -259,8 +259,8 @@ def test_build_targets_hopper_and_hashes_the_source(monkeypatch):
     assert path.parent == build.BUILD_DIR and path.parts[-3:-1] == ("build", "repro_torch")
     assert path == build.library_path("group_filter_agg")  # stable for one source
     assert sorted(p.stem for p in build.CSRC.glob("*.cu")) == [
-        "block_compact", "decode_attention", "filter_agg", "flash_attention", "gmm", "group_filter_agg",
-        "ssd_intra",
+        "alu_chain", "block_compact", "decode_attention", "filter_agg", "flash_attention", "gmm",
+        "group_filter_agg", "int_matmul", "quantize", "ssd_intra",
     ]
 
 
