@@ -14,7 +14,11 @@ parameter space, with its plans held to one another; the whole
 Granite-3-8B and Mamba2-2.7B at full width and depth, then at long context
 in bf16 and in float32 (K7's and K8's CUDA-core kernels, their launches
 checked against layers x calls), with the kernel route held to the plain one
-and to the plain route computed in float32; then the whole parameter space
+and to the plain route computed in float32; the MoE models Jamba-v0.1,
+Grok-1 and Kimi-K2 at full width, cut in depth to whole periods of their
+layer pattern (``MOE_LAYERS``): the ``launch.serve`` defaults, Jamba's 2,048-token prompt,
+every K6 / K7 / K8 / K5 launch counted against layers x calls, apply_moe's
+bits alone and batched, and the same route checks; then the whole parameter space
 of the seven resource tasks (``compute_torch``, ``strings_torch``,
 ``memory_torch``, ``storage_torch``, ``index_offload_torch``,
 ``network_torch`` on NCCL, ``quantize_torch``) with each point's output held
@@ -36,7 +40,9 @@ the host link's), and prints:
     and K7's beside SDPA in float32 three ways with their backends;
     ``alu_chain``, ``int_matmul``, ``quantize`` and ``dequantize`` are the
     resource tasks' kernels, held bit for bit against their plain versions,
-    each alu_chain's 256 steps counted in its SASS);
+    each alu_chain's 256 steps counted in its SASS; ``gmm_bf16`` is K5 in
+    bf16 at the MoE models' expert products, twelve shapes in
+    ``moe_shapes`` with their launches on the MoE path and ``torch.bmm``);
   * as its last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -45,6 +51,7 @@ it fails at once.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -84,6 +91,12 @@ LM_F32_RTOL = 1e-4  # f32 compute: kernel route vs plain route
 LM_EXACT_RATIO = 1.25  # bf16 kernel route's distance from the f32 answer over the bf16 plain route's (read 0.99-1.01)
 LM_ROUTE_RATIO = 2.0  # bf16 kernel vs plain route, over e: two routes within e of one answer are within 2e (read 1.03)
 LM_LAYERS = {"granite-3-8b": 40, "mamba2-2.7b": 64}
+# The MoE models' depth at full width in bf16, whole periods of the layer
+# pattern (PERF.md §4): Jamba one 8-layer period (~26 GB of weights), Grok-1
+# two layers (~23 GB), Kimi-K2 its dense first layer and one MoE layer (~39 GB;
+# a second MoE layer would bring it to ~73 GB).
+MOE_LAYERS = {"jamba-v0.1-52b": 8, "grok-1-314b": 2, "kimi-k2-1t-a32b": 2}
+MOE_GMM_TOL = ATTN_TOL[torch.bfloat16]  # bf16 K5 at the MoE shapes: tests/test_kernels.py's bf16 _tol
 
 # Published H100-family peaks (NVIDIA data sheets): memory bytes/s, float32
 # FLOP/s outside the tensor cores and dense bf16 FLOP/s on the tensor cores.
@@ -1055,7 +1068,7 @@ def device_share(label, fn, calls=3):
     tops = "; ".join(f"{e.key[:48]} {e.self_device_time_total / calls / 1e3:.3f} ms" for e in top)
     names = {"flash_attention": ("flash_attention",),
              "decode_attention": ("decode_mma", "decode_f32"),
-             "ssd_intra": ("ssd_intra",)}  # the port's kernels by their CUDA function names
+             "ssd_intra": ("ssd_intra",), "gmm": ("gmm_kernel",)}  # the port's kernels by their CUDA function names
     ours = {k: sum(e.self_device_time_total for e in kernels if any(n in e.key for n in ns))
             for k, ns in names.items()}
     shares = ", ".join(f"{k} {v / calls / 1e3:.3f} ms ({100 * v / busy_us:.1f}% of busy)" for k, v in ours.items() if v)
@@ -1151,34 +1164,52 @@ def lm_path(dev):
     return out
 
 
-def lm_route_phase(arch, dev):
+def lm_route_phase(arch, dev, cfg=None):
     """The kernel route against use_kernel=False on the same weights and
     prompt (B=2, 100 tokens): the prefill's last logits and the first decode
     step's.  A third route, the plain one computing in float32 on the same
     (bf16-stored) weights, is the answer without activation rounding: the
     kernel route in bf16 must be no farther from it than the plain route in
     bf16, and the kernel route in float32 must be close to it.  For Granite,
-    K6 alone on and K7 alone on tell the two kernels' shares apart."""
+    K6 alone on and K7 alone on tell the two kernels' shares apart.  ``cfg``
+    replaces ``arch``'s config (an MoE model cut in depth).
+
+    An MoE model's routes run twice.  First each with its own routing: the
+    distances are printed with the (token, k) routing choices of the first
+    MoE layer's prefill that differ from the float32 plain route's and, for
+    the tokens whose choices differ, the float32 plain route's relative gap
+    between its k-th and (k+1)-th router probability (a flip near a tie
+    swaps a token's expert, which moves the logits by far more than any
+    product's rounding).  Then every route takes the float32 plain route's
+    expert choices at every MoE layer, weighted by its own router
+    probabilities of them, and those logits are held to the limits: the
+    check compares the routes' arithmetic, with the flips reported beside."""
     from repro_torch.configs.base import get_arch
     from repro_torch.kernels import ops as kops
+    from repro_torch.models import moe
     from repro_torch.models.model import Model
 
-    cfg = get_arch(arch)
+    cfg = cfg or get_arch(arch)
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     params = Model(cfg, device=dev).init(0)
     gen = torch.Generator(device="cpu").manual_seed(3)
     prompt = torch.randint(0, cfg.vocab_size, (2, 100), generator=gen, dtype=torch.int32).to(dev)
     index = torch.tensor([100, 100], dtype=torch.int32, device=dev)
-    kernels = ("flash_attention", "decode_attention") if not cfg.is_attention_free else ("ssd_intra",)
+    kernels = tuple(k for k, n in layer_counts(cfg).items() if n)
     routes = {"f32 plain": (cfg32, ()), "f32 kernel": (cfg32, kernels), "bf16 plain": (cfg, ()),
               "bf16 kernel": (cfg, kernels)}
-    if len(kernels) == 2:
+    if kernels == ("flash_attention", "decode_attention"):
         routes.update({"bf16 K6 only": (cfg, ("flash_attention",)), "bf16 K7 only": (cfg, ("decode_attention",))})
-    logits = {}
-    for label, (c, on) in routes.items():
+    real_route = moe.route
+
+    def run(label, c, on, route):
+        """Prefill and first decode logits of one route; each MoE layer's
+        (router weights, input, expert ids) in call order."""
         off = {k: getattr(kops, k) for k in kernels if k not in on}
         for k, fn in off.items():  # this kernel's plain version on this route
             setattr(kops, k, lambda *a, _fn=fn, **kw: _fn(*a, **{**kw, "use_kernel": False}))
+        seen = []
+        moe.route = lambda c_, w, x: (lambda r: seen.append((w, x, r[0])) or r)(route(c_, w, x))
         try:
             m = Model(c, device=dev, use_kernel=bool(on))
             cache = m.init_cache(2, 256)
@@ -1187,27 +1218,64 @@ def lm_route_phase(arch, dev):
             ld, cache = m.decode(params, {"tokens": prompt[:, :1]}, cache, index)
             launched = {k: n for k, n in kops.LAUNCHES.items() if n}
         finally:
+            moe.route = real_route
             for k, fn in off.items():
                 setattr(kops, k, fn)
         check(set(launched) == set(on), f"{arch} {label}: launched {launched}, want {on}")
-        if label == "f32 kernel":
-            f32_launches = launched
         for lg in (lp, ld):
             check(bool(torch.isfinite(lg).all()) and lg.shape == (2, cfg.padded_vocab), f"{arch} {label}: logits")
-        logits[label] = (lp, ld)
-        del m, cache
+        return (lp, ld), seen, launched
 
-    def rel(a, b, step):
-        got, want = logits[a][step], logits[b][step]
-        return float((got - want).norm() / want.norm())
+    def distances(logits):
+        return [{f"{a} vs {b}": float((logits[a][step] - logits[b][step]).norm() / logits[b][step].norm())
+                 for a in routes for b in ("f32 plain",) + (("bf16 plain",) if a.startswith("bf16") else ()) if a != b}
+                for step in (0, 1)]
 
-    out, fails = {}, []
-    for step, sname in enumerate(("prefill", "decode")):
-        r = {f"{a} vs {b}": rel(a, b, step) for a in routes
-             for b in ("f32 plain",) + (("bf16 plain",) if a.startswith("bf16") else ()) if a != b}
+    logits, seen = {}, {}
+    for label, (c, on) in routes.items():
+        logits[label], seen[label], launched = run(label, c, on, real_route)
+        if label == "f32 kernel":
+            f32_launches = launched
+    out = {}
+    if cfg.is_moe:
+        own = distances(logits)
+        w, x, base = seen["f32 plain"][0]
+        # [T, k]: a route's choice at the first MoE layer that the f32 plain route did not make for that token
+        differ = {label: (sn[0][2][:, :, None] != base[:, None, :]).all(-1) for label, sn in seen.items()}
+        flips = {label: int(d.sum()) for label, d in differ.items()}
+        flipped = torch.stack([d.any(-1) for d in differ.values()]).any(0)
+        top = torch.sort(torch.softmax(x.float() @ w.float(), dim=-1), dim=-1, descending=True).values
+        k = cfg.experts_per_token
+        gap = (top[:, k - 1] - top[:, k]) / top[:, k - 1]
+        out["own routing"] = {"prefill": own[0], "decode": own[1], "routing choices differing from f32 plain": flips,
+                              "tokens with a flip": int(flipped.sum()),
+                              "max gap of a flipped token": float(gap[flipped].max()) if bool(flipped.any()) else None,
+                              "median gap": float(gap.median())}
+        for step, sname in enumerate(("prefill", "decode")):
+            print(f"[lm] {arch} {sname} logits, each route with its own routing, rel L2 (not held): "
+                  + "; ".join(f"{key} {v:.4g}" for key, v in own[step].items()), flush=True)
+        print(f"[lm] {arch} first MoE layer's prefill ({base.shape[0]} tokens x k {k}): routing choices differing "
+              f"from the f32 plain route {json.dumps(flips)}; {out['own routing']['tokens with a flip']} tokens with a "
+              f"flip, their relative gap between the f32 plain route's k-th and (k+1)-th router probability at most "
+              f"{out['own routing']['max gap of a flipped token']} (median over all tokens "
+              f"{out['own routing']['median gap']:.4g})", flush=True)
+
+        def teacher_forced(it):
+            def route(c_, w_, x_):
+                ids = next(it)[2]
+                probs = torch.softmax(x_.to(torch.float32) @ w_.to(torch.float32), dim=-1).gather(1, ids)
+                return ids, probs / probs.sum(dim=-1, keepdim=True), torch.zeros((), device=x_.device)
+            return route
+
+        logits = {label: run(label, c, on, teacher_forced(iter(seen["f32 plain"])))[0]
+                  for label, (c, on) in routes.items()}
+
+    fails = []
+    held = "held: every route with the f32 plain route's expert choices" if cfg.is_moe else "rel L2 between routes"
+    for step, (sname, r) in enumerate(zip(("prefill", "decode"), distances(logits))):
         out[sname] = r
-        print(f"[lm] {arch} {sname} logits, rel L2 between routes: "
-              + "; ".join(f"{k} {v:.4g}" for k, v in r.items())
+        print(f"[lm] {arch} {sname} logits, {held}: "
+              + "; ".join(f"{key} {v:.4g}" for key, v in r.items())
               + f" (max |logit| {float(logits['f32 plain'][step].abs().max()):.3g})", flush=True)
         plain_err = r["bf16 plain vs f32 plain"]
         if r["f32 kernel vs f32 plain"] > LM_F32_RTOL:
@@ -1220,9 +1288,208 @@ def lm_route_phase(arch, dev):
                          f"{LM_ROUTE_RATIO} x {plain_err}")
     check(not fails, f"{arch} route: " + "; ".join(fails))
     out["f32 kernel route launches"] = f32_launches
-    del params, logits
+    del params, logits, seen
     free_card()
     return out
+
+
+# ---------------------------------------------------------------------------
+# The MoE models: full width, cut in depth to whole periods (MOE_LAYERS).
+def moe_config(arch):
+    from repro_torch.configs.base import get_arch
+
+    return dataclasses.replace(get_arch(arch), n_layers=MOE_LAYERS[arch])
+
+
+def layer_counts(cfg) -> dict[str, int]:
+    """Launches of each LM kernel a call makes over the stack: K6 one per
+    attention layer a prefill, K7 one per attention layer a decode step, K8
+    one per Mamba2 layer a prefill, K5 two per MoE layer a prefill or a
+    decode step."""
+    from repro_torch.configs.base import LayerKind
+
+    kinds = [LayerKind("attn", "dense")] * cfg.first_k_dense + list(cfg.pattern) * cfg.n_repeats
+    attn = sum(k.mixer == "attn" for k in kinds)
+    return {"flash_attention": attn, "decode_attention": attn, "ssd_intra": len(kinds) - attn,
+            "gmm": 2 * sum(k.ffn == "moe" for k in kinds)}
+
+
+def want_launches(cfg, prefills, decodes) -> dict[str, int]:
+    n = layer_counts(cfg)
+    return {"flash_attention": n["flash_attention"] * prefills, "decode_attention": n["decode_attention"] * decodes,
+            "ssd_intra": n["ssd_intra"] * prefills, "gmm": n["gmm"] * (prefills + decodes)}
+
+
+def check_launches(label, cfg, delta, prefills, decodes):
+    want = want_launches(cfg, prefills, decodes)
+    for kname, n in want.items():
+        check(delta[kname] == n, f"{label}: {kname} launched {delta[kname]}, want {n}")
+    return want
+
+
+def host_ms(fn, calls):
+    """Median host time of one call of fn, the card synchronised after each."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return sorted(times)[len(times) // 2]
+
+
+def moe_alone_vs_batched(label, cfg, params, dev):
+    """The first MoE layer on 8 decode tokens (bf16): each token alone, and
+    each group of 4 (the serving slots), gives the bits it gets among the 8."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+
+    j = next(i for i, kind in enumerate(cfg.pattern) if kind.ffn == "moe")
+    p = tfm.layer_row(params["body"][f"l{j}"], 0)["moe"]
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn((8, 1, cfg.d_model), generator=gen, device=dev).to(getattr(torch, cfg.compute_dtype))
+    y, _ = moe.apply_moe(cfg, p, x)
+    check(bool(torch.isfinite(y).all()), f"{label}: apply_moe output finite")
+    for n in (1, 4):
+        for i in range(0, 8, n):
+            check(torch.equal(moe.apply_moe(cfg, p, x[i:i + n])[0], y[i:i + n]),
+                  f"{label}: tokens {i}..{i + n - 1} alone differ from the batch of 8")
+    print(f"[moe] {label}: apply_moe on 8 decode tokens, each alone and each 4 together bit-equal to the batch "
+          f"(torch.equal)", flush=True)
+
+
+def moe_serve_phase(arch, dev):
+    """(a) ``launch.serve``'s defaults (16 requests, 4 slots, prompts of 4-31
+    tokens, 16 new tokens, max_len 256) on the cut config, launches checked
+    exactly; then, on the same weights, a prefill of the longest prompt, a
+    decode step at 4 slots with its card-busy share, and apply_moe's bits
+    alone and batched."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.serve_loop import Request, SlotServer
+
+    cfg = moe_config(arch)
+    args = serve.parse_args(["--arch", arch])
+    label = f"{arch} ({cfg.n_layers} layers, full width)"
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(kops.LAUNCHES)
+    res = serve.serve(args, cfg)
+    delta = {k: kops.LAUNCHES[k] - before[k] for k in before}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(len(res.completions) == args.requests and all(len(c.tokens) == args.max_new for c in res.completions),
+          f"{label}: every request completes with {args.max_new} tokens")
+    check(all(0 <= t < cfg.padded_vocab for c in res.completions for t in c.tokens), f"{label}: token ids")
+    check(res.prefill_calls == args.requests, f"{label}: one prefill a request")
+    check_launches(f"{label} serve", cfg, delta, res.prefill_calls, res.decode_calls)
+    out = {"seconds": res.seconds, "tokens_per_s": res.new_tokens / res.seconds, "decode_calls": res.decode_calls,
+           "prefill_calls": res.prefill_calls, "peak_gb": peak_gb, "weights_gb": cfg.n_params() * 2 / 1e9,
+           "launches": {k: v for k, v in delta.items() if v}}
+    del res
+    free_card()
+
+    model = Model(cfg, device=dev)
+    params = model.init(args.seed)
+    prompts = serve.prompts(cfg, args.requests, args.seed + 1, dev)
+    longest = max(prompts, key=len)
+    prefill_ms = host_ms(lambda: model.prefill(params, {"inputs": longest[None]}, model.init_cache(1, args.max_len)), 3)
+    server = SlotServer(model, n_slots=args.slots, max_len=args.max_len)
+    server.load(params)
+    for uid, prompt in enumerate(prompts[:args.slots]):
+        server.submit(Request(uid=uid, prompt=prompt, max_new_tokens=args.max_new))
+    server.step()  # fills every slot
+    index = torch.tensor(server.lengths, dtype=torch.int32, device=dev)
+    last = torch.zeros((args.slots, 1), dtype=torch.int32, device=dev)
+    step = lambda: model.decode(params, {"tokens": last}, server.cache, index)  # noqa: E731
+    decode_ms = host_ms(step, 5)
+    out.update(prefill_ms=prefill_ms, decode_step_ms=decode_ms,
+               decode_device_share=device_share(f"{arch} decode step, {args.slots} slots", step))
+    print(f"[lm] {label} serve: {args.requests}/{args.requests} completed, {out['decode_calls']} decode steps, "
+          f"{out['prefill_calls']} prefills, {args.requests * args.max_new} tokens in {out['seconds']:.3f}s "
+          f"({out['tokens_per_s']:.1f} tok/s); prefill of the longest prompt ({len(longest)} tokens) "
+          f"{prefill_ms:.2f} ms, decode step at {args.slots} slots {decode_ms:.2f} ms (medians); peak "
+          f"{peak_gb:.1f} GB ({out['weights_gb']:.1f} GB of bf16 weights); launches {json.dumps(out['launches'])}",
+          flush=True)
+    moe_alone_vs_batched(label, cfg, params, dev)
+    del server, params, model
+    free_card()
+    return out
+
+
+def moe_long_phase(arch, dev, plen=2048, steps=8):
+    """(c) One prompt of ``plen`` tokens and ``steps`` decode steps after it
+    (Jamba: K5 at C = 320, K6 at 32 / 8 / 128 heads without RoPE, K8 at
+    H 128, P 64, N 128), launches checked exactly, with the card-busy share
+    of the prefill and of a decode step."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.model import Model
+
+    cfg = moe_config(arch)
+    label = f"{arch} ({cfg.n_layers} layers) {plen}-token prompt"
+    model = Model(cfg, device=dev)
+    params = model.init(0)
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    prompt = torch.randint(0, cfg.vocab_size, (1, plen), generator=gen, dtype=torch.int32).to(dev)
+    max_len = plen + steps + 1
+
+    def prefill():
+        return model.prefill(params, {"inputs": prompt}, model.init_cache(1, max_len))
+
+    prefill_ms = host_ms(prefill, 3)
+    before = dict(kops.LAUNCHES)
+    logits, cache = prefill()
+    step_ms = []
+    for i in range(steps):
+        tok = torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
+        t0 = time.perf_counter()
+        logits, cache = model.decode(params, {"tokens": tok}, cache, plen + i)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        check(bool(torch.isfinite(logits).all()), f"{label}: decode logits finite")
+    delta = {k: kops.LAUNCHES[k] - before[k] for k in before}
+    check_launches(label, cfg, delta, 1, steps)
+    decode_ms = sorted(step_ms)[len(step_ms) // 2]
+    index = torch.tensor([plen + steps], dtype=torch.int32, device=dev)
+    out = {"prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
+           "prefill_device_share": device_share(f"{arch} prefill of {plen} tokens", prefill, calls=1),
+           "decode_device_share": device_share(f"{arch} decode step at ~{plen} keys",
+                                               lambda: model.decode(params, {"tokens": tok}, cache, index)),
+           "launches": {k: v for k, v in delta.items() if v}}
+    print(f"[lm] {label}: prefill {prefill_ms:.2f} ms (median of 3), decode step {decode_ms:.2f} ms (median of "
+          f"{steps}), card busy {100 * out['prefill_device_share']:.1f}% of the prefill and "
+          f"{100 * out['decode_device_share']:.1f}% of a decode step; launches {json.dumps(out['launches'])}",
+          flush=True)
+    del cache, params, model
+    free_card()
+    return out
+
+
+def moe_path(dev):
+    """The MoE models, each freed before the next: (a) serving and (c) the
+    2,048-token prompt (Jamba), with every K5 launch's shape counted."""
+    from repro_torch.kernels import moe_gmm
+
+    shapes = collections.Counter()
+    real = moe_gmm.launch
+
+    def counted(lhs, rhs):
+        shapes[(lhs.shape[0], lhs.shape[1], lhs.shape[2], rhs.shape[2])] += 1
+        return real(lhs, rhs)
+
+    moe_gmm.launch = counted
+    try:
+        out = {}
+        for arch in MOE_LAYERS:
+            out[f"{arch} serve"] = moe_serve_phase(arch, dev)
+            if arch == "jamba-v0.1-52b":
+                out[f"{arch} long"] = moe_long_phase(arch, dev)
+    finally:
+        moe_gmm.launch = real
+    out["gmm shapes"] = {f"E={e} C={c} d={d} f={f}": n for (e, c, d, f), n in sorted(shapes.items())}
+    print(f"[moe] K5 launches by shape on the MoE path: {json.dumps(out['gmm shapes'])}", flush=True)
+    return out, shapes
 
 
 # ---------------------------------------------------------------------------
@@ -1582,6 +1849,49 @@ def lm_kernel_entries(name, launches, errs):
                      "library_cut_ms": time_ms(k7cut),
                      "library_cut": f"SDPA over the cache cut to kv_len, no mask, enable_gqa ({backends['cut']})"})
     return [k7_entry, k8_entry]
+
+
+def moe_gmm_entries(name, launches, shapes):
+    """bf16 K5 at the MoE models' shapes: each model's two expert products at
+    C = 8 (decode steps and short prompts) and at the C a 2,048-token prompt
+    gives, held to the plain version within MOE_GMM_TOL and timed beside it
+    and ``torch.bmm``, with its launches on the MoE path by shape (``shapes``).
+    The entry's own numbers are the shape launched most; ``moe_shapes`` holds
+    all twelve."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import moe
+
+    bw, _, bf16_flops = peaks(name)
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rows = []
+    for arch in MOE_LAYERS:
+        cfg = get_arch(arch)
+        e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+        for c in (8, moe.capacity(2048, cfg)):
+            for prod, (k, n) in (("wi", (d, 2 * f)), ("wo", (f, d))):
+                lhs = torch.randn((e, c, k), generator=gen, device=dev, dtype=torch.bfloat16)
+                rhs = torch.randn((e, k, n), generator=gen, device=dev, dtype=torch.bfloat16).mul_(k**-0.5)
+                run = lambda: kops.gmm(lhs, rhs)  # noqa: E731
+                plain = lambda: kops.gmm(lhs, rhs, use_kernel=False)  # noqa: E731
+                label = f"{arch} {prod}: E={e} C={c} d={k} f={n} bf16"
+                err = close(f"k5 {label}", run(), plain(), *MOE_GMM_TOL)
+                bytes_ms = 1e3 * 2 * (e * c * k + e * k * n + e * c * n) / bw
+                ops_ms = 1e3 * 2 * e * c * k * n / bf16_flops
+                row = {"shape": label, "launches": shapes.get((e, c, k, n), 0), "max_abs_err": err,
+                       "ms": time_ms(run, reps=10, warmup=2), "plain_ms": time_ms(plain, reps=5, warmup=1),
+                       "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                       "library_ms": time_ms(lambda: torch.bmm(lhs, rhs), reps=10, warmup=2)}
+                rows.append(row)
+                print(f"[k5] {json.dumps(row)}", flush=True)
+                del lhs, rhs, run, plain
+                free_card()
+    top = max(rows, key=lambda r: r["launches"])
+    return {"name": "gmm_bf16", "route": "cuda", "source": "src/repro_torch/csrc/gmm.cu",
+            "replaces": "src/repro/kernels/moe_gmm.py:43", "launches": launches,
+            **{k: top[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+            "library": "torch.bmm (bf16)", "moe_shapes": rows}
 
 
 def lm_f32_kernel_entries(name, launches):
@@ -2173,6 +2483,7 @@ def main() -> int:
         "pushdown": ("block_compact", "filter_agg"),
         "accel": ("filter_agg", "gmm", "flash_attention"),
         "lm": ("decode_attention", "ssd_intra", "flash_attention"),
+        "moe": ("gmm", "flash_attention", "decode_attention", "ssd_intra"),
         "resources": RESOURCE_KERNELS,
     }
     launches = dict.fromkeys(kops.LAUNCHES, 0)
@@ -2190,6 +2501,8 @@ def main() -> int:
             accel_phase(dev)
         elif path == "lm":
             lm = lm_path(dev)
+        elif path == "moe":
+            moe_out, moe_shapes = moe_path(dev)
         else:
             resources = resources_phase(dev, name)
         counts = dict(kops.LAUNCHES)
@@ -2207,6 +2520,7 @@ def main() -> int:
     verify_server(plans, trace, report)
     pushdown_plans_agree(pd_ctx.scratch)
     lm_route = {arch: lm_route_phase(arch, dev) for arch in LM_LAYERS}
+    lm_route.update({arch: lm_route_phase(arch, dev, moe_config(arch)) for arch in MOE_LAYERS})
     per_query = {}
     kops.reset_launches()
     queries.q1_fused(li)
@@ -2222,14 +2536,16 @@ def main() -> int:
     for kname, count in f32_launches.items():
         launches[kname] -= count
     launches["flash_attention_f32"] += f32_launches["flash_attention"]
+    launches["gmm"] -= path_counts["moe"]["gmm"]  # the MoE path's K5 is bf16: the gmm_bf16 entry's
     entries = kernel_entries(plans, name, launches, per_query, per_step, errs)
     entries += new_kernel_entries(pd_ctx.scratch, name, launches, errs)
     entries += lm_kernel_entries(name, launches, errs)
     entries += lm_f32_kernel_entries(name, f32_launches)
+    entries.append(moe_gmm_entries(name, path_counts["moe"]["gmm"], moe_shapes))
     entries += resource_kernel_entries(name, launches, errs, chains)
     f32_route_times(name)
     print(f"[times] per query at sf1 (ms): {json.dumps(per_query_times(plans))}", flush=True)
-    print(f"[lm] summary: {json.dumps({'paths': lm, 'route_rel_l2': lm_route})}", flush=True)
+    print(f"[lm] summary: {json.dumps({'paths': lm, 'moe': moe_out, 'route_rel_l2': lm_route})}", flush=True)
     print(f"[resources] seconds a task: {json.dumps(resources)}", flush=True)
     pd_task.clean(pd_ctx)
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)

@@ -39,7 +39,10 @@ class ArchConfig:
     pattern: tuple[LayerKind, ...] = (LayerKind("attn", "dense"),)
     first_k_dense: int = 0  # leading dense-attention layers outside the repeating unit
 
-    # MoE (kept for field-by-field equality with the reference; the port runs no MoE yet)
+    # MoE (models/moe.py).  moe_groups dispatches the tokens in G groups, as
+    # the reference does; moe_group_axis names the reference's mesh axis for
+    # those groups and means nothing on one card: the port accepts it and
+    # reads it nowhere.
     n_experts: int = 0
     experts_per_token: int = 0
     n_shared_experts: int = 0
@@ -167,6 +170,9 @@ SHAPES: dict[str, ShapeCell] = {
 # ---------------------------------------------------------------------------
 ARCHS: dict[str, str] = {  # arch id -> module defining CONFIG
     "granite-3-8b": "repro_torch.configs.granite_3_8b",
+    "grok-1-314b": "repro_torch.configs.grok_1_314b",
+    "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_v01_52b",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
 }
 

@@ -112,11 +112,21 @@ def filter_agg_ref(cols: torch.Tensor, lo, hi, lo2, hi2) -> torch.Tensor:
     return torch.stack([s, mask.sum().to(torch.float32)])
 
 
+#: Largest float32 copy of gmm_ref's inputs made at once (bytes).
+GMM_SLICE_BYTES = 1 << 30
+
+
 def gmm_ref(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """Grouped (per-expert) matmul [E, C, d] x [E, d, f] -> [E, C, f]: products
     in float32 (TF32 stays off: ``torch.backends.cuda.matmul.allow_tf32``),
-    output in ``lhs.dtype``."""
-    return torch.matmul(lhs.to(torch.float32), rhs.to(torch.float32)).to(lhs.dtype)
+    output in ``lhs.dtype``.  Inputs of another type are widened a slice of
+    experts at a time, at most ``GMM_SLICE_BYTES`` of float32 (or one
+    expert): Kimi-K2's bf16 expert weights would take 45 GB widened whole."""
+    e, c, d = lhs.shape
+    step = e if lhs.dtype == rhs.dtype == torch.float32 else max(1, GMM_SLICE_BYTES // (4 * d * (c + rhs.shape[2])))
+    outs = [torch.matmul(lhs[s:s + step].to(torch.float32), rhs[s:s + step].to(torch.float32)).to(lhs.dtype)
+            for s in range(0, e, step)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
 def flash_attention_ref(

@@ -8,8 +8,12 @@ lengths in [4, 32), and reports throughput:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b --tiny --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch kimi-k2-1t-a32b --tiny --device cpu
 
-It runs on the card unless ``--device cpu`` is given.  Prompts come from a
+The MoE archs (``jamba-v0.1-52b``, ``grok-1-314b``, ``kimi-k2-1t-a32b``) do
+not fit one 80 GB card at full depth; ``serve(args, cfg)`` serves a config
+cut in depth in place of ``--arch``'s (``chip_smoke.py`` does so).  It runs
+on the card unless ``--device cpu`` is given.  Prompts come from a
 torch.Generator seeded with ``--seed + 1``: the reference's threefry draws
 cannot be replayed, so the two packages serve different prompts.
 """
@@ -60,8 +64,9 @@ def prompts(cfg: ArchConfig, n: int, seed: int, device) -> list[torch.Tensor]:
             for plen in lens]
 
 
-def serve(args: argparse.Namespace) -> ServeResult:
-    cfg = get_arch(args.arch)
+def serve(args: argparse.Namespace, cfg: ArchConfig | None = None) -> ServeResult:
+    """Serve ``args``' requests on ``--arch`` (or on ``cfg`` where given)."""
+    cfg = cfg or get_arch(args.arch)
     if args.tiny:
         cfg = tiny(cfg)
     model = Model(cfg, device=args.device)

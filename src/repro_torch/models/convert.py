@@ -2,9 +2,11 @@
 
 The port keeps the reference's parameter tree (the same keys, the body's
 leaves stacked over the pattern's repeats, the same layouts), so converting
-is a leaf-by-leaf copy.  Give the reference's tree with its leaves as numpy
-arrays (``jax.tree_util.tree_map(numpy.asarray, params)``); both packages
-then compute the same function.
+is a leaf-by-leaf copy, in each leaf's own type (an MoE layer's float32
+``router`` and its ``wi``, ``wo``, ``shared_wi`` and ``shared_wo`` too,
+stacked over the repeats like every body leaf).  Give the reference's tree
+with its leaves as numpy arrays (``jax.tree_util.tree_map(numpy.asarray,
+params)``); both packages then compute the same function.
 """
 from __future__ import annotations
 

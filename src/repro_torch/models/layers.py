@@ -18,13 +18,23 @@ import torch.nn.functional as F
 Params = dict[str, Any]
 
 
-def truncated_normal(gen: torch.Generator, shape, scale: float, dtype: torch.dtype) -> torch.Tensor:
+def truncated_normal(gen: torch.Generator, shape, scale: float, dtype: torch.dtype,
+                     block_dims: int | None = None) -> torch.Tensor:
     """Standard normal truncated to [-2, 2], times ``scale``, drawn in float32
     on ``gen``'s device and cast to ``dtype`` (the reference's distribution;
-    the two packages' generators give different numbers)."""
-    x = torch.empty(shape, dtype=torch.float32, device=gen.device)
-    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return x.mul_(scale).to(dtype)
+    the two packages' generators give different numbers).  With
+    ``block_dims`` a ``dtype`` other than float32 is drawn one block of the
+    last ``block_dims`` dims at a time (one expert's weights), so the float32
+    temporary is one block, not the whole tensor: Kimi-K2's expert weights
+    are 22.5 GB in bf16 and would need 45 GB more in float32."""
+    if block_dims is None or dtype == torch.float32:
+        x = torch.empty(shape, dtype=torch.float32, device=gen.device)
+        torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        return x.mul_(scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for block in out.view((-1,) + tuple(shape[len(shape) - block_dims:])):
+        block.copy_(truncated_normal(gen, block.shape, scale, torch.float32))
+    return out
 
 
 def weight_dtype(cfg) -> torch.dtype:

@@ -31,10 +31,10 @@ def positions(batch: int, seq: int, offset=0, device="cuda") -> torch.Tensor:
 
 class Model:
     def __init__(self, cfg: ArchConfig, device: str | torch.device = "cuda", use_kernel: bool = True):
-        if (cfg.encoder_decoder or not cfg.embed_inputs or cfg.is_moe or cfg.rope not in ("rope", "none")
+        if (cfg.encoder_decoder or not cfg.embed_inputs or cfg.rope not in ("rope", "none")
                 or cfg.norm != "rmsnorm" or cfg.act != "swiglu"):
             raise ValueError(f"{cfg.name}: the port serves decoder-only token models with RMSNorm and "
-                             f"SwiGLU, without MoE or M-RoPE")
+                             f"SwiGLU (dense or MoE), without M-RoPE")
         self.cfg = cfg
         self.device = torch.device(device)
         self.use_kernel = use_kernel
@@ -47,7 +47,8 @@ class Model:
         not its numbers).  Matmul weights are stored in the compute type,
         which the forward casts them to at each use as the reference casts
         its float32 ones: the same products at half the bytes in bf16.
-        Norm scales and the SSM's conv keep ``param_dtype``."""
+        Norm scales and the SSM's conv keep ``param_dtype``; an MoE router
+        is float32, as the reference's."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return tfm.init_transformer(self.cfg, gen, getattr(torch, self.cfg.param_dtype))
 

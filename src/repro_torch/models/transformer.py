@@ -6,7 +6,10 @@ Parameters keep the reference's tree: ``{"embed", "first": [blocks],
 "final_norm", "lm_head"}``.  Where the reference scans the repeating unit
 over the stacked leaves, the port walks it in a Python loop, each layer
 taking views of its row of every stacked leaf (parameters and cache alike).
-Blocks are pre-norm residual: x += mixer(norm(x)); x += ffn(norm(x)).
+Blocks are pre-norm residual: x += mixer(norm(x)); x += ffn(norm(x)), the
+mixer attention or Mamba2 and the FFN dense SwiGLU, MoE or none, in any
+combination the pattern names (Jamba: Mamba2 mixers before dense and MoE
+FFNs); ``first_k_dense`` leading attention + dense layers come first.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, LayerKind
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import Params, apply_mlp, apply_norm, init_mlp, init_norm, truncated_normal, weight_dtype
 
@@ -31,11 +35,12 @@ def init_block(cfg: ArchConfig, kind: LayerKind, gen: torch.Generator, dtype, st
         p["attn"] = attn_mod.init_attention(cfg, gen, stack)
     else:
         p["ssm"] = ssm_mod.init_ssm(cfg, gen, dtype, stack)
-    if kind.ffn == "moe":
-        raise ValueError(f"{cfg.name}: the port has no MoE layer yet")
     if kind.ffn != "none":
         p["norm2"] = norm()
-        p["mlp"] = init_mlp(cfg, gen, stack)
+        if kind.ffn == "moe":
+            p["moe"] = moe_mod.init_moe(cfg, gen, stack)
+        else:
+            p["mlp"] = init_mlp(cfg, gen, stack)
     return p
 
 
@@ -66,7 +71,12 @@ def apply_block(
                 cache[name].copy_(t)
     x = x + y
     if kind.ffn != "none":
-        x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+        h = apply_norm(cfg, p["norm2"], x)
+        if kind.ffn == "moe":
+            y, _ = moe_mod.apply_moe(cfg, p["moe"], h, use_kernel=use_kernel)  # serving drops the aux loss
+        else:
+            y = apply_mlp(cfg, p["mlp"], h)
+        x = x + y
     return x
 
 

@@ -1,7 +1,8 @@
-"""The port's LM stack (configs, layers, SSD, Granite-3-8B and Mamba2-2.7B at
-tiny widths) against the JAX package on the CPU: the reference's parameters
-are converted with ``params_from_jax`` and both packages run the same inputs,
-made with numpy from a seed."""
+"""The port's LM stack (configs, layers, SSD, Granite-3-8B, Mamba2-2.7B and
+the MoE models Jamba-v0.1, Grok-1 and Kimi-K2 at tiny widths) against the JAX
+package on the CPU: the reference's parameters are converted with
+``params_from_jax`` and both packages run the same inputs, made with numpy
+from a seed."""
 from __future__ import annotations
 
 import dataclasses
@@ -26,7 +27,7 @@ from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 
-ARCHS = ["granite-3-8b", "mamba2-2.7b"]
+ARCHS = ["granite-3-8b", "mamba2-2.7b", "jamba-v0.1-52b", "grok-1-314b", "kimi-k2-1t-a32b"]
 TOL = dict(rtol=1e-4, atol=1e-4)  # f32 compute in both packages
 
 
@@ -247,7 +248,8 @@ def test_cast_weights_keeps_the_logits(arch):
     cfg = base.tiny(base.get_arch(arch), compute_dtype="bfloat16")
     model = Model(cfg, device="cpu")
     params = model.init(7)
-    matmul = {"embed", "lm_head", "wq", "wk", "wv", "wo", "wi", "wz", "wx", "wB", "wC", "wdt", "out_proj"}
+    matmul = {"embed", "lm_head", "wq", "wk", "wv", "wo", "wi", "wz", "wx", "wB", "wC", "wdt", "out_proj",
+              "shared_wi", "shared_wo"}  # an MoE router stays float32, as the reference's
     kinds = {(path.rsplit("/", 1)[1] in matmul, t.dtype) for path, t in leaves(params)}
     assert kinds == {(True, torch.bfloat16), (False, torch.float32)}
 
@@ -287,6 +289,18 @@ def test_attention_at_a_cache_offset_runs_the_plain_version():
 def test_model_defaults_to_the_card():
     cfg = base.tiny(base.get_arch("granite-3-8b"))
     assert Model(cfg).device.type == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises((RuntimeError, AssertionError)):
+        Model(cfg).init(0)
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "grok-1-314b", "kimi-k2-1t-a32b"])
+def test_moe_models_default_to_the_card(arch):
+    """An MoE model is built for the card unless asked for the CPU; without a
+    card its parameters cannot be made."""
+    cfg = base.tiny(base.get_arch(arch))
+    assert Model(cfg).device.type == "cuda" and Model(cfg).use_kernel
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises((RuntimeError, AssertionError)):

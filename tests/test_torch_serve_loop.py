@@ -1,6 +1,8 @@
-"""The port's SlotServer and serving entry point against the JAX package's on the
-CPU: the same prompts and converted weights give the same completions; a
-batch gives each request what it gets alone; budgets and max_len retire."""
+"""The port's SlotServer and serving entry point against the JAX package's on
+the CPU (Granite-3-8B, Mamba2-2.7B, and the MoE models Jamba-v0.1, Grok-1 and
+Kimi-K2 at tiny widths): the same prompts and converted weights give the same
+completions; a batch gives each request what it gets alone; budgets and
+max_len retire."""
 from __future__ import annotations
 
 import dataclasses
@@ -25,7 +27,7 @@ from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.runtime import requests  # noqa: E402
 from repro_torch.runtime.serve_loop import Request, SlotServer  # noqa: E402
 
-ARCHS = ["granite-3-8b", "mamba2-2.7b"]
+ARCHS = ["granite-3-8b", "mamba2-2.7b", "jamba-v0.1-52b", "grok-1-314b", "kimi-k2-1t-a32b"]
 
 
 @pytest.fixture(scope="module")
@@ -69,6 +71,9 @@ def test_completions_equal_reference(served, arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_batched_equals_solo(served, arch):
+    """For the MoE archs this holds because no slot drops: a decode step of
+    up to 3 tokens has capacity 8 an expert, and each prompt is prefilled
+    alone.  Where slots drop, a token's output depends on its batch."""
     _, _, model, params = served[arch]
     reqs = [(p, 4) for p in prompts(5, seed=6)]
     got, server = run_port(model, params, reqs, n_slots=3)
