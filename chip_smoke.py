@@ -40,9 +40,10 @@ the host link's), and prints:
     and K7's beside SDPA in float32 three ways with their backends;
     ``alu_chain``, ``int_matmul``, ``quantize`` and ``dequantize`` are the
     resource tasks' kernels, held bit for bit against their plain versions,
-    each alu_chain's 256 steps counted in its SASS; ``gmm_bf16`` is K5 in
-    bf16 at the MoE models' expert products, twelve shapes in
-    ``moe_shapes`` with their launches on the MoE path and ``torch.bmm``);
+    each alu_chain's 256 steps counted in its SASS; ``gmm_bf16`` is K5's
+    tensor-core kernel at the MoE models' expert products, twelve shapes in
+    ``moe_shapes`` with their launches on the MoE path and ``torch.bmm``,
+    every bf16 K5 launch of that path counted on it);
   * as its last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -501,12 +502,22 @@ def close(label, got, want, rtol, atol):
 
 
 def compare_k5(label, e, c, d, f, dtype, gen, dev):
+    """K5 against its plain version; the launch goes to the kernel
+    ``moe_gmm.kernel_for`` names for the type and shape (bf16 rows of
+    16-byte multiples: the tensor cores), and a repeat gives the same bits."""
+    from repro_torch.kernels import moe_gmm
     from repro_torch.kernels import ops as kops
 
     lhs = torch.randn((e, c, d), generator=gen, device=dev).to(dtype)
     rhs = torch.randn((e, d, f), generator=gen, device=dev).to(dtype)
-    err = close(f"k5 {label}", kops.gmm(lhs, rhs), kops.gmm(lhs, rhs, use_kernel=False), *GMM_TOL[dtype])
-    print(f"[k5] {label}: E={e} C={c} d={d} f={f} {dtype} max_abs_err {err:.3g}", flush=True)
+    kernel = moe_gmm.kernel_for(dtype, e, c, d, f)
+    before = dict(kops.LAUNCHES)
+    got = kops.gmm(lhs, rhs)
+    check({k: kops.LAUNCHES[k] - before[k] for k in ("gmm", "gmm_tc")} == {"gmm": 0, "gmm_tc": 0, kernel: 1},
+          f"k5 {label}: E={e} C={c} d={d} f={f} {dtype} did not launch {kernel}")
+    check(torch.equal(got, kops.gmm(lhs, rhs)), f"k5 {label}: a repeat differs")
+    err = close(f"k5 {label}", got, kops.gmm(lhs, rhs, use_kernel=False), *GMM_TOL[dtype])
+    print(f"[k5] {label}: E={e} C={c} d={d} f={f} {dtype} on {kernel} max_abs_err {err:.3g}", flush=True)
     return err
 
 
@@ -635,8 +646,10 @@ def k5_k6_phase(dev):
     for dtype in (f32, bf16):
         for e, c, d, f in [(2, 128, 128, 128), (4, 256, 512, 256), (8, 128, 256, 384), (3, 100, 72, 136)]:
             compare_k5("sweep" if c != 100 else "ragged", e, c, d, f, dtype, gen, dev)
-        # Edges off the kernel's 128-row / 64-column / 16-deep tiles: rows of
-        # whole 16-byte chunks (cp.async) and rows that are not (element copies).
+        # Edges off the CUDA-core kernel's 128-row / 64-column / 16-deep tiles:
+        # rows of whole 16-byte chunks (cp.async) and rows that are not
+        # (element copies); in bf16 the first goes to the tensor cores, the
+        # other three stay on the CUDA cores.
         for e, c, d, f in [(3, 130, 24, 72), (2, 77, 33, 70), (1, 1, 1, 1), (2, 257, 100, 200)]:
             compare_k5("edges", e, c, d, f, dtype, gen, dev)
         for b, s, hq, hkv, dh in [(1, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 512, 4, 1, 128),
@@ -656,6 +669,12 @@ def k5_k6_phase(dev):
     for s, dh in ((65, 128), (513, 128), (257, 32), (1000, 32)):
         compare_k6("f32 tile edges", 2, s, s, 8, 2, dh, f32, True, gen, dev)
     compare_k6("bf16 dh 32 tile edges", 2, 513, 513, 8, 2, 32, bf16, True, gen, dev)
+    # The tensor-core kernel at the edges of its tiles: C around its 64- and
+    # 128-row tiles, d off its 64-deep stages, f off its 256 columns (a
+    # weight box past f is not loaded), one expert and Kimi-K2's 384.
+    for c in (1, 8, 9, 63, 65, 130, 257):
+        for e in (1, 384):
+            compare_k5("tc edges", e, c, 72, 200, bf16, gen, dev)
     k6_schedule_check()
     k6_misaligned(gen, dev)
     for dh in (64, 128):
@@ -1068,7 +1087,7 @@ def device_share(label, fn, calls=3):
     tops = "; ".join(f"{e.key[:48]} {e.self_device_time_total / calls / 1e3:.3f} ms" for e in top)
     names = {"flash_attention": ("flash_attention",),
              "decode_attention": ("decode_mma", "decode_f32"),
-             "ssd_intra": ("ssd_intra",), "gmm": ("gmm_kernel",)}  # the port's kernels by their CUDA function names
+             "ssd_intra": ("ssd_intra",), "gmm": ("gmm_kernel", "gmm_tc_kernel")}  # the port's kernels by their CUDA function names
     ours = {k: sum(e.self_device_time_total for e in kernels if any(n in e.key for n in ns))
             for k, ns in names.items()}
     shares = ", ".join(f"{k} {v / calls / 1e3:.3f} ms ({100 * v / busy_us:.1f}% of busy)" for k, v in ours.items() if v)
@@ -1221,7 +1240,9 @@ def lm_route_phase(arch, dev, cfg=None):
             moe.route = real_route
             for k, fn in off.items():
                 setattr(kops, k, fn)
-        check(set(launched) == set(on), f"{arch} {label}: launched {launched}, want {on}")
+        check({WRAPPER_OF.get(k, k) for k in launched} == set(on), f"{arch} {label}: launched {launched}, want {on}")
+        check(c.compute_dtype != "bfloat16" or "gmm" not in launched,
+              f"{arch} {label}: bf16 K5 ran on the CUDA-core kernel: {launched}")
         for lg in (lp, ld):
             check(bool(torch.isfinite(lg).all()) and lg.shape == (2, cfg.padded_vocab), f"{arch} {label}: logits")
         return (lp, ld), seen, launched
@@ -1301,6 +1322,10 @@ def moe_config(arch):
     return dataclasses.replace(get_arch(arch), n_layers=MOE_LAYERS[arch])
 
 
+#: Launch counters that are not their wrapper's name (``kops.gmm`` counts per kernel).
+WRAPPER_OF = {"gmm_tc": "gmm"}
+
+
 def layer_counts(cfg) -> dict[str, int]:
     """Launches of each LM kernel a call makes over the stack: K6 one per
     attention layer a prefill, K7 one per attention layer a decode step, K8
@@ -1315,9 +1340,11 @@ def layer_counts(cfg) -> dict[str, int]:
 
 
 def want_launches(cfg, prefills, decodes) -> dict[str, int]:
+    """Launch counts of a bf16 run: K5's all on the tensor-core kernel
+    (``gmm_tc``), none on the CUDA-core kernel."""
     n = layer_counts(cfg)
     return {"flash_attention": n["flash_attention"] * prefills, "decode_attention": n["decode_attention"] * decodes,
-            "ssd_intra": n["ssd_intra"] * prefills, "gmm": n["gmm"] * (prefills + decodes)}
+            "ssd_intra": n["ssd_intra"] * prefills, "gmm_tc": n["gmm"] * (prefills + decodes), "gmm": 0}
 
 
 def check_launches(label, cfg, delta, prefills, decodes):
@@ -1854,11 +1881,13 @@ def lm_kernel_entries(name, launches, errs):
 def moe_gmm_entries(name, launches, shapes):
     """bf16 K5 at the MoE models' shapes: each model's two expert products at
     C = 8 (decode steps and short prompts) and at the C a 2,048-token prompt
-    gives, held to the plain version within MOE_GMM_TOL and timed beside it
-    and ``torch.bmm``, with its launches on the MoE path by shape (``shapes``).
-    The entry's own numbers are the shape launched most; ``moe_shapes`` holds
-    all twelve."""
+    gives, on the tensor-core kernel (its tile beside each row), held to the
+    plain version within MOE_GMM_TOL and timed beside it and ``torch.bmm``,
+    with its launches on the MoE path by shape (``shapes``).  The entry's
+    own numbers are the shape launched most; ``moe_shapes`` holds all
+    twelve."""
     from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import moe_gmm
     from repro_torch.kernels import ops as kops
     from repro_torch.models import moe
 
@@ -1876,20 +1905,25 @@ def moe_gmm_entries(name, launches, shapes):
                 run = lambda: kops.gmm(lhs, rhs)  # noqa: E731
                 plain = lambda: kops.gmm(lhs, rhs, use_kernel=False)  # noqa: E731
                 label = f"{arch} {prod}: E={e} C={c} d={k} f={n} bf16"
-                err = close(f"k5 {label}", run(), plain(), *MOE_GMM_TOL)
+                plan = moe_gmm.tc_plan(e, c, k, n)
+                before = kops.LAUNCHES["gmm_tc"]
+                got = run()
+                check(kops.LAUNCHES["gmm_tc"] == before + 1, f"k5 {label}: not on the tensor cores")
+                err = close(f"k5 {label}", got, plain(), *MOE_GMM_TOL)
                 bytes_ms = 1e3 * 2 * (e * c * k + e * k * n + e * c * n) / bw
                 ops_ms = 1e3 * 2 * e * c * k * n / bf16_flops
-                row = {"shape": label, "launches": shapes.get((e, c, k, n), 0), "max_abs_err": err,
+                row = {"shape": label, "tile": f"{plan.rows}x{plan.columns}, {plan.stages} stages, grid {plan.grid}",
+                       "launches": shapes.get((e, c, k, n), 0), "max_abs_err": err,
                        "ms": time_ms(run, reps=10, warmup=2), "plain_ms": time_ms(plain, reps=5, warmup=1),
                        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                        "library_ms": time_ms(lambda: torch.bmm(lhs, rhs), reps=10, warmup=2)}
                 rows.append(row)
                 print(f"[k5] {json.dumps(row)}", flush=True)
-                del lhs, rhs, run, plain
+                del lhs, rhs, got, run, plain
                 free_card()
     top = max(rows, key=lambda r: r["launches"])
     return {"name": "gmm_bf16", "route": "cuda", "source": "src/repro_torch/csrc/gmm.cu",
-            "replaces": "src/repro/kernels/moe_gmm.py:43", "launches": launches,
+            "kernel": "gmm_tc_kernel (wgmma + TMA)", "replaces": "src/repro/kernels/moe_gmm.py:43", "launches": launches,
             **{k: top[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
             "library": "torch.bmm (bf16)", "moe_shapes": rows}
 
@@ -2427,7 +2461,8 @@ def main() -> int:
     # and K8's tensor-core kernels, K5, K1/K2's scan, K3 and K4) keep every
     # value in registers (ptxas reports only on a build, not on a library
     # already built).
-    tc_kernels = {"flash_attention": ("flash_attention_tc_kernel", "flash_attention_kernel"), "gmm": ("gmm_kernel",),
+    tc_kernels = {"flash_attention": ("flash_attention_tc_kernel", "flash_attention_kernel"),
+                  "gmm": ("gmm_kernel", "gmm_tc_kernel"),
                   "decode_attention": ("decode_mma_kernel", "decode_f32_kernel"),
                   "group_filter_agg": ("group_filter_agg_kernel",),
                   "ssd_intra": ("ssd_intra_mma_kernel", "ssd_intra_f32_kernel"), "block_compact": ("block_compact_kernel",),
@@ -2438,18 +2473,19 @@ def main() -> int:
     # dh 64 / 128 (tensor cores) and f32 dh 32 / 64 / 128 and bf16 dh 32 (CUDA cores); f32 / bf16;
     # bf16 dh 32 / 64 / 128 and f32 dh 16 / 32 / 64 / 128 x G tiles 1 / 2 / 4 / 8 / 16; one scan kernel;
     # P <= 64 / 128 in bf16 and in f32; one kernel each; 4 types x 4 ops; int8 / int32;
-    # quantize and dequantize
-    want = {"flash_attention": 6, "gmm": 2, "decode_attention": 3 + 20, "group_filter_agg": 1, "ssd_intra": 4,
+    # quantize and dequantize; K5 f32 / bf16 on the CUDA cores and bf16 on the tensor cores at C <= 64 / above
+    want = {"flash_attention": 6, "gmm": 4, "decode_attention": 3 + 20, "group_filter_agg": 1, "ssd_intra": 4,
             "block_compact": 1, "filter_agg": 1, "alu_chain": 16, "int_matmul": 2, "quantize": 2}
     for fn, info in redesigned.items():
-        if any(k in fn for k in ("decode_mma_kernel", "group_filter_agg_kernel", "ssd_intra_mma_kernel",
+        if any(k in fn for k in ("decode_mma_kernel", "group_filter_agg_kernel", "ssd_intra_mma_kernel", "gmm_tc_kernel",
                                  "block_compact_kernel", "filter_agg_kernel", "flash_attention_kernel",
                                  "decode_f32_kernel", "ssd_intra_f32_kernel")):
             print(f"[build] {fn}: {json.dumps(info)}", flush=True)
     check(len(redesigned) == sum(n for src, n in want.items() if logs[src])
           and not any(info["spill_bytes"] for info in redesigned.values()),
           f"ptxas spills in K1-K8 or the resource kernels: {redesigned}")
-    for src, ops in (("flash_attention", ("HGMMA", "UTMALDG")), ("decode_attention", ("HMMA", "LDSM")),
+    for src, ops in (("flash_attention", ("HGMMA", "UTMALDG")), ("gmm", ("HGMMA", "UTMALDG")),
+                     ("decode_attention", ("HMMA", "LDSM")),
                      ("ssd_intra", ("HMMA", "LDSM"))):
         sass = sass_counts(src, ops)
         print(f"[sass] {src}: {json.dumps(sass)}", flush=True)
@@ -2483,7 +2519,7 @@ def main() -> int:
         "pushdown": ("block_compact", "filter_agg"),
         "accel": ("filter_agg", "gmm", "flash_attention"),
         "lm": ("decode_attention", "ssd_intra", "flash_attention"),
-        "moe": ("gmm", "flash_attention", "decode_attention", "ssd_intra"),
+        "moe": ("gmm_tc", "flash_attention", "decode_attention", "ssd_intra"),
         "resources": RESOURCE_KERNELS,
     }
     launches = dict.fromkeys(kops.LAUNCHES, 0)
@@ -2536,12 +2572,13 @@ def main() -> int:
     for kname, count in f32_launches.items():
         launches[kname] -= count
     launches["flash_attention_f32"] += f32_launches["flash_attention"]
-    launches["gmm"] -= path_counts["moe"]["gmm"]  # the MoE path's K5 is bf16: the gmm_bf16 entry's
+    # The MoE path's K5 is bf16, every launch on the tensor cores (the gmm_bf16 entry's).
+    check(path_counts["moe"]["gmm"] == 0, f"bf16 K5 ran {path_counts['moe']['gmm']} times on the CUDA cores")
     entries = kernel_entries(plans, name, launches, per_query, per_step, errs)
     entries += new_kernel_entries(pd_ctx.scratch, name, launches, errs)
     entries += lm_kernel_entries(name, launches, errs)
     entries += lm_f32_kernel_entries(name, f32_launches)
-    entries.append(moe_gmm_entries(name, path_counts["moe"]["gmm"], moe_shapes))
+    entries.append(moe_gmm_entries(name, path_counts["moe"]["gmm_tc"], moe_shapes))
     entries += resource_kernel_entries(name, launches, errs, chains)
     f32_route_times(name)
     print(f"[times] per query at sf1 (ms): {json.dumps(per_query_times(plans))}", flush=True)

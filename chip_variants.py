@@ -37,6 +37,18 @@ call per event pair, back to back and on the card.  accel_torch's attention
 workload then runs through the committed kernel and through the first
 design behind the first design's wrapper, in turns (ops/s and latency).
 
+K5 (``gmm``) runs its CUDA-core kernel in f32 at accel_torch large (128 x
+128 tiles, 4 stages, 32-deep tiles) and its tensor-core kernel in bf16 at
+Jamba-v0.1's ``wi`` product at a decode step (C = 8) and at a 2,048-token
+prompt (C = 320) and Grok-1's at its prompt (C = 640), with other column tiles and ring depths for one consumer
+warpgroup (C <= 64) and for two (C > 64), and without the skip of a
+warpgroup whose rows all lie past C; each arm held to the plain version and
+timed beside ``torch.bmm`` and the shape's bound.  Its arms marked
+"diagnostic" leave out the products (loads only) or the loads (products
+on whatever the ring holds) to show where the time goes; their output is
+wrong and is not checked.  An edit whose text is
+not in the source exactly once fails the build of the variants.
+
 K1/K2 (``group_filter_agg``) run at TPC-H Q1 at scale factor 1, alone
 (B = 1) and as a batch of 8 programs, beside ``k1 first design``: the
 kernel's first design, kept as ``csrc/variants/group_filter_agg_first.cu``
@@ -148,6 +160,22 @@ VARIANTS = {
     "k5 128x128 tiles": ("gmm", [("constexpr int kBN = 64;", "constexpr int kBN = 128;")]),
     "k5 4 stages": ("gmm", [("constexpr int kStages = 2;", "constexpr int kStages = 4;")]),
     "k5 32-deep tiles": ("gmm", [("constexpr int kBK = 16;", "constexpr int kBK = 32;")]),
+    # bf16 on the tensor cores: one consumer warpgroup (C <= 64) and two (C > 64).
+    "k5 tc 128 columns (C <= 64)": ("gmm", [("constexpr int kTcBN1 = 256;", "constexpr int kTcBN1 = 128;")]),
+    "k5 tc 128 columns, 8 stages (C <= 64)": ("gmm", [("constexpr int kTcBN1 = 256;", "constexpr int kTcBN1 = 128;"),
+                                                      ("constexpr int kTcStages1 = 4;", "constexpr int kTcStages1 = 8;")]),
+    "k5 tc 2 stages (C <= 64)": ("gmm", [("constexpr int kTcStages1 = 4;", "constexpr int kTcStages1 = 2;")]),
+    "k5 tc 3 stages (C <= 64)": ("gmm", [("constexpr int kTcStages1 = 4;", "constexpr int kTcStages1 = 3;")]),
+    "k5 tc 5 stages (C <= 64)": ("gmm", [("constexpr int kTcStages1 = 4;", "constexpr int kTcStages1 = 5;")]),
+    "k5 tc 3 stages (C > 64)": ("gmm", [("constexpr int kTcStages2 = 4;", "constexpr int kTcStages2 = 3;")]),
+    "k5 tc 128 columns (C > 64)": ("gmm", [("constexpr int kTcBN2 = 256;", "constexpr int kTcBN2 = 128;")]),
+    "k5 tc no idle skip (C > 64)": ("gmm", [("const bool idle = m0 + wg * kTcRows >= c;", "const bool idle = false;")]),
+    "k5 tc loads only (diagnostic)": ("gmm", [("for (int kk = 0; kk < kTcK / 16; ++kk)\n          wgmma_ss_tb<BN>",
+                                                "for (int kk = 0; kk < 0; ++kk)\n          wgmma_ss_tb<BN>")]),
+    "k5 tc products only (diagnostic)": ("gmm", [
+        ("hopper::mbar_arrive_expect_tx(&full[s], bytes);", "hopper::mbar_arrive(&full[s]);"),
+        ("hopper::tma_load_4d(stage, &map_a, &full[s], kt * kTcK, 0, m0, e);", ""),
+        ("for (int j = 0; j < boxes; ++j)\n          hopper::tma_load_4d(", "for (int j = 0; j < 0; ++j)\n          hopper::tma_load_4d(")]),
     "k7 committed": ("decode_attention", []),
     "k7 4 stages": ("decode_attention", [("constexpr int kStages = 3;", "constexpr int kStages = 4;")]),
     "k7 2 stages": ("decode_attention", [("constexpr int kStages = 3;", "constexpr int kStages = 2;")]),
@@ -197,6 +225,9 @@ VARIANTS.update({
          "  for (int bx = 0; bx < 0; ++bx)\n    hopper::tma_load_4d(")]),
 })
 K5_SHAPE = (4, 2048, 256, 256)  # accel_torch large, f32
+# bf16 on the tensor cores: Jamba-v0.1's wi product at a decode step (C = 8)
+# and at a 2,048-token prompt (C = 320), and Grok-1's at its prompt (C = 640).
+K5_TC_SHAPES = [(16, 8, 4096, 28672), (16, 320, 4096, 28672), (8, 640, 6144, 65536)]
 K7_SHAPE = (8, 4096, 32, 8, 128, 2064)  # B, S, Hq, Hkv, dh, kv_len; bf16
 K7_SPLITS = (256, 512)  # keys a split: the committed split_size at S = 4096, and twice it
 FIRST = "variants/group_filter_agg_first"
@@ -437,7 +468,7 @@ def build_variants(out_dir: Path) -> dict[str, ctypes.CDLL]:
             continue
         text = (build.CSRC / f"{src}.cu").read_text()
         for old, new in edits:
-            if old not in text or (name.startswith(("k3", "k4", "k8", "k6 f32", "k7f32")) and text.count(old) != 1):
+            if old not in text or (name.startswith(("k3", "k4", "k5", "k8", "k6 f32", "k7f32")) and text.count(old) != 1):
                 raise RuntimeError(f"{name}: {old!r} is not in {src}.cu once")
             text = text.replace(old, new)
         cu = out_dir / f"v{i}.cu"
@@ -451,7 +482,7 @@ def build_variants(out_dir: Path) -> dict[str, ctypes.CDLL]:
             raise RuntimeError(f"{name}: nvcc failed\n{log}")
         spilled = [line.strip() for line in log.splitlines() if "spill stores" in line and " 0 bytes spill" not in line]
         print(f"[build] {name}: {len(spilled)} function(s) spill: {spilled}", flush=True)
-        if name.startswith(("k1", "k3", "k4", "k8", "k6 f32", "k7f32")):
+        if name.startswith(("k1", "k3", "k4", "k5", "k8", "k6 f32", "k7f32")):
             print(f"[build] {name}: {json.dumps(ptxas_report(log))}", flush=True)
         lib = ctypes.CDLL(str(out_dir / f"libv{i}.so"))
         signatures = {FIRST: FIRST_SIGNATURES, FIRST_K8: K8_FIRST_SIGNATURES, FIRST_K4: K4_FIRST_SIGNATURES,
@@ -1094,8 +1125,11 @@ def k6_f32_variants(libs, dev, gen):
 
 
 def k5_variants(libs, dev, gen):
-    """K5 (f32) at accel_torch large for every k5 variant, beside torch.bmm."""
-    from chip_smoke import time_ms
+    """K5: the CUDA-core kernel (f32) at accel_torch large for every k5
+    variant but the tensor-core ones, then the tensor-core kernel (bf16) at
+    Jamba-v0.1's wi product, C = 8 and C = 320, and Grok-1's at C = 640, for the committed source and
+    every ``k5 tc`` variant, each beside torch.bmm and its bound."""
+    from chip_smoke import MOE_GMM_TOL, card_line, peaks, time_ms
     from repro_torch.kernels import ops as kops
 
     stream = torch.cuda.current_stream().cuda_stream
@@ -1105,7 +1139,7 @@ def k5_variants(libs, dev, gen):
     want = kops.gmm(lhs, rhs, use_kernel=False)
     calls = {"torch.bmm": lambda: torch.bmm(lhs, rhs)}
     for name, lib in libs.items():
-        if name.startswith("k5"):
+        if name.startswith("k5") and not name.startswith("k5 tc"):
             out = torch.empty_like(want)
             calls[name] = lambda lib=lib, out=out: lib.gmm_launch(
                 lhs.data_ptr(), rhs.data_ptr(), out.data_ptr(), e, c, d, f, 0, stream)
@@ -1119,6 +1153,34 @@ def k5_variants(libs, dev, gen):
         for name in list(calls)[::order]:
             res[name].append([time_ms(calls[name]), burst_ms(calls[name])])
     print(f"[variants] k5 E={e} C={c} d={d} f={f} f32, [single-call ms, burst ms] x2: {json.dumps(res)}", flush=True)
+    del lhs, rhs, want, calls
+
+    bw, _, bf16_flops = peaks(card_line())
+    tc = [name for name in libs if name == "k5 committed" or name.startswith("k5 tc")]
+    for e, c, d, f in K5_TC_SHAPES:
+        lhs = torch.randn((e, c, d), generator=gen, device=dev, dtype=torch.bfloat16)
+        rhs = torch.randn((e, d, f), generator=gen, device=dev, dtype=torch.bfloat16).mul_(d ** -0.5)
+        want = kops.gmm(lhs, rhs, use_kernel=False)
+        calls = {"torch.bmm": lambda: torch.bmm(lhs, rhs)}
+        for name in tc:
+            out = torch.empty_like(want)
+            calls[name] = lambda lib=libs[name], out=out: lib.gmm_tc_launch(
+                lhs.data_ptr(), rhs.data_ptr(), out.data_ptr(), e, c, d, f, stream)
+            if calls[name]() != 0:
+                raise RuntimeError(f"{name}: launch failed")
+            torch.cuda.synchronize()
+            rtol, atol = MOE_GMM_TOL
+            if "diagnostic" not in name and not torch.allclose(out.float(), want.float(), rtol=rtol, atol=atol):
+                raise RuntimeError(f"{name}: differs from the plain version at E={e} C={c} d={d} f={f}")
+        bound = 1e3 * max(2 * (e * c * d + e * d * f + e * c * f) / bw, 2 * e * c * d * f / bf16_flops)
+        res = {name: [] for name in calls}
+        for order in (1, -1):
+            for name in list(calls)[::order]:
+                res[name].append([time_ms(calls[name], reps=10, warmup=2), burst_ms(calls[name], reps=5)])
+        print(f"[variants] k5 tc E={e} C={c} d={d} f={f} bf16 (bound {bound:.4f} ms), every arm but the diagnostics "
+              f"within {MOE_GMM_TOL} of the plain version, [single-call ms, burst ms] x2: {json.dumps(res)}", flush=True)
+        del lhs, rhs, want, calls
+        torch.cuda.empty_cache()
 
 
 def k7_variants(libs, dev, gen):

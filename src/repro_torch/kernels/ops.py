@@ -4,7 +4,8 @@ A wrapper picks its path from the device of the data it is given: a CPU
 tensor goes to the plain PyTorch version (``kernels/ref.py``), a CUDA
 tensor launches the hand-written CUDA kernel or raises.  ``use_kernel=False``
 asks for the plain version on any device; it is never chosen for the
-caller.  ``LAUNCHES`` counts, per wrapper, the kernel launches it made.
+caller.  ``LAUNCHES`` counts, per wrapper, the kernel launches it made
+(``gmm`` per kernel: ``gmm`` and ``gmm_tc``).
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from repro_torch.kernels import quantize as qz
 
 LAUNCHES: dict[str, int] = {
     "group_filter_agg": 0, "group_filter_agg_multi": 0,
-    "block_compact": 0, "filter_agg": 0, "gmm": 0, "flash_attention": 0,
+    "block_compact": 0, "filter_agg": 0, "gmm": 0, "gmm_tc": 0, "flash_attention": 0,
     "decode_attention": 0, "ssd_intra": 0,
     "alu_chain": 0, "int_matmul": 0, "quantize": 0, "dequantize": 0,
 }
@@ -125,11 +126,12 @@ def filter_agg(cols: torch.Tensor, lo, hi, lo2, hi2, *, use_kernel: bool = True)
 
 def gmm(lhs: torch.Tensor, rhs: torch.Tensor, *, use_kernel: bool = True) -> torch.Tensor:
     """Grouped matmul [E, C, d] x [E, d, f] -> [E, C, f]; f32 accumulator,
-    output in ``lhs.dtype``."""
+    output in ``lhs.dtype``.  A launch counts under ``gmm_tc`` (bf16 on the
+    tensor cores) or ``gmm`` (the CUDA cores), by ``moe_gmm.kernel_for``."""
     if not _route(lhs, use_kernel):
         return ref.gmm_ref(lhs, rhs)
     out = moe_gmm.launch(lhs, rhs)
-    LAUNCHES["gmm"] += 1
+    LAUNCHES[moe_gmm.kernel_for(lhs.dtype, *lhs.shape, rhs.shape[-1])] += 1
     return out
 
 
