@@ -18,7 +18,14 @@ and to the plain route computed in float32; the MoE models Jamba-v0.1,
 Grok-1 and Kimi-K2 at full width, cut in depth to whole periods of their
 layer pattern (``MOE_LAYERS``): the ``launch.serve`` defaults, Jamba's 2,048-token prompt,
 every K6 / K7 / K8 / K5 launch counted against layers x calls, apply_moe's
-bits alone and batched, and the same route checks; then the whole parameter space
+bits alone and batched, and the same route checks; the reference's last five
+architectures at full width in bf16 (``LM5_LAYERS``): OLMo-1B, InternLM2-20B
+and Mistral-Nemo-12B through the ``launch.serve`` defaults (InternLM2 also 8
+x 2,048-token prompts), Qwen2-VL-72B cut to 36 layers on embeddings with
+M-RoPE streams that differ, at a scalar and at per-slot indices, and
+SeamlessM4T-medium's frames through its encoder, cross cache and 16 greedy
+steps, every K6 and K7 launch counted and tallied by shape, with the same
+route checks; then the whole parameter space
 of the seven resource tasks (``compute_torch``, ``strings_torch``,
 ``memory_torch``, ``storage_torch``, ``index_offload_torch``,
 ``network_torch`` on NCCL, ``quantize_torch``) with each point's output held
@@ -43,7 +50,12 @@ the host link's), and prints:
     each alu_chain's 256 steps counted in its SASS; ``gmm_bf16`` is K5's
     tensor-core kernel at the MoE models' expert products, twelve shapes in
     ``moe_shapes`` with their launches on the MoE path and ``torch.bmm``,
-    every bf16 K5 launch of that path counted on it);
+    every bf16 K5 launch of that path counted on it; the bf16
+    ``flash_attention`` and ``decode_attention`` entries also carry the five
+    architectures' launches, ``lm5_launches``, and ``lm5_shapes``: InternLM2-20B's
+    8 x 2,048-token prefill at G 6 and its decode, SeamlessM4T-medium's encoder,
+    cross prefill and cross decode, each beside its plain version, SDPA and its
+    bound);
   * as its last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -98,6 +110,14 @@ LM_LAYERS = {"granite-3-8b": 40, "mamba2-2.7b": 64}
 # a second MoE layer would bring it to ~73 GB).
 MOE_LAYERS = {"jamba-v0.1-52b": 8, "grok-1-314b": 2, "kimi-k2-1t-a32b": 2}
 MOE_GMM_TOL = ATTN_TOL[torch.bfloat16]  # bf16 K5 at the MoE shapes: tests/test_kernels.py's bf16 _tol
+# The reference's last five architectures, at full width in bf16: OLMo-1B,
+# InternLM2-20B, Mistral-Nemo-12B and SeamlessM4T-medium (12 encoder + 12
+# decoder layers) at full depth (~2.4, ~39.8, ~24.5 and ~1.8 GB of weights),
+# Qwen2-VL-72B cut to 36 of its 80 layers (36 x 1.755 GB + a 2.49 GB head;
+# logits_from_hidden widens the head to 4.98 GB of float32 at each call),
+# the deepest that leaves ~10 GB of the card free (PERF.md §4).
+LM5_LAYERS = {"olmo-1b": 16, "internlm2-20b": 48, "mistral-nemo-12b": 40, "qwen2-vl-72b": 36,
+              "seamless-m4t-medium": 12}
 
 # Published H100-family peaks (NVIDIA data sheets): memory bytes/s, float32
 # FLOP/s outside the tensor cores and dense bf16 FLOP/s on the tensor cores.
@@ -689,6 +709,20 @@ def k5_k6_phase(dev):
         compare_k6("non-causal Sq != Sk", 2, 100, 300, 8, 2, dh, bf16, False, gen, dev)
         compare_k6("non-causal Sq != Sk", 2, 200, 70, 8, 4, dh, bf16, False, gen, dev)
         k6_batch_independence(100, dh, gen, dev)
+    # The reference's last five architectures: InternLM2-20B's G 6, Qwen2-VL-72B's
+    # G 8 (64 heads) and OLMo-1B's G 1 at dh 128, on the tensor cores at 2,048
+    # tokens and at a ragged length (and G 6 on the CUDA cores, the float32
+    # route); SeamlessM4T-medium's 16 heads at dh 64: the encoder (non-causal,
+    # Sq = Sk), the decoder's prompt (causal) and cross-attention (Sq != Sk).
+    for hq, hkv in ((48, 8), (64, 8), (16, 16)):
+        for s in (2048, 300):
+            errs[f"attn_lm5_{hq}_{hkv}_{s}"] = compare_k6("lm5 heads", 1, s, s, hq, hkv, 128, bf16, True, gen, dev)
+    compare_k6("lm5 heads", 2, 100, 100, 48, 8, 128, f32, True, gen, dev)
+    for dtype in (bf16, f32):
+        for b, sq, sk, causal in ((4, 512, 512, False), (4, 8, 8, True), (4, 8, 512, False), (4, 1, 512, False),
+                                  (1, 512, 512, True), (2, 100, 300, False)):
+            errs[f"attn_seamless_{dtype}_{b}_{sq}_{sk}_{causal}"] = compare_k6(
+                "seamless heads", b, sq, sk, 16, 16, 64, dtype, causal, gen, dev)
     return errs
 
 
@@ -774,6 +808,19 @@ def k7_k8_phase(dev):
             for s in (4096, 1000):
                 split = da.split_size(s)
                 compare_k7(f"G={g}", 4, s, g * hkv, hkv, dh, (1, split - 1, split, split + 1), dtype, gen, dev)
+        # The reference's last five architectures: G 6 (InternLM2-20B), G 1 at 16 KV heads
+        # (OLMo-1B) and G 8 at 8 KV heads (Qwen2-VL-72B), dh 128, on both sides of a split
+        # edge; SeamlessM4T-medium's dh 64 G 1, its self-attention and its cross-attention
+        # (kv_len S_src = 512 for every slot) on a longer cache.
+        for g, hkv in [(6, 8), (1, 16), (8, 8)]:
+            for s in (4096, 2065, 1000):
+                split = da.split_size(s)
+                errs[f"k7_lm5_{tag}_{g}_{hkv}_{s}"] = compare_k7(
+                    f"lm5 G={g}", 8 if s == 2065 else 4, s, g * hkv, hkv, 128,
+                    (2049, 2064, 1, split - 1, split, split + 1, 2065, 17) if s == 2065 else
+                    (1, split - 1, split, split + 1), dtype, gen, dev)
+        errs[f"k7_seamless_{tag}"] = compare_k7("seamless cross", 4, 1024, 16, 16, 64, (512,) * 4, dtype, gen, dev)
+        compare_k7("seamless self", 4, 512, 16, 16, 64, (9, 17, 24, 1), dtype, gen, dev)
         if dtype == torch.float32:  # tiny's dh 16 (the bf16 kernel does not take it)
             for g, hkv in [(2, 2), (1, 8), (8, 2), (16, 1), (3, 2)]:
                 split = da.split_size(1000)
@@ -1183,6 +1230,33 @@ def lm_path(dev):
     return out
 
 
+def route_batches(cfg, dev, b=2, s=100):
+    """The route check's prefill batch, decode batch and decode index: a
+    token prompt [B, S] and its first token at index S (per-slot); for a
+    model of embeddings (Qwen2-VL) embeddings [B, S, d] at the scale of an
+    embedding table's rows, with M-RoPE t/h/w streams that differ, and one
+    embedding a step; for an encoder-decoder B random frames of S positions,
+    an 8-token target prompt and its first token at index 8 (lockstep)."""
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    if cfg.encoder_decoder:
+        frames = torch.randn((b, s, cfg.d_model), generator=gen) * cfg.d_model**-0.5
+        tgt = torch.randint(0, cfg.vocab_size, (b, 8), generator=gen, dtype=torch.int32)
+        return {"frames": frames.to(dev), "tgt_tokens": tgt.to(dev)}, {"tokens": tgt[:, :1].to(dev)}, 8
+    index = torch.full((b,), s, dtype=torch.int32, device=dev)
+    if cfg.embed_inputs:
+        prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, dtype=torch.int32).to(dev)
+        return {"inputs": prompt}, {"tokens": prompt[:, :1]}, index
+    emb = (torch.randn((b, s, cfg.d_model), generator=gen) * cfg.d_model**-0.5).to(dev)
+    return {"inputs": emb, "positions": mrope_positions(b, s, gen).to(dev)}, {"tokens": emb[:, :1]}, index
+
+
+def mrope_positions(b, s, gen):
+    """[3, B, S] M-RoPE ids whose streams differ: t counts the positions, h
+    and w are seeded ids in [0, 32) (a patch grid's rows and columns)."""
+    t = torch.arange(s, dtype=torch.int32).expand(b, s)
+    return torch.stack([t, *(torch.randint(0, 32, (b, s), generator=gen, dtype=torch.int32) for _ in range(2))])
+
+
 def lm_route_phase(arch, dev, cfg=None):
     """The kernel route against use_kernel=False on the same weights and
     prompt (B=2, 100 tokens): the prefill's last logits and the first decode
@@ -1211,9 +1285,7 @@ def lm_route_phase(arch, dev, cfg=None):
     cfg = cfg or get_arch(arch)
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     params = Model(cfg, device=dev).init(0)
-    gen = torch.Generator(device="cpu").manual_seed(3)
-    prompt = torch.randint(0, cfg.vocab_size, (2, 100), generator=gen, dtype=torch.int32).to(dev)
-    index = torch.tensor([100, 100], dtype=torch.int32, device=dev)
+    prefill_batch, decode_batch, index = route_batches(cfg, dev)
     kernels = tuple(k for k, n in layer_counts(cfg).items() if n)
     routes = {"f32 plain": (cfg32, ()), "f32 kernel": (cfg32, kernels), "bf16 plain": (cfg, ()),
               "bf16 kernel": (cfg, kernels)}
@@ -1233,8 +1305,8 @@ def lm_route_phase(arch, dev, cfg=None):
             m = Model(c, device=dev, use_kernel=bool(on))
             cache = m.init_cache(2, 256)
             kops.reset_launches()
-            lp, cache = m.prefill(params, {"inputs": prompt}, cache)
-            ld, cache = m.decode(params, {"tokens": prompt[:, :1]}, cache, index)
+            lp, cache = m.prefill(params, prefill_batch, cache)
+            ld, cache = m.decode(params, decode_batch, cache, index)
             launched = {k: n for k, n in kops.LAUNCHES.items() if n}
         finally:
             moe.route = real_route
@@ -1330,9 +1402,14 @@ def layer_counts(cfg) -> dict[str, int]:
     """Launches of each LM kernel a call makes over the stack: K6 one per
     attention layer a prefill, K7 one per attention layer a decode step, K8
     one per Mamba2 layer a prefill, K5 two per MoE layer a prefill or a
-    decode step."""
+    decode step; an encoder-decoder K6 once a prefill for each encoder
+    layer and twice for each decoder layer (self- and cross-attention), K7
+    twice a decode step for each decoder layer."""
     from repro_torch.configs.base import LayerKind
 
+    if cfg.encoder_decoder:
+        return {"flash_attention": cfg.n_encoder_layers + 2 * cfg.n_layers, "decode_attention": 2 * cfg.n_layers,
+                "ssd_intra": 0, "gmm": 0}
     kinds = [LayerKind("attn", "dense")] * cfg.first_k_dense + list(cfg.pattern) * cfg.n_repeats
     attn = sum(k.mixer == "attn" for k in kinds)
     return {"flash_attention": attn, "decode_attention": attn, "ssd_intra": len(kinds) - attn,
@@ -1348,9 +1425,11 @@ def want_launches(cfg, prefills, decodes) -> dict[str, int]:
 
 
 def check_launches(label, cfg, delta, prefills, decodes):
+    """Every launch counter moved by exactly what the layers and calls
+    give, the counters of the kernels off the path by none."""
     want = want_launches(cfg, prefills, decodes)
-    for kname, n in want.items():
-        check(delta[kname] == n, f"{label}: {kname} launched {delta[kname]}, want {n}")
+    for kname, n in delta.items():
+        check(n == want.get(kname, 0), f"{label}: {kname} launched {n}, want {want.get(kname, 0)}")
     return want
 
 
@@ -1387,18 +1466,17 @@ def moe_alone_vs_batched(label, cfg, params, dev):
           f"(torch.equal)", flush=True)
 
 
-def moe_serve_phase(arch, dev):
+def served_phase(arch, dev, cfg):
     """(a) ``launch.serve``'s defaults (16 requests, 4 slots, prompts of 4-31
-    tokens, 16 new tokens, max_len 256) on the cut config, launches checked
-    exactly; then, on the same weights, a prefill of the longest prompt, a
-    decode step at 4 slots with its card-busy share, and apply_moe's bits
-    alone and batched."""
+    tokens, 16 new tokens, max_len 256) on ``cfg`` (``arch``'s, or cut in
+    depth), launches checked exactly; then, on the same weights, a prefill
+    of the longest prompt, a decode step at 4 slots with its card-busy
+    share, and (an MoE model) apply_moe's bits alone and batched."""
     from repro_torch.kernels import ops as kops
     from repro_torch.launch import serve
     from repro_torch.models.model import Model
     from repro_torch.runtime.serve_loop import Request, SlotServer
 
-    cfg = moe_config(arch)
     args = serve.parse_args(["--arch", arch])
     label = f"{arch} ({cfg.n_layers} layers, full width)"
     torch.cuda.reset_peak_memory_stats()
@@ -1439,30 +1517,31 @@ def moe_serve_phase(arch, dev):
           f"{prefill_ms:.2f} ms, decode step at {args.slots} slots {decode_ms:.2f} ms (medians); peak "
           f"{peak_gb:.1f} GB ({out['weights_gb']:.1f} GB of bf16 weights); launches {json.dumps(out['launches'])}",
           flush=True)
-    moe_alone_vs_batched(label, cfg, params, dev)
+    if cfg.is_moe:
+        moe_alone_vs_batched(label, cfg, params, dev)
     del server, params, model
     free_card()
     return out
 
 
-def moe_long_phase(arch, dev, plen=2048, steps=8):
-    """(c) One prompt of ``plen`` tokens and ``steps`` decode steps after it
-    (Jamba: K5 at C = 320, K6 at 32 / 8 / 128 heads without RoPE, K8 at
-    H 128, P 64, N 128), launches checked exactly, with the card-busy share
-    of the prefill and of a decode step."""
+def long_prompt_phase(arch, cfg, dev, batch=1, plen=2048, steps=8):
+    """(c) ``batch`` prompts of ``plen`` tokens in one prefill and ``steps``
+    lockstep decode steps after it (Jamba: K5 at C = 320, K6 at 32 / 8 / 128
+    heads without RoPE, K8 at H 128, P 64, N 128; InternLM2-20B: K6 at G 6
+    over 8 x 2,048 tokens), launches checked exactly, with the card-busy
+    share of the prefill and of a decode step."""
     from repro_torch.kernels import ops as kops
     from repro_torch.models.model import Model
 
-    cfg = moe_config(arch)
-    label = f"{arch} ({cfg.n_layers} layers) {plen}-token prompt"
+    label = f"{arch} ({cfg.n_layers} layers) {batch} x {plen}-token prompt"
     model = Model(cfg, device=dev)
     params = model.init(0)
     gen = torch.Generator(device="cpu").manual_seed(4)
-    prompt = torch.randint(0, cfg.vocab_size, (1, plen), generator=gen, dtype=torch.int32).to(dev)
+    prompt = torch.randint(0, cfg.vocab_size, (batch, plen), generator=gen, dtype=torch.int32).to(dev)
     max_len = plen + steps + 1
 
     def prefill():
-        return model.prefill(params, {"inputs": prompt}, model.init_cache(1, max_len))
+        return model.prefill(params, {"inputs": prompt}, model.init_cache(batch, max_len))
 
     prefill_ms = host_ms(prefill, 3)
     before = dict(kops.LAUNCHES)
@@ -1478,10 +1557,10 @@ def moe_long_phase(arch, dev, plen=2048, steps=8):
     delta = {k: kops.LAUNCHES[k] - before[k] for k in before}
     check_launches(label, cfg, delta, 1, steps)
     decode_ms = sorted(step_ms)[len(step_ms) // 2]
-    index = torch.tensor([plen + steps], dtype=torch.int32, device=dev)
-    out = {"prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
-           "prefill_device_share": device_share(f"{arch} prefill of {plen} tokens", prefill, calls=1),
-           "decode_device_share": device_share(f"{arch} decode step at ~{plen} keys",
+    index = torch.full((batch,), plen + steps, dtype=torch.int32, device=dev)
+    out = {"prefill_ms": prefill_ms, "decode_step_ms": decode_ms, "tokens_per_s": 1e3 * batch / decode_ms,
+           "prefill_device_share": device_share(f"{arch} prefill of {batch} x {plen} tokens", prefill, calls=1),
+           "decode_device_share": device_share(f"{arch} decode step, {batch} slot(s) at ~{plen} keys",
                                                lambda: model.decode(params, {"tokens": tok}, cache, index)),
            "launches": {k: v for k, v in delta.items() if v}}
     print(f"[lm] {label}: prefill {prefill_ms:.2f} ms (median of 3), decode step {decode_ms:.2f} ms (median of "
@@ -1493,29 +1572,227 @@ def moe_long_phase(arch, dev, plen=2048, steps=8):
     return out
 
 
+@contextlib.contextmanager
+def launch_shapes(module, key):
+    """Tally ``module.launch``'s calls by ``key(*args)`` while the block runs
+    (the launch function the wrapper calls, so only kernel launches count)."""
+    tally, real = collections.Counter(), module.launch
+
+    def counted(*args):
+        tally[key(*args)] += 1
+        return real(*args)
+
+    module.launch = counted
+    try:
+        yield tally
+    finally:
+        module.launch = real
+
+
+def gmm_key(lhs, rhs):
+    return lhs.shape[0], lhs.shape[1], lhs.shape[2], rhs.shape[2]  # (E, C, d, f)
+
+
+def k6_key(q, k, v, causal):
+    return bool(causal), q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2], q.shape[3]
+
+
+def k7_key(q, k, v, kv_len):
+    return q.shape[0], k.shape[1], q.shape[1], k.shape[2], q.shape[2]  # (B, S, Hq, Hkv, dh)
+
+
 def moe_path(dev):
     """The MoE models, each freed before the next: (a) serving and (c) the
     2,048-token prompt (Jamba), with every K5 launch's shape counted."""
     from repro_torch.kernels import moe_gmm
 
-    shapes = collections.Counter()
-    real = moe_gmm.launch
-
-    def counted(lhs, rhs):
-        shapes[(lhs.shape[0], lhs.shape[1], lhs.shape[2], rhs.shape[2])] += 1
-        return real(lhs, rhs)
-
-    moe_gmm.launch = counted
-    try:
-        out = {}
+    out = {}
+    with launch_shapes(moe_gmm, gmm_key) as shapes:
         for arch in MOE_LAYERS:
-            out[f"{arch} serve"] = moe_serve_phase(arch, dev)
+            out[f"{arch} serve"] = served_phase(arch, dev, moe_config(arch))
             if arch == "jamba-v0.1-52b":
-                out[f"{arch} long"] = moe_long_phase(arch, dev)
-    finally:
-        moe_gmm.launch = real
+                out[f"{arch} long"] = long_prompt_phase(arch, moe_config(arch), dev)
     out["gmm shapes"] = {f"E={e} C={c} d={d} f={f}": n for (e, c, d, f), n in sorted(shapes.items())}
     print(f"[moe] K5 launches by shape on the MoE path: {json.dumps(out['gmm shapes'])}", flush=True)
+    return out, shapes
+
+
+# ---------------------------------------------------------------------------
+# The reference's last five architectures (LM5_LAYERS).
+def lm5_config(arch):
+    from repro_torch.configs.base import get_arch
+
+    return dataclasses.replace(get_arch(arch), n_layers=LM5_LAYERS[arch])
+
+
+def lm5_served():
+    """The token decoders of LM5_LAYERS, which launch.serve's defaults serve."""
+    return [a for a in LM5_LAYERS if lm5_config(a).embed_inputs and not lm5_config(a).encoder_decoder]
+
+
+def timed_steps(step, steps):
+    """Run ``step(i)`` for i < steps, the card synchronised after each;
+    returns the outputs and each step's host ms."""
+    outs, ms = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        outs.append(step(i))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return outs, ms
+
+
+def embeddings_phase(arch, dev, b=4, plen=100, steps=16):
+    """Qwen2-VL-72B at full width, cut in depth: a prefill of ``b`` prompts
+    of ``plen`` random embeddings with M-RoPE t/h/w streams that differ,
+    then ``steps`` lockstep decode steps of random embeddings at a scalar
+    index; then the same at per-slot indices [B] on a fresh cache, which
+    must give the same bits.  Launches checked exactly."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.model import Model
+
+    cfg = lm5_config(arch)
+    label = f"{arch} ({cfg.n_layers} of 80 layers, full width)"
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device=dev)
+    params = model.init(0)
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    scale = cfg.d_model**-0.5  # an embedding table's rows (truncated normal x d^-0.5)
+    emb = (torch.randn((b, plen, cfg.d_model), generator=gen) * scale).to(dev)
+    pos = mrope_positions(b, plen, gen).to(dev)
+    new = (torch.randn((steps, b, 1, cfg.d_model), generator=gen) * scale).to(dev)
+    max_len = plen + steps + 1
+    runs = {}
+    for mode in ("scalar", "per-slot"):
+        before = dict(kops.LAUNCHES)
+        cache = model.init_cache(b, max_len)
+        t0 = time.perf_counter()
+        first, cache = model.prefill(params, {"inputs": emb, "positions": pos}, cache)
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        index = (lambda i: plen + i) if mode == "scalar" else \
+            (lambda i: torch.full((b,), plen + i, dtype=torch.int32, device=dev))
+        outs, ms = timed_steps(lambda i: model.decode(params, {"tokens": new[i]}, cache, index(i))[0], steps)
+        delta = {k: kops.LAUNCHES[k] - before[k] for k in before}
+        check_launches(f"{label} {mode}", cfg, delta, 1, steps)
+        for lg in [first] + outs:
+            check(bool(torch.isfinite(lg).all()) and lg.shape == (b, cfg.padded_vocab), f"{label} {mode}: logits")
+        runs[mode] = ([first] + outs, prefill_ms, ms, delta)
+    check(all(torch.equal(x, y) for x, y in zip(runs["scalar"][0], runs["per-slot"][0])),
+          f"{label}: per-slot indices differ from the scalar index")
+    _, prefill_ms, ms, delta = runs["scalar"]
+    decode_ms = sorted(ms)[len(ms) // 2]
+    step = lambda: model.decode(params, {"tokens": new[0]}, cache, plen + steps)  # noqa: E731
+    out = {"layers": cfg.n_layers, "prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
+           "tokens_per_s": 1e3 * b * steps / (prefill_ms + sum(ms)),
+           "decode_device_share": device_share(f"{arch} decode step, {b} slots at ~{plen} keys", step),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "weights_gb": cfg.n_params() * 2 / 1e9,
+           "launches": {k: v for k, v in delta.items() if v}}
+    print(f"[lm5] {label}: {b} x {plen} embeddings with t/h/w streams that differ, prefill {prefill_ms:.2f} ms, "
+          f"{steps} lockstep decode steps {decode_ms:.2f} ms (median), {out['tokens_per_s']:.1f} tok/s (the prefill "
+          f"and the steps), card busy {100 * out['decode_device_share']:.1f}% of a step; per-slot indices bit-equal "
+          f"to the scalar index; peak {out['peak_gb']:.1f} GB ({out['weights_gb']:.1f} GB of bf16 weights); "
+          f"launches a run {json.dumps(out['launches'])}", flush=True)
+    del params, model, cache, runs
+    free_card()
+    return out
+
+
+def encdec_phase(arch, dev, k6, k7, b=4, s_src=512, tgt=8, steps=16):
+    """SeamlessM4T-medium at full width and depth: ``b`` random frames of
+    ``s_src`` positions and a ``tgt``-token target prompt, then ``steps``
+    greedy decode steps in lockstep.  Each prefill is 12 non-causal K6 over
+    the frames (the encoder), 12 causal K6 over the target prompt and 12
+    non-causal K6 from it to the frames (cross-attention, Sq != Sk); each
+    step 24 K7 (self-attention, and cross-attention over the S_src slots).
+    ``k6`` and ``k7`` are the path's tallies (``launch_shapes``); this run's
+    launches are what they gain while it runs.  ``launch.serve`` gives it
+    the reference's message and code 2."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+
+    check(serve.main(["--arch", arch]) == 2, f"{arch}: launch.serve must answer 2 for an encoder-decoder")
+    cfg = lm5_config(arch)
+    label = f"{arch} ({cfg.n_encoder_layers} + {cfg.n_layers} layers, full width)"
+    model = Model(cfg, device=dev)
+    params = model.init(0)
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    frames = (torch.randn((b, s_src, cfg.d_model), generator=gen) * cfg.d_model**-0.5).to(dev)
+    prompt = torch.randint(0, cfg.vocab_size, (b, tgt), generator=gen, dtype=torch.int32).to(dev)
+    batch = {"frames": frames, "tgt_tokens": prompt}
+    max_len = s_src  # the cross cache holds every frame; the target takes tgt + steps slots of it
+    cache = model.init_cache(b, max_len)
+    model.prefill(params, batch, cache)  # warm-up at this shape
+    before, before6, before7 = dict(kops.LAUNCHES), collections.Counter(k6), collections.Counter(k7)
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, batch, model.init_cache(b, max_len))
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    tokens = []
+
+    def step(i):
+        nonlocal logits
+        tok = torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
+        tokens.append(tok)
+        logits, _ = model.decode(params, {"tokens": tok}, cache, tgt + i)
+        return logits
+
+    outs, ms = timed_steps(step, steps)
+    delta = {k: kops.LAUNCHES[k] - before[k] for k in before}
+    run6, run7 = k6 - before6, k7 - before7
+    check_launches(label, cfg, delta, 1, steps)
+    enc, dec = cfg.n_encoder_layers, cfg.n_layers
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    want6 = {(False, b, s_src, s_src, hq, hkv, dh): enc, (True, b, tgt, tgt, hq, hkv, dh): dec,
+             (False, b, tgt, s_src, hq, hkv, dh): dec}
+    check(dict(run6) == want6, f"{label}: K6 launches by (causal, B, Sq, Sk, Hq, Hkv, dh) {dict(run6)}, want {want6}")
+    check(dict(run7) == {(b, max_len, hq, hkv, dh): 2 * dec * steps}, f"{label}: K7 launches {dict(run7)}")
+    for lg in outs:
+        check(bool(torch.isfinite(lg).all()) and lg.shape == (b, cfg.padded_vocab), f"{label}: logits")
+    ids = torch.cat(tokens, dim=1)
+    check(bool(((ids >= 0) & (ids < cfg.padded_vocab)).all()), f"{label}: token ids")
+    decode_ms = sorted(ms)[len(ms) // 2]
+    index = torch.tensor(tgt + steps, dtype=torch.int32, device=dev)
+    out = {"prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
+           "tokens_per_s": 1e3 * b * steps / (prefill_ms + sum(ms)),
+           "prefill_device_share": device_share(f"{arch} prefill of {b} x {s_src} frames and {tgt} tokens",
+                                                lambda: model.prefill(params, batch, model.init_cache(b, max_len)),
+                                                calls=1),
+           "decode_device_share": device_share(f"{arch} decode step, {b} slots",
+                                               lambda: model.decode(params, {"tokens": tokens[-1]}, cache, index)),
+           "k6_by_shape": {str(k): n for k, n in run6.items()}, "launches": {k: v for k, v in delta.items() if v}}
+    print(f"[lm5] {label}: {b} x {s_src} frames and a {tgt}-token prompt, prefill {prefill_ms:.2f} ms, {steps} "
+          f"greedy decode steps {decode_ms:.2f} ms (median), {out['tokens_per_s']:.1f} tok/s (the prefill and the "
+          f"steps), card busy {100 * out['prefill_device_share']:.1f}% of the prefill and "
+          f"{100 * out['decode_device_share']:.1f}% of a step; K6 by (causal, B, Sq, Sk, Hq, Hkv, dh) "
+          f"{json.dumps(out['k6_by_shape'])}, K7 {2 * dec * steps}; launches {json.dumps(out['launches'])}",
+          flush=True)
+    del params, model, cache
+    free_card()
+    return out
+
+
+def lm5_path(dev):
+    """The reference's last five architectures, each freed before the next:
+    launch.serve's defaults for the three token models (InternLM2-20B also
+    8 x 2,048-token prompts), Qwen2-VL-72B's embeddings through Model, and
+    SeamlessM4T-medium's frames; every K6 and K7 launch tallied by shape."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    out = {}
+    with launch_shapes(fa, k6_key) as k6, launch_shapes(da, k7_key) as k7:
+        for arch in lm5_served():
+            out[f"{arch} serve"] = served_phase(arch, dev, lm5_config(arch))
+            if arch == "internlm2-20b":
+                out[f"{arch} long"] = long_prompt_phase(arch, lm5_config(arch), dev, batch=8, steps=16)
+        out["qwen2-vl-72b"] = embeddings_phase("qwen2-vl-72b", dev)
+        out["seamless-m4t-medium"] = encdec_phase("seamless-m4t-medium", dev, k6, k7)
+    shapes = {"flash_attention": dict(k6), "decode_attention": dict(k7)}
+    print(f"[lm5] K6 launches by (causal, B, Sq, Sk, Hq, Hkv, dh): "
+          f"{json.dumps({str(k): n for k, n in sorted(k6.items())})}; K7 by (B, S, Hq, Hkv, dh): "
+          f"{json.dumps({str(k): n for k, n in sorted(k7.items())})}", flush=True)
     return out, shapes
 
 
@@ -1667,6 +1944,56 @@ def kernel_entry(kname, source, replaces, launches, run, run_plain, bytes_ms, op
     }
 
 
+def k6_calls(b, sq, sk, hq, hkv, dh, dtype, causal, gen, dev):
+    """K6, its plain version and SDPA (with ``enable_gqa``, and with K/V
+    expanded to Hq heads) on one shape (q [B, Sq, Hq, dh], k/v [B, Sk, Hkv,
+    dh]; causal takes Sq = Sk), with SDPA's largest distance from K6, and
+    the bytes (q, k, v, out once) and the operations (q.k and p.v on the
+    visible pairs) of the call."""
+    from repro_torch.kernels import ops as kops
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q = torch.randn((b, sq, hq, dh), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, sk, hkv, dh), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, sk, hkv, dh), generator=gen, device=dev).to(dtype)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))  # SDPA's [B, H, S, dh]
+    ke, ve = (x.repeat_interleave(hq // hkv, dim=1) for x in (kt, vt))
+    run = lambda: kops.flash_attention(q, k, v, causal=causal)  # noqa: E731
+    lib = lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)  # noqa: E731
+    lib_expanded = lambda: sdpa(qt, ke, ve, is_causal=causal)  # noqa: E731
+    lib_err = float((lib().transpose(1, 2).float() - run().float()).abs().max())
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    nops = 4 * dh * b * hq * (sq * (sq + 1) // 2 if causal else sq * sk)
+    plain = lambda: kops.flash_attention(q, k, v, causal=causal, use_kernel=False)  # noqa: E731
+    return run, plain, lib, lib_err, nbytes, nops, lib_expanded
+
+
+def k7_calls(b, s, hq, hkv, dh, kvl, gen, dev):
+    """bf16 K7, its plain version and SDPA with a bool mask over the ``s``
+    cache slots on one shape (``kvl`` valid keys in every slot), SDPA over
+    the cache cut to ``kvl`` with no mask, SDPA's largest distance from K7,
+    and the bytes (q, out, and the valid keys and values once) and the
+    operations (q.k and p.v for every valid key of every query head)."""
+    from repro_torch.kernels import ops as kops
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q = torch.randn((b, hq, dh), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((b, s, hkv, dh), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((b, s, hkv, dh), generator=gen, device=dev).to(torch.bfloat16)
+    kv_len = torch.full((b,), kvl, dtype=torch.int32, device=dev)
+    run = lambda: kops.decode_attention(q, k, v, kv_len)  # noqa: E731
+    plain = lambda: kops.decode_attention(q, k, v, kv_len, use_kernel=False)  # noqa: E731
+    qt, kt, vt = q[:, :, None], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()  # SDPA's [B, H, S, dh]
+    mask = (torch.arange(s, device=dev)[None] < kv_len[:, None])[:, None, None, :]
+    lib = lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
+    kc, vc = kt[:, :, :kvl].contiguous(), vt[:, :, :kvl].contiguous()
+    cut = lambda: sdpa(qt, kc, vc, enable_gqa=True)  # noqa: E731
+    lib_err = float((lib()[:, :, 0].float() - run().float()).abs().max())
+    nbytes = 2 * (2 * q.numel() + 2 * b * kvl * hkv * dh)
+    nops = 4 * dh * hq * kvl * b
+    return run, plain, lib, lib_err, nbytes, nops, cut
+
+
 def new_kernel_entries(tables, name, launches, errs):
     """K3-K6 at the main paths' shapes: pushdown scale 1.0, selectivity 0.5
     for K3 and K4, accel_torch large (f32) for K5, Granite-3-8B's 2,048-token
@@ -1710,32 +2037,13 @@ def new_kernel_entries(tables, name, launches, errs):
     k5 = lambda: kops.gmm(lhs, rhs)  # noqa: E731
     k5p = lambda: kops.gmm(lhs, rhs, use_kernel=False)  # noqa: E731
     k5lib = lambda: torch.bmm(lhs, rhs)  # noqa: E731
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-
-    def k6_calls(b, sq, hq, hkv, dh, dtype):
-        """K6, its plain version and SDPA (with ``enable_gqa``, and with K/V
-        expanded to Hq heads) on one causal shape, with the bytes (q, k, v,
-        out once) and the operations (q.k and p.v on the visible pairs) of
-        the call."""
-        q = torch.randn((b, sq, hq, dh), generator=gen, device=dev).to(dtype)
-        k = torch.randn((b, sq, hkv, dh), generator=gen, device=dev).to(dtype)
-        v = torch.randn((b, sq, hkv, dh), generator=gen, device=dev).to(dtype)
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))  # SDPA's [B, H, S, dh]
-        ke, ve = (x.repeat_interleave(hq // hkv, dim=1) for x in (kt, vt))
-        run = lambda: kops.flash_attention(q, k, v, causal=True)  # noqa: E731
-        lib = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)  # noqa: E731
-        lib_expanded = lambda: sdpa(qt, ke, ve, is_causal=True)  # noqa: E731
-        lib_err = float((lib().transpose(1, 2).float() - run().float()).abs().max())
-        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-        nops = 4 * dh * b * hq * sq * (sq + 1) // 2
-        plain = lambda: kops.flash_attention(q, k, v, causal=True, use_kernel=False)  # noqa: E731
-        return run, plain, lib, lib_err, nbytes, nops, lib_expanded
 
     def k6_f32_times(b, sq, hq, hkv, dh):
         """K6's CUDA-core kernel on one f32 causal shape: one call and its
         device time and launches, the plain version, both SDPA calls with
         their backends, and the operations bound."""
-        run, plain, lib, lib_err, nbytes, nops, lib_expanded = k6_calls(b, sq, hq, hkv, dh, torch.float32)
+        run, plain, lib, lib_err, nbytes, nops, lib_expanded = k6_calls(b, sq, sq, hq, hkv, dh, torch.float32, True,
+                                                                        gen, dev)
         device_ms, per_call = device_profile(run, ("flash_attention",))
         check(round(per_call) == 1, f"flash_attention f32 S={sq} dh={dh}: {per_call} device launches a call")
         bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * nops / flops
@@ -1761,7 +2069,7 @@ def new_kernel_entries(tables, name, launches, errs):
           f"{json.dumps(granite_f32)}", flush=True)
     # K6 at Granite-3-8B's 2,048-token prefill, bf16: the entry.
     b, sg, hq, hkv, dh = 1, 2048, 32, 8, 128
-    k6, k6p, k6lib, lib_err, k6_bytes, k6_ops, _ = k6_calls(b, sg, hq, hkv, dh, torch.bfloat16)
+    k6, k6p, k6lib, lib_err, k6_bytes, k6_ops, _ = k6_calls(b, sg, sg, hq, hkv, dh, torch.bfloat16, True, gen, dev)
     print(f"[times] sdpa vs flash_attention kernel at granite prefill: max_abs_err {lib_err:.3g}", flush=True)
 
     compact_t = time_ms(lambda: ops.compact(scanned, mask, cap))
@@ -1828,27 +2136,12 @@ def lm_kernel_entries(name, launches, errs):
     gen = torch.Generator(device=dev).manual_seed(15)
     bf16 = torch.bfloat16
     b, s, hq, hkv, dh, kvl = 8, 4096, 32, 8, 128, 2064
-    q = torch.randn((b, hq, dh), generator=gen, device=dev).to(bf16)
-    k = torch.randn((b, s, hkv, dh), generator=gen, device=dev).to(bf16)
-    v = torch.randn((b, s, hkv, dh), generator=gen, device=dev).to(bf16)
-    kv_len = torch.full((b,), kvl, dtype=torch.int32, device=dev)
-    k7 = lambda: kops.decode_attention(q, k, v, kv_len)  # noqa: E731
-    k7p = lambda: kops.decode_attention(q, k, v, kv_len, use_kernel=False)  # noqa: E731
-    qt, kt, vt = q[:, :, None], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()  # SDPA's [B, H, S, dh]
-    mask = (torch.arange(s, device=dev)[None] < kv_len[:, None])[:, None, None, :]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    k7lib = lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
-    # SDPA over the cache cut to kv_len (every slot of this batch has the same), no mask.
-    kc, vc = kt[:, :, :kvl].contiguous(), vt[:, :, :kvl].contiguous()
-    k7cut = lambda: sdpa(qt, kc, vc, enable_gqa=True)  # noqa: E731
-    lib_err = float((k7lib()[:, :, 0].float() - k7().float()).abs().max())
+    k7, k7p, k7lib, lib_err, k7_bytes, k7_ops, k7cut = k7_calls(b, s, hq, hkv, dh, kvl, gen, dev)
     cut_err = float((k7cut()[:, :, 0].float() - k7().float()).abs().max())
     backends = {"masked": sdpa_backend(k7lib), "cut": sdpa_backend(k7cut)}
     print(f"[times] sdpa vs decode_attention kernel at the long-context decode shape: max_abs_err {lib_err:.3g} "
           f"(bool mask over {s} slots), {cut_err:.3g} (cache cut to {kvl}, no mask); backends {json.dumps(backends)}",
           flush=True)
-    k7_bytes = 2 * (2 * q.numel() + 2 * b * kvl * hkv * dh)  # q, out, and the valid keys and values once
-    k7_ops = 4 * dh * hq * kvl * b  # q.k and p.v for every valid key of every query head
 
     b8, s8, h, p, n, chunk = 1, 2048, 80, 64, 128, 64
     nc, pairs = s8 // chunk, chunk * (chunk + 1) // 2
@@ -1876,6 +2169,47 @@ def lm_kernel_entries(name, launches, errs):
                      "library_cut_ms": time_ms(k7cut),
                      "library_cut": f"SDPA over the cache cut to kv_len, no mask, enable_gqa ({backends['cut']})"})
     return [k7_entry, k8_entry]
+
+
+def lm5_attention_rows(name, shapes):
+    """bf16 K6 and K7 at the shapes of the five architectures' path where
+    their time goes: InternLM2-20B's 8 x 2,048-token prefill (G 6) and its
+    decode steps after it (8 slots, a 2,065-slot cache, 2,064 valid keys),
+    SeamlessM4T-medium's encoder and cross-attention prefill and its
+    cross-attention decode over the 512 frames; each one call beside its
+    plain version, SDPA (with its backend) and its bound, with its launches
+    on the path (``shapes``: lm5_path's tallies)."""
+    bw, _, bf16_flops = peaks(name)
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(25)
+    rows = {"flash_attention": [], "decode_attention": []}
+
+    def row(kname, label, key, calls, lib_what):
+        run, plain, lib, lib_err, nbytes, nops, _ = calls
+        err = close(f"{kname} {label}", run(), plain(), *ATTN_TOL[torch.bfloat16])
+        bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * nops / bf16_flops
+        out = {"shape": label, "launches": shapes[kname].get(key, 0), "max_abs_err": err, "ms": time_ms(run),
+               "plain_ms": time_ms(plain, reps=5, warmup=1), "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": time_ms(lib),
+               "library": f"{lib_what} ({sdpa_backend(lib)}; max_abs_err {lib_err:.3g} from the kernel)"}
+        rows[kname].append(out)
+        print(f"[lm5] {kname} {json.dumps(out)}", flush=True)
+
+    for label, b, sq, sk, hq, hkv, dh, causal in (
+            ("internlm2-20b prefill", 8, 2048, 2048, 48, 8, 128, True),
+            ("seamless encoder", 4, 512, 512, 16, 16, 64, False),
+            ("seamless cross prefill", 4, 8, 512, 16, 16, 64, False)):
+        row("flash_attention", f"{label}: B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} dh={dh} bf16 causal={causal}",
+            (causal, b, sq, sk, hq, hkv, dh), k6_calls(b, sq, sk, hq, hkv, dh, torch.bfloat16, causal, gen, dev),
+            "SDPA, enable_gqa")
+        free_card()
+    for label, b, s, hq, hkv, dh, kvl in (("internlm2-20b decode", 8, 2065, 48, 8, 128, 2064),
+                                          ("seamless cross decode", 4, 512, 16, 16, 64, 512)):
+        row("decode_attention", f"{label}: B={b} S={s} Hq={hq} Hkv={hkv} dh={dh} kv_len={kvl} bf16",
+            (b, s, hq, hkv, dh), k7_calls(b, s, hq, hkv, dh, kvl, gen, dev),
+            f"SDPA, bool kv_len mask over {s} slots, enable_gqa")
+        free_card()
+    return rows
 
 
 def moe_gmm_entries(name, launches, shapes):
@@ -2520,6 +2854,7 @@ def main() -> int:
         "accel": ("filter_agg", "gmm", "flash_attention"),
         "lm": ("decode_attention", "ssd_intra", "flash_attention"),
         "moe": ("gmm_tc", "flash_attention", "decode_attention", "ssd_intra"),
+        "lm5": ("flash_attention", "decode_attention"),
         "resources": RESOURCE_KERNELS,
     }
     launches = dict.fromkeys(kops.LAUNCHES, 0)
@@ -2539,6 +2874,8 @@ def main() -> int:
             lm = lm_path(dev)
         elif path == "moe":
             moe_out, moe_shapes = moe_path(dev)
+        elif path == "lm5":
+            lm5_out, lm5_shapes = lm5_path(dev)
         else:
             resources = resources_phase(dev, name)
         counts = dict(kops.LAUNCHES)
@@ -2557,6 +2894,7 @@ def main() -> int:
     pushdown_plans_agree(pd_ctx.scratch)
     lm_route = {arch: lm_route_phase(arch, dev) for arch in LM_LAYERS}
     lm_route.update({arch: lm_route_phase(arch, dev, moe_config(arch)) for arch in MOE_LAYERS})
+    lm_route.update({arch: lm_route_phase(arch, dev, lm5_config(arch)) for arch in LM5_LAYERS})
     per_query = {}
     kops.reset_launches()
     queries.q1_fused(li)
@@ -2579,10 +2917,17 @@ def main() -> int:
     entries += lm_kernel_entries(name, launches, errs)
     entries += lm_f32_kernel_entries(name, f32_launches)
     entries.append(moe_gmm_entries(name, path_counts["moe"]["gmm_tc"], moe_shapes))
+    # The five architectures' K6 / K7 launches are in the bf16 entries' counts;
+    # their shapes, times and launches by shape ride in those entries.
+    for kname, rows in lm5_attention_rows(name, lm5_shapes).items():
+        ent = next(e for e in entries if e["name"] == kname)
+        ent["lm5_launches"] = path_counts["lm5"][kname]
+        ent["lm5_shapes"] = rows
     entries += resource_kernel_entries(name, launches, errs, chains)
     f32_route_times(name)
     print(f"[times] per query at sf1 (ms): {json.dumps(per_query_times(plans))}", flush=True)
-    print(f"[lm] summary: {json.dumps({'paths': lm, 'moe': moe_out, 'route_rel_l2': lm_route})}", flush=True)
+    print(f"[lm] summary: {json.dumps({'paths': lm, 'moe': moe_out, 'lm5': lm5_out, 'route_rel_l2': lm_route})}",
+          flush=True)
     print(f"[resources] seconds a task: {json.dumps(resources)}", flush=True)
     pd_task.clean(pd_ctx)
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)

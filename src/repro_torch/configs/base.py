@@ -2,8 +2,8 @@
 package's ``configs/base.py``).
 
 Every architecture is a frozen `ArchConfig`, with the same fields and
-defaults as the reference's.  `ARCHS` lists only the configurations the port
-runs; `get_arch` raises for the others.  `tiny()` derives the reduced config
+defaults as the reference's.  `ARCHS` is the registry, the reference's ten
+configurations; `get_arch` raises for any other name.  `tiny()` derives the reduced config
 the CPU tests use.  `SHAPES` defines the four input-shape cells.
 """
 from __future__ import annotations
@@ -169,17 +169,22 @@ SHAPES: dict[str, ShapeCell] = {
 
 # ---------------------------------------------------------------------------
 ARCHS: dict[str, str] = {  # arch id -> module defining CONFIG
+    "olmo-1b": "repro_torch.configs.olmo_1b",
     "granite-3-8b": "repro_torch.configs.granite_3_8b",
+    "internlm2-20b": "repro_torch.configs.internlm2_20b",
+    "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
     "grok-1-314b": "repro_torch.configs.grok_1_314b",
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
     "jamba-v0.1-52b": "repro_torch.configs.jamba_v01_52b",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
+    "qwen2-vl-72b": "repro_torch.configs.qwen2_vl_72b",
+    "seamless-m4t-medium": "repro_torch.configs.seamless_m4t_medium",
 }
 
 
 def get_arch(name: str) -> ArchConfig:
     if name not in ARCHS:
-        raise KeyError(f"the port runs no arch {name!r} yet; it runs {sorted(ARCHS)}")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
     return importlib.import_module(ARCHS[name]).CONFIG
 
 

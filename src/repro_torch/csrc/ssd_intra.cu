@@ -43,9 +43,9 @@
 //     (P = 5, N = 17) load by 2-byte copies; rows past Q and columns past P
 //     or N are zeros.
 //   * The in-chunk cumsum: dt is read as rows of the block's contiguous
-//     heads, then one warp per head scans it: each lane sums a run of
-//     consecutive steps, a shuffle scan over the lanes adds the runs before
-//     it.  seg_j = exp(lcum_{Q-1} - lcum_j) dt_j, with Q - 1 the real last
+//     heads, then one lane per head sums it in step order (scan_lcum: the
+//     plain version's rounding; a lane-split scan drifted from it at Q = 256)
+//     and the lanes take seg a step each.  seg_j = exp(lcum_{Q-1} - lcum_j) dt_j, with Q - 1 the real last
 //     step.
 //   * C B^T with mma.sync m16n8k16 (bf16 in, f32 accumulate), warp w taking
 //     row tile w of each 64-row band and only the 16 x 16 tiles on or below
@@ -98,8 +98,8 @@
 //     y = M x and the state (x seg)^T B both read it from shared memory.
 //     Rows and columns that are not whole 16-byte chunks (P = 5, N = 17)
 //     load by 4-byte copies.
-//   * The in-chunk cumsum: a warp per head, each lane summing a run of
-//     consecutive steps, a shuffle scan adding the runs before it.
+//   * The in-chunk cumsum: a warp per head, one lane summing the steps in
+//     order (scan_lcum), the lanes taking seg a step each.
 //   * C B^T once a block ([Q, Q] f32 in registers, an 8 x 4 tile a
 //     thread, 12 16-byte loads feeding 128 FMAs); per head the threads turn
 //     it into M^T = (C B^T exp(lcum_i - lcum_j) dt_j)^T in shared memory
@@ -184,6 +184,23 @@ __host__ inline int f32_smem_bytes(int q, int p_tile, int heads) {
   const int qp = (q + kFT - 1) / kFT * kFT;
   const int region = kFNS > kFMPitch + p_tile ? kFNS : kFMPitch + p_tile;
   return 4 * (kFT * kFNS + kFT * region + 2 * kFT * p_tile + 3 * heads * qp);
+}
+
+// lcum_i = sum_{k <= i} dt_k a over the qp steps of dth (zeros past the
+// chunk), summed in step order by one thread: lcum_i - lcum_j then carries
+// only the rounding of steps j+1 .. i, as a running sum does (the plain
+// version's torch.cumsum gives the same bits).  A scan that splits the steps
+// over lanes is as close to the exact sum, but rounds lcum_i and lcum_j along
+// different paths: at Q = 256 (|lcum| in the hundreds) their difference
+// drifted ~1e-5 relative from the plain version's, and with the two-term
+// products' own error y moved past 2e-4 of it.  The serial sum keeps the
+// other 31 lanes waiting; it costs ~4% of the kernel's time (PERF.md).
+__device__ __forceinline__ void scan_lcum(const float* dth, float ah, int qp, float* lc) {
+  float sum = 0.0f;
+  for (int i = 0; i < qp; ++i) {
+    sum = i == 0 ? __fmul_rn(dth[0], ah) : __fadd_rn(sum, __fmul_rn(dth[i], ah));
+    lc[i] = sum;
+  }
 }
 
 __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
@@ -435,32 +452,12 @@ ssd_intra_f32_kernel(const float* __restrict__ x, const float* __restrict__ bm, 
   }
   __syncthreads();
 
-  // lcum and seg, one warp per head: lane l sums steps [l e, l e + e), then
-  // a shuffle scan adds the sums of the lanes before it.
+  // lcum and seg, one warp per head: lane 0 sums the steps in order (see
+  // scan_lcum), then the lanes take seg a step each.
   for (int hh = warp; hh < heads; hh += kFWarps) {
-    const float ah = a[h0 + hh];
     const float* dth = s_dt + hh * qp;
     float* lc = s_lc + hh * qp;
-    const int e_len = qp / 32;  // 2 to 8
-    float run[8];
-    float sum = 0.0f;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int i = lane * e_len + e;
-      if (e < e_len) sum = e == 0 ? __fmul_rn(dth[i], ah) : __fadd_rn(sum, __fmul_rn(dth[i], ah));
-      run[e] = sum;
-    }
-    float incl = sum;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const float o = __shfl_up_sync(0xffffffffu, incl, d);
-      if (lane >= d) incl = __fadd_rn(o, incl);
-    }
-    float before = __shfl_up_sync(0xffffffffu, incl, 1);
-    if (lane == 0) before = 0.0f;
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      if (e < e_len) lc[lane * e_len + e] = __fadd_rn(before, run[e]);
+    if (lane == 0) scan_lcum(dth, a[h0 + hh], qp, lc);
     __syncwarp();
     const float l_last = lc[q - 1];
     for (int i = lane; i < qp; i += 32)
@@ -786,34 +783,12 @@ ssd_intra_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ bm, co
   }
   __syncthreads();
 
-  // lcum and seg, one warp per head: lane l sums steps [l e, l e + e), then
-  // a shuffle scan adds the sums of the lanes before it.
+  // lcum and seg, one warp per head: lane 0 sums the steps in order (see
+  // scan_lcum), then the lanes take seg a step each.
   for (int hh = warp; hh < heads; hh += kTcWarps) {
-    const float ah = a[h0 + hh];
     const float* dth = s_dt + hh * qp;
     float* lc = s_lcum + hh * qp;
-    const int e_len = (qp + 31) / 32;  // <= 8
-    float run[8];
-    float sum = 0.0f;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int i = lane * e_len + e;
-      if (e < e_len && i < qp) sum = e == 0 ? __fmul_rn(dth[i], ah) : __fadd_rn(sum, __fmul_rn(dth[i], ah));
-      run[e] = sum;
-    }
-    float incl = sum;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const float o = __shfl_up_sync(0xffffffffu, incl, d);
-      if (lane >= d) incl = __fadd_rn(o, incl);
-    }
-    float before = __shfl_up_sync(0xffffffffu, incl, 1);
-    if (lane == 0) before = 0.0f;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int i = lane * e_len + e;
-      if (e < e_len && i < qp) lc[i] = __fadd_rn(before, run[e]);
-    }
+    if (lane == 0) scan_lcum(dth, a[h0 + hh], qp, lc);
     __syncwarp();
     const float l_last = lc[q - 1];
     for (int i = lane; i < qp; i += 32)

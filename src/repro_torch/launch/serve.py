@@ -10,8 +10,12 @@ lengths in [4, 32), and reports throughput:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b --tiny --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch kimi-k2-1t-a32b --tiny --device cpu
 
-The MoE archs (``jamba-v0.1-52b``, ``grok-1-314b``, ``kimi-k2-1t-a32b``) do
-not fit one 80 GB card at full depth; ``serve(args, cfg)`` serves a config
+An encoder-decoder (``seamless-m4t-medium``) gets the reference's message
+and exit code 2; a model of embeddings (``qwen2-vl-72b``) raises, since the
+reference's SlotServer feeds int tokens too: drive ``models.model.Model``
+for both.  The MoE archs (``jamba-v0.1-52b``, ``grok-1-314b``,
+``kimi-k2-1t-a32b``) and Qwen2-VL-72B do not fit one 80 GB card at full
+depth; ``serve(args, cfg)`` serves a config
 cut in depth in place of ``--arch``'s (``chip_smoke.py`` does so).  It runs
 on the card unless ``--device cpu`` is given.  Prompts come from a
 torch.Generator seeded with ``--seed + 1``: the reference's threefry draws
@@ -69,6 +73,9 @@ def serve(args: argparse.Namespace, cfg: ArchConfig | None = None) -> ServeResul
     cfg = cfg or get_arch(args.arch)
     if args.tiny:
         cfg = tiny(cfg)
+    if cfg.encoder_decoder or not cfg.embed_inputs:
+        raise ValueError(f"{cfg.name} takes {'frames' if cfg.encoder_decoder else 'embeddings'}, not token "
+                         f"prompts: the SlotServer serves decoder-only token models, as the reference's does")
     model = Model(cfg, device=args.device)
     params = model.init(args.seed)
     server = SlotServer(model, n_slots=args.slots, max_len=args.max_len)
@@ -85,6 +92,10 @@ def serve(args: argparse.Namespace, cfg: ArchConfig | None = None) -> ServeResul
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    cfg = get_arch(args.arch)
+    if cfg.encoder_decoder:
+        print(f"{cfg.name} is encoder-decoder; serve driver targets decoder-only LMs")
+        return 2
     res = serve(args)
     print(
         f"arch={res.cfg.name} slots={args.slots} requests={args.requests} "

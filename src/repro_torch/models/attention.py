@@ -1,5 +1,5 @@
-"""Grouped-query attention: prefill and cached decode (the port's copy of the
-JAX package's ``models/attention.py``, self-attention only).
+"""Grouped-query attention: prefill, cached decode, bidirectional and cross
+attention (the port's copy of the JAX package's ``models/attention.py``).
 
 Layouts are the reference's:
   activations  x        [B, S, d_model]
@@ -15,8 +15,13 @@ is exactly the slots the reference's causal, ``kv_len``-masked ``attend``
 leaves visible; a prefill from slot 0 and a forward without a cache are K6
 ``flash_attention`` over the prompt's own keys, which is what the
 reference's masked ``attend`` over all ``S_max`` cache slots computes (a
-masked key contributes exactly 0).  The cache is updated in place, where the
-reference returns a new one.
+masked key contributes exactly 0).  An encoder's bidirectional attention is
+K6 without the causal mask.  Cross-attention (``kv_override``) over an
+encoder's K/V is K6 without the mask for a multi-token chunk (Sq = S_tgt,
+Sk = S_src), and K7 for one token, over the cross cache up to ``kv_len =
+S_src``: every encoder position, which is what the reference's unmasked
+``attend`` over the S_src keys computes.  The cache is updated in place,
+where the reference returns a new one.
 """
 from __future__ import annotations
 
@@ -24,17 +29,19 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
-from repro_torch.models.layers import Params, apply_positional, truncated_normal, weight_dtype
+from repro_torch.models.layers import Params, apply_positional, stacked_normal, weight_dtype
 
 
 def init_attention(cfg, gen: torch.Generator, stack: tuple = ()) -> Params:
+    """Projections (self- and cross-attention alike), stacked over ``stack``
+    and drawn one layer at a time."""
     d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     scale, wt = d**-0.5, weight_dtype(cfg)
     return {
-        "wq": truncated_normal(gen, stack + (d, hq, dh), scale, wt),
-        "wk": truncated_normal(gen, stack + (d, hkv, dh), scale, wt),
-        "wv": truncated_normal(gen, stack + (d, hkv, dh), scale, wt),
-        "wo": truncated_normal(gen, stack + (hq, dh, d), (hq * dh) ** -0.5, wt),
+        "wq": stacked_normal(gen, stack, (d, hq, dh), scale, wt),
+        "wk": stacked_normal(gen, stack, (d, hkv, dh), scale, wt),
+        "wv": stacked_normal(gen, stack, (d, hkv, dh), scale, wt),
+        "wo": stacked_normal(gen, stack, (hq, dh, d), (hq * dh) ** -0.5, wt),
     }
 
 
@@ -85,48 +92,76 @@ def _write_cache(c: torch.Tensor, new: torch.Tensor, idx: torch.Tensor | int) ->
     c[rows, idx[:, None] + torch.arange(s, device=c.device)[None]] = new
 
 
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [B, S, d] @ w [d, H, dh] -> [B, S, H, dh]."""
+    d, h, dh = w.shape
+    return (x @ w.to(x.dtype).reshape(d, h * dh)).unflatten(-1, (h, dh))
+
+
+def cross_kv(cfg, p: Params, enc_out: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V [B, S_src, Hkv, dh] of an encoder output (no
+    positional rotation, as in the reference)."""
+    return _project(enc_out, p["wk"]), _project(enc_out, p["wv"])
+
+
 def apply_attention(
     cfg,
     p: Params,
     x: torch.Tensor,
     positions: torch.Tensor,
     *,
+    causal: bool = True,
     kv_cache: dict[str, torch.Tensor] | None = None,
     cache_index: torch.Tensor | int | None = None,
+    kv_override: tuple[torch.Tensor, torch.Tensor] | None = None,
+    kv_len: int | None = None,
     use_kernel: bool = True,
 ) -> torch.Tensor:
-    """Causal self-attention sub-layer; returns [B, S, d_model].
+    """Attention sub-layer; returns [B, S, d_model].
 
     Modes:
-      * no cache: causal attention over the S new tokens (K6);
+      * no cache: attention over the S new tokens, causal or (an encoder)
+        not (K6);
       * cache and S == 1: a decode step; the new K/V go into the cache at
         ``cache_index`` (a number, or [B] for per-slot serving) and the
         token attends to slots 0 .. index (K7);
       * cache, S > 1 and index 0: a prefill; the prompt's K/V fill slots
-        0 .. S - 1 and the prompt attends causally to them (K6).
+        0 .. S - 1 and the prompt attends causally to them (K6);
+      * ``kv_override = (k, v)``: cross-attention, without a mask, to the
+        first ``kv_len`` positions of k, v [B, S_k, Hkv, dh] (all of them
+        when ``kv_len`` is None); q is rotated, k is not.  K6 for S > 1,
+        K7 for S == 1 (k, v may then be a longer cache).
     Any other use of the cache (S > 1 at an offset) runs the plain
     ``attend`` when ``use_kernel`` is False and raises otherwise: the
     model never asks for it.
     """
-    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hq, dh = cfg.n_heads, cfg.head_dim
     b, s, d = x.shape
-    q = (x @ p["wq"].to(x.dtype).reshape(d, hq * dh)).reshape(b, s, hq, dh)
-    k = (x @ p["wk"].to(x.dtype).reshape(d, hkv * dh)).reshape(b, s, hkv, dh)
-    v = (x @ p["wv"].to(x.dtype).reshape(d, hkv * dh)).reshape(b, s, hkv, dh)
-    q = apply_positional(cfg, q, positions)
-    k = apply_positional(cfg, k, positions)
+    q = apply_positional(cfg, _project(x, p["wq"]), positions)
 
-    if kv_cache is None:
-        out = ops.flash_attention(q, k, v, causal=True, use_kernel=use_kernel)
+    if kv_override is not None:
+        ck, cv = kv_override
+        n = ck.shape[1] if kv_len is None else kv_len
+        if s == 1:
+            out = ops.decode_attention(q[:, 0], ck.to(x.dtype), cv.to(x.dtype), n,
+                                       use_kernel=use_kernel)[:, None]
+        else:
+            out = ops.flash_attention(q, ck[:, :n].to(x.dtype), cv[:, :n].to(x.dtype), causal=False,
+                                      use_kernel=use_kernel)
+    elif kv_cache is None:
+        k = apply_positional(cfg, _project(x, p["wk"]), positions)
+        out = ops.flash_attention(q, k, _project(x, p["wv"]), causal=causal, use_kernel=use_kernel)
     else:
+        k = apply_positional(cfg, _project(x, p["wk"]), positions)
+        v = _project(x, p["wv"])
         ck, cv = kv_cache["k"], kv_cache["v"]
         idx = 0 if cache_index is None else cache_index
         _write_cache(ck, k, idx)
         _write_cache(cv, v, idx)
         if s == 1:
-            kv_len = torch.as_tensor(idx, device=x.device) + 1
             out = ops.decode_attention(
-                q[:, 0], ck.to(x.dtype), cv.to(x.dtype), kv_len, use_kernel=use_kernel
+                q[:, 0], ck.to(x.dtype), cv.to(x.dtype), torch.as_tensor(idx, device=x.device) + 1,
+                use_kernel=use_kernel,
             )[:, None]
         elif isinstance(idx, int) and idx == 0:
             # The prompt's K/V as the cache now holds them, rounded to its type.

@@ -4,7 +4,10 @@ The port keeps the reference's parameter tree (the same keys, the body's
 leaves stacked over the pattern's repeats, the same layouts), so converting
 is a leaf-by-leaf copy, in each leaf's own type (an MoE layer's float32
 ``router`` and its ``wi``, ``wo``, ``shared_wi`` and ``shared_wo`` too,
-stacked over the repeats like every body leaf).  Give the reference's tree
+stacked over the repeats like every body leaf).  A model of embeddings
+(``embed_inputs=False``) has no ``embed``; an encoder-decoder's tree is
+``enc_body``, ``enc_norm``, ``dec_embed``, ``dec_body``, ``dec_norm`` and
+``lm_head``, its bodies stacked over their layers.  Give the reference's tree
 with its leaves as numpy arrays (``jax.tree_util.tree_map(numpy.asarray,
 params)``); both packages then compute the same function.
 """
@@ -36,9 +39,26 @@ def params_from_jax(cfg: ArchConfig, tree: dict[str, Any], device="cuda") -> dic
             return [walk(v) for v in node]
         return _tensor(node, device)
 
-    expected = {"embed", "first", "body", "final_norm"} | ({"lm_head"} if not cfg.tie_embeddings else set())
+    if cfg.encoder_decoder:
+        expected = {"enc_body", "enc_norm", "dec_embed", "dec_body", "dec_norm", "lm_head"}
+    else:
+        expected = {"first", "body", "final_norm"} | ({"embed"} if cfg.embed_inputs else set())
+        expected |= set() if cfg.tie_embeddings else {"lm_head"}
     if set(tree) != expected:
         raise ValueError(f"{cfg.name}: expected the parameter groups {sorted(expected)}, got {sorted(tree)}")
-    if len(tree["first"]) != cfg.first_k_dense or set(tree["body"]) != {f"l{i}" for i in range(len(cfg.pattern))}:
+    if cfg.encoder_decoder:
+        layers = {"enc_body": cfg.n_encoder_layers, "dec_body": cfg.n_layers}
+        if any(leaf.shape[0] != n for name, n in layers.items() for leaf in _leaves(tree[name])):
+            raise ValueError(f"{cfg.name}: the tree's layers do not match the config's")
+    elif (len(tree["first"]) != cfg.first_k_dense
+          or set(tree["body"]) != {f"l{i}" for i in range(len(cfg.pattern))}):
         raise ValueError(f"{cfg.name}: the tree's layers do not match the config's")
     return walk(tree)
+
+
+def _leaves(node):
+    if isinstance(node, dict):
+        for v in node.values():
+            yield from _leaves(v)
+    else:
+        yield node

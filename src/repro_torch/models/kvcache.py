@@ -5,8 +5,14 @@ The cache is a dict tree mirroring the layer stack: ``{"first": [per-layer
 dicts of the leading dense layers], "body": {"l<i>": leaves stacked over the
 pattern's repeats}}``.  Attention leaves are ``k``/``v`` [n_repeats, B,
 S_max, Hkv, dh]; Mamba2 leaves are ``ssm`` [n_repeats, B, H, P, N] float32
-and ``conv`` [n_repeats, B, K-1, conv_ch].  The port writes into it in
-place.  `cache_specs` names each leaf's axes, as the reference does.
+and ``conv`` [n_repeats, B, K-1, conv_ch].  An encoder-decoder also has
+``cross``: the cross-attention K/V of its decoder layers, [L, B, S_max,
+Hkv, dh], and ``src_len``, the encoder positions they hold.  The reference
+replaces ``cross`` at prefill with a [L, B, S_src, ...] tree; the port
+writes its first S_src slots in place and keeps S_src in ``src_len`` (0
+until a prefill), which a decode step's cross-attention reads as K7's
+``kv_len``.  The port writes into the cache in place.  `cache_specs` names
+each leaf's axes, as the reference does.
 """
 from __future__ import annotations
 
@@ -34,7 +40,8 @@ def _ssm_cache(cfg, batch: int, dtype, device, stack: tuple) -> dict[str, torch.
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device="cuda") -> dict[str, Any]:
-    """Zeroed cache tree: {"first": [per-layer dicts], "body": {pattern-pos: stacked}}."""
+    """Zeroed cache tree: {"first": [per-layer dicts], "body": {pattern-pos:
+    stacked}}, and an encoder-decoder's "cross" and "src_len"."""
     reps = cfg.n_repeats
     first = [_attn_cache(cfg, batch, max_len, dtype, device, ()) for _ in range(cfg.first_k_dense)]
     body = {
@@ -42,7 +49,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                   else _ssm_cache(cfg, batch, dtype, device, (reps,)))
         for i, kind in enumerate(cfg.pattern)
     }
-    return {"first": first, "body": body}
+    cache: dict[str, Any] = {"first": first, "body": body}
+    if cfg.encoder_decoder:
+        cache["cross"] = _attn_cache(cfg, batch, max_len, dtype, device, (reps,))
+        cache["src_len"] = 0
+    return cache
 
 
 def cache_specs(cfg: ArchConfig) -> dict[str, Any]:
@@ -52,8 +63,11 @@ def cache_specs(cfg: ArchConfig) -> dict[str, Any]:
     attn_stacked = {name: ("layers",) + axes for name, axes in attn.items()}
     ssm_stacked = {"ssm": ("layers", "batch", "ssm_heads", None, None),
                    "conv": ("layers", "batch", None, "conv_ch")}
-    return {
+    out: dict[str, Any] = {
         "first": [attn for _ in range(cfg.first_k_dense)],
         "body": {f"l{i}": (attn_stacked if kind.mixer == "attn" else ssm_stacked)
                  for i, kind in enumerate(cfg.pattern)},
     }
+    if cfg.encoder_decoder:
+        out["cross"] = dict(attn_stacked)
+    return out

@@ -1,4 +1,5 @@
-"""Shared model layers: RMSNorm, rotary embeddings, the SwiGLU MLP, init.
+"""Shared model layers: norms (RMSNorm, LayerNorm, non-parametric
+LayerNorm), rotary embeddings (RoPE, M-RoPE), the SwiGLU and GELU MLPs, init.
 
 The port's copy of the JAX package's ``models/layers.py``.  Parameters are
 plain dicts of tensors (``Params``), in the reference's layouts.  Norms
@@ -37,6 +38,14 @@ def truncated_normal(gen: torch.Generator, shape, scale: float, dtype: torch.dty
     return out
 
 
+def stacked_normal(gen: torch.Generator, stack: tuple, shape: tuple, scale: float,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """A matmul weight of ``shape`` stacked over the layers (``stack``), one
+    layer drawn at a time: the float32 temporary of a bf16 weight is one
+    layer's (InternLM2-20B's ``wi`` stack would need 38.7 GB at once)."""
+    return truncated_normal(gen, tuple(stack) + tuple(shape), scale, dtype, block_dims=len(shape))
+
+
 def weight_dtype(cfg) -> torch.dtype:
     """The type the init functions store matmul weights in: the compute
     type, which the forward casts every weight to at each use.  Other
@@ -46,17 +55,31 @@ def weight_dtype(cfg) -> torch.dtype:
 
 # ---------------------------------------------------------------------------
 # Norms — accumulate in fp32, return in input dtype.
-def init_norm(cfg, dim: int, dtype: torch.dtype, device) -> Params:
-    if cfg.norm != "rmsnorm":
-        raise ValueError(f"the port has no {cfg.norm!r} norm yet")
-    return {"scale": torch.ones(dim, dtype=dtype, device=device)}
+def init_norm(cfg, dim: int, dtype: torch.dtype, device, stack: tuple = ()) -> Params:
+    """A norm's leaves (none for the non-parametric LayerNorm), stacked over ``stack``."""
+    shape = tuple(stack) + (dim,)
+    if cfg.norm == "rmsnorm":
+        return {"scale": torch.ones(shape, dtype=dtype, device=device)}
+    if cfg.norm == "layernorm":
+        return {"scale": torch.ones(shape, dtype=dtype, device=device),
+                "bias": torch.zeros(shape, dtype=dtype, device=device)}
+    if cfg.norm == "nonparametric_ln":
+        return {}
+    raise ValueError(cfg.norm)
 
 
 def apply_norm(cfg, p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm (the one norm of the configurations the port runs)."""
+    """RMSNorm, LayerNorm (scale and bias) or non-parametric LayerNorm."""
     xf = x.to(torch.float32)
-    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
-    return (y * p["scale"].to(torch.float32)).to(x.dtype)
+    if cfg.norm == "rmsnorm":
+        y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+        return (y * p["scale"].to(torch.float32)).to(x.dtype)
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    if cfg.norm == "layernorm":
+        y = y * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)
+    return y.to(x.dtype)
 
 
 def gated_rmsnorm(scale: torch.Tensor, x: torch.Tensor, z: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -73,40 +96,65 @@ def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x [..., S, H, D]; positions [..., S] (int). Rotates the pairs
-    (x_i, x_{i+D/2}): the split-halves pairing of the reference."""
-    d = x.shape[-1]
-    ang = positions[..., None].to(torch.float32) * rope_freqs(d, theta, x.device)  # [..., S, D/2]
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """Rotate the pairs (x_i, x_{i+D/2}) of x [..., S, H, D] by ang [..., S, D/2]."""
     cos = torch.cos(ang)[..., None, :]  # [..., S, 1, D/2]
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x [..., S, H, D]; positions [..., S] (int). Rotates the pairs
+    (x_i, x_{i+D/2}): the split-halves pairing of the reference."""
+    d = x.shape[-1]
+    return _rotate(x, positions[..., None].to(torch.float32) * rope_freqs(d, theta, x.device))
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float, sections) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): positions [3, ..., S] (t/h/w ids);
+    ``sections`` deal the D/2 frequency slots to the three id streams in
+    order (slot j takes stream sel[j], sel = 0 x sections[0], 1 x ..., 2 x ...)."""
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} must sum to head_dim / 2 = {d // 2}")
+    sel = torch.repeat_interleave(torch.arange(3, device=positions.device),
+                                  torch.tensor(sections, device=positions.device))
+    pos = positions[sel].movedim(0, -1)  # [..., S, D/2]
+    return _rotate(x, pos.to(torch.float32) * rope_freqs(d, theta, x.device))
+
+
 def apply_positional(cfg, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     if cfg.rope == "rope":
         return apply_rope(x, positions, cfg.rope_theta)
+    if cfg.rope == "mrope":
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
     if cfg.rope == "none":
         return x
-    raise ValueError(f"the port has no {cfg.rope!r} positional encoding yet")
+    raise ValueError(cfg.rope)
 
 
 # ---------------------------------------------------------------------------
 # Dense FFN.
 def init_mlp(cfg, gen: torch.Generator, stack: tuple = ()) -> Params:
-    if cfg.act != "swiglu":
-        raise ValueError(f"the port has no {cfg.act!r} MLP yet")
+    """SwiGLU (wi [d, 2, f]) or GELU (wi [d, f]) weights, wo [f, d]; stacked
+    weights are drawn one layer at a time (``stacked_normal``)."""
+    if cfg.act not in ("swiglu", "gelu"):
+        raise ValueError(cfg.act)
     d, f, wt = cfg.d_model, cfg.d_ff, weight_dtype(cfg)
-    return {
-        "wi": truncated_normal(gen, stack + (d, 2, f), d**-0.5, wt),
-        "wo": truncated_normal(gen, stack + (f, d), f**-0.5, wt),
-    }
+    wi = (d, 2, f) if cfg.act == "swiglu" else (d, f)
+    return {"wi": stacked_normal(gen, stack, wi, d**-0.5, wt),
+            "wo": stacked_normal(gen, stack, (f, d), f**-0.5, wt)}
 
 
 def apply_mlp(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: wi [d, 2, f] holds the gate and the up projection."""
+    """SwiGLU (wi [d, 2, f] holds the gate and the up projection), or GELU
+    in jax.nn.gelu's default tanh form."""
     wi = p["wi"].to(x.dtype)
-    d, _, f = wi.shape
-    h = (x @ wi.reshape(d, 2 * f)).unflatten(-1, (2, f))
-    return (F.silu(h[..., 0, :]) * h[..., 1, :]) @ p["wo"].to(x.dtype)
+    if cfg.act == "swiglu":
+        d, _, f = wi.shape
+        h = (x @ wi.reshape(d, 2 * f)).unflatten(-1, (2, f))
+        h = F.silu(h[..., 0, :]) * h[..., 1, :]
+    else:
+        h = F.gelu(x @ wi, approximate="tanh")
+    return h @ p["wo"].to(x.dtype)

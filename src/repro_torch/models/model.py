@@ -1,5 +1,6 @@
 """Model facade for serving (the port's copy of the JAX package's
-``models/model.py``, decoder-only half):
+``models/model.py``, serving half), over decoder-only, hybrid, SSM and
+encoder-decoder configs:
 
     model = Model(cfg)                         # device="cuda", use_kernel=True
     params = model.init(seed)
@@ -7,6 +8,12 @@
     logits, cache = model.prefill(params, {"inputs": tokens}, cache)
     logits, cache = model.decode(params, {"tokens": last}, cache, index)
 
+The batches are the reference's (``input_specs``): ``inputs`` int tokens
+[B, S], or embeddings [B, S, d] where ``embed_inputs`` is False (Qwen2-VL;
+then ``tokens`` is [B, 1, d]); ``positions`` [B, S], or [3, B, S] t/h/w ids
+under M-RoPE, by default the text-mode positions 0..S-1; an
+encoder-decoder prefills ``{"frames": [B, S_src, d], "tgt_tokens": [B,
+S_tgt]}`` and decodes its tokens [B, 1] in lockstep, at one scalar index.
 The cache is updated in place (the returned cache is the one given), where
 the reference returns a new one.  ``use_kernel=False`` runs every kernel's
 plain version instead, on any device.
@@ -18,23 +25,22 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import kvcache
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import Params
 
-def positions(batch: int, seq: int, offset=0, device="cuda") -> torch.Tensor:
-    """[B, S] absolute positions offset..offset+S-1 (offset a number or [B])."""
+def positions(batch: int, seq: int, offset=0, device="cuda", mrope: bool = False) -> torch.Tensor:
+    """[B, S] absolute positions offset..offset+S-1 (offset a number or [B]);
+    with ``mrope`` [3, B, S], the text mode's three equal t/h/w streams."""
     pos = torch.arange(seq, dtype=torch.int32, device=device)[None, :]
     off = torch.as_tensor(offset, dtype=torch.int32, device=device).reshape(-1, 1)
-    return (pos + off).expand(batch, seq)
+    pos = (pos + off).expand(batch, seq)
+    return pos.expand(3, batch, seq) if mrope else pos
 
 
 class Model:
     def __init__(self, cfg: ArchConfig, device: str | torch.device = "cuda", use_kernel: bool = True):
-        if (cfg.encoder_decoder or not cfg.embed_inputs or cfg.rope not in ("rope", "none")
-                or cfg.norm != "rmsnorm" or cfg.act != "swiglu"):
-            raise ValueError(f"{cfg.name}: the port serves decoder-only token models with RMSNorm and "
-                             f"SwiGLU (dense or MoE), without M-RoPE")
         self.cfg = cfg
         self.device = torch.device(device)
         self.use_kernel = use_kernel
@@ -50,7 +56,8 @@ class Model:
         Norm scales and the SSM's conv keep ``param_dtype``; an MoE router
         is float32, as the reference's."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        return tfm.init_transformer(self.cfg, gen, getattr(torch, self.cfg.param_dtype))
+        init = encdec_mod.init_encdec if self.cfg.encoder_decoder else tfm.init_transformer
+        return init(self.cfg, gen, getattr(torch, self.cfg.param_dtype))
 
     # -- serving -------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> dict[str, Any]:
@@ -60,23 +67,44 @@ class Model:
         return kvcache.cache_specs(self.cfg)
 
     def prefill(self, params: Params, batch: dict[str, torch.Tensor], cache: dict[str, Any]):
-        """Fill the cache from a prompt [B, S] at slots 0..S-1; returns
-        (last-position logits [B, V] f32, cache)."""
-        inputs = batch["inputs"].to(self.device)
-        bsz, seq = inputs.shape
+        """Fill the cache from a prompt at slots 0..S-1 (an encoder-decoder:
+        its cross K/V from the frames, and the target prompt's self K/V);
+        returns (last-position logits [B, V] f32, cache)."""
+        cfg, dev = self.cfg, self.device
+        if cfg.encoder_decoder:
+            frames, tgt = batch["frames"].to(dev), batch["tgt_tokens"].to(dev)
+            src_pos = positions(1, frames.shape[1], device=dev)
+            enc_out = encdec_mod.encode(cfg, params, frames, src_pos, use_kernel=self.use_kernel)
+            encdec_mod.build_cross_cache(cfg, params, enc_out, cache["cross"])
+            cache["src_len"] = frames.shape[1]
+            tgt_pos = positions(1, tgt.shape[1], device=dev)
+            logits = encdec_mod.decode_step(cfg, params, tgt, tgt_pos, cache, 0, use_kernel=self.use_kernel)
+            return logits, cache
+        inputs = batch["inputs"].to(dev)
+        bsz, seq = inputs.shape[0], inputs.shape[1]
         pos = batch.get("positions")
-        pos = positions(bsz, seq, device=self.device) if pos is None else pos.to(self.device)
-        x = tfm.hidden_states(self.cfg, params, inputs, pos, cache=cache, cache_index=0,
+        pos = positions(bsz, seq, device=dev, mrope=cfg.rope == "mrope") if pos is None else pos.to(dev)
+        x = tfm.hidden_states(cfg, params, inputs, pos, cache=cache, cache_index=0,
                               decode=False, use_kernel=self.use_kernel)
-        return tfm.logits_from_hidden(self.cfg, params, x[:, -1:])[:, 0], cache
+        return tfm.logits_from_hidden(cfg, params, x[:, -1:])[:, 0], cache
 
     def decode(self, params: Params, batch: dict[str, torch.Tensor], cache: dict[str, Any], index):
-        """One decode step of tokens [B, 1] at cache slot ``index`` (a number,
-        or [B] per-slot positions); returns (logits [B, V] f32, cache)."""
+        """One decode step of ``tokens`` ([B, 1] ids, or [B, 1, d]
+        embeddings) at cache slot ``index`` (a number, or [B] per-slot
+        positions; an encoder-decoder steps in lockstep at a number);
+        returns (logits [B, V] f32, cache)."""
+        cfg = self.cfg
         tokens = batch["tokens"].to(self.device)
         if not isinstance(index, int):
             index = torch.as_tensor(index, dtype=torch.int32, device=self.device)
-        pos = positions(tokens.shape[0], 1, index, self.device)
-        logits = tfm.forward(self.cfg, params, tokens, pos, cache=cache, cache_index=index,
+        if cfg.encoder_decoder:
+            if not isinstance(index, int) and index.dim():
+                raise ValueError("an encoder-decoder decodes in lockstep at one scalar index, "
+                                 "as the reference")
+            pos = positions(tokens.shape[0], 1, index, self.device)
+            return encdec_mod.decode_step(cfg, params, tokens, pos, cache, index,
+                                          use_kernel=self.use_kernel), cache
+        pos = positions(tokens.shape[0], 1, index, self.device, mrope=cfg.rope == "mrope")
+        logits = tfm.forward(cfg, params, tokens, pos, cache=cache, cache_index=index,
                              decode=True, use_kernel=self.use_kernel)
         return logits[:, -1], cache

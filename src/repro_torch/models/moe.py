@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import Params, truncated_normal, weight_dtype
+from repro_torch.models.layers import Params, stacked_normal, truncated_normal, weight_dtype
 
 #: Largest copy (bytes) of expert weights cast at use to another compute type
 #: (a float32 route over bf16-stored weights), at least one expert.
@@ -52,8 +52,8 @@ def init_moe(cfg, gen: torch.Generator, stack: tuple = ()) -> Params:
     }
     if cfg.n_shared_experts:
         fs = cfg.d_ff * cfg.n_shared_experts
-        p["shared_wi"] = truncated_normal(gen, stack + (d, 2, fs), d**-0.5, wt)
-        p["shared_wo"] = truncated_normal(gen, stack + (fs, d), fs**-0.5, wt)
+        p["shared_wi"] = stacked_normal(gen, stack, (d, 2, fs), d**-0.5, wt)
+        p["shared_wo"] = stacked_normal(gen, stack, (fs, d), fs**-0.5, wt)
     return p
 
 

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import Params, gated_rmsnorm, truncated_normal, weight_dtype
+from repro_torch.models.layers import Params, gated_rmsnorm, stacked_normal, weight_dtype
 
 
 def init_ssm(cfg, gen: torch.Generator, dtype: torch.dtype, stack: tuple = ()) -> Params:
@@ -36,19 +36,19 @@ def init_ssm(cfg, gen: torch.Generator, dtype: torch.dtype, stack: tuple = ()) -
         return t.expand(stack + t.shape).clone()
 
     return {
-        "wz": truncated_normal(gen, stack + (d, di), d**-0.5, wt),
-        "wx": truncated_normal(gen, stack + (d, di), d**-0.5, wt),
-        "wB": truncated_normal(gen, stack + (d, n), d**-0.5, wt),
-        "wC": truncated_normal(gen, stack + (d, n), d**-0.5, wt),
-        "wdt": truncated_normal(gen, stack + (d, h), d**-0.5, wt),
-        "conv_w": truncated_normal(gen, stack + (k, conv_ch), k**-0.5, dtype),
+        "wz": stacked_normal(gen, stack, (d, di), d**-0.5, wt),
+        "wx": stacked_normal(gen, stack, (d, di), d**-0.5, wt),
+        "wB": stacked_normal(gen, stack, (d, n), d**-0.5, wt),
+        "wC": stacked_normal(gen, stack, (d, n), d**-0.5, wt),
+        "wdt": stacked_normal(gen, stack, (d, h), d**-0.5, wt),
+        "conv_w": stacked_normal(gen, stack, (k, conv_ch), k**-0.5, dtype),
         "conv_b": torch.zeros(stack + (conv_ch,), dtype=dtype, device=dev),
         # A in (-16, -1): log-uniform init, as in the paper
         "A_log": per_layer(torch.log(torch.linspace(1.0, 16.0, h, device=dev))),
         "D": torch.ones(stack + (h,), dtype=torch.float32, device=dev),
         "dt_bias": torch.full(stack + (h,), -4.6, dtype=torch.float32, device=dev),  # softplus^-1(0.01)
         "norm_scale": torch.ones(stack + (di,), dtype=dtype, device=dev),
-        "out_proj": truncated_normal(gen, stack + (di, d), di**-0.5, wt),
+        "out_proj": stacked_normal(gen, stack, (di, d), di**-0.5, wt),
     }
 
 

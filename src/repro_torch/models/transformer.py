@@ -7,7 +7,7 @@ Parameters keep the reference's tree: ``{"embed", "first": [blocks],
 over the stacked leaves, the port walks it in a Python loop, each layer
 taking views of its row of every stacked leaf (parameters and cache alike).
 Blocks are pre-norm residual: x += mixer(norm(x)); x += ffn(norm(x)), the
-mixer attention or Mamba2 and the FFN dense SwiGLU, MoE or none, in any
+mixer attention or Mamba2 and the FFN dense (SwiGLU or GELU), MoE or none, in any
 combination the pattern names (Jamba: Mamba2 mixers before dense and MoE
 FFNs); ``first_k_dense`` leading attention + dense layers come first.
 """
@@ -25,10 +25,8 @@ from repro_torch.models.layers import Params, apply_mlp, apply_norm, init_mlp, i
 
 
 def init_block(cfg: ArchConfig, kind: LayerKind, gen: torch.Generator, dtype, stack: tuple = ()) -> Params:
-    dev = gen.device
-
     def norm():
-        return {k: v.expand(stack + v.shape).clone() for k, v in init_norm(cfg, cfg.d_model, dtype, dev).items()}
+        return init_norm(cfg, cfg.d_model, dtype, gen.device, stack)
 
     p: Params = {"norm1": norm()}
     if kind.mixer == "attn":

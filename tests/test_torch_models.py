@@ -1,8 +1,10 @@
-"""The port's LM stack (configs, layers, SSD, Granite-3-8B, Mamba2-2.7B and
-the MoE models Jamba-v0.1, Grok-1 and Kimi-K2 at tiny widths) against the JAX
-package on the CPU: the reference's parameters are converted with
-``params_from_jax`` and both packages run the same inputs, made with numpy
-from a seed."""
+"""The port's LM stack (configs, layers, SSD, Granite-3-8B, Mamba2-2.7B, the
+MoE models Jamba-v0.1, Grok-1 and Kimi-K2, and OLMo-1B, InternLM2-20B,
+Mistral-Nemo-12B and Qwen2-VL-72B at tiny widths) against the JAX package on
+the CPU: the reference's parameters are converted with ``params_from_jax``
+and both packages run the same inputs, made with numpy from a seed.
+Qwen2-VL takes embeddings [B, S, d] and M-RoPE positions [3, B, S] whose
+three streams differ."""
 from __future__ import annotations
 
 import dataclasses
@@ -27,7 +29,8 @@ from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 
-ARCHS = ["granite-3-8b", "mamba2-2.7b", "jamba-v0.1-52b", "grok-1-314b", "kimi-k2-1t-a32b"]
+ARCHS = ["granite-3-8b", "mamba2-2.7b", "jamba-v0.1-52b", "grok-1-314b", "kimi-k2-1t-a32b", "olmo-1b",
+         "internlm2-20b", "mistral-nemo-12b", "qwen2-vl-72b"]
 TOL = dict(rtol=1e-4, atol=1e-4)  # f32 compute in both packages
 
 
@@ -46,7 +49,28 @@ def models():
 
 
 def tokens(cfg, b, s, seed=2):
-    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    """Token ids [B, S], or for a model of embeddings (Qwen2-VL) embeddings
+    [B, S, d] at the scale of an embedding table's rows."""
+    rng = np.random.default_rng(seed)
+    if not cfg.embed_inputs:
+        return (cfg.d_model**-0.5 * rng.standard_normal((b, s, cfg.d_model))).astype(np.float32)
+    return rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+
+
+def text_positions(cfg, b, s):
+    """0..S-1 for every sequence ([3, B, S] equal streams under M-RoPE)."""
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32)[None], (b, s))
+    return np.broadcast_to(pos[None], (3, b, s)) if cfg.rope == "mrope" else pos
+
+
+def prompt_batch(cfg, b, s, seed):
+    """A prefill batch as numpy: the prompt and, under M-RoPE, positions
+    whose t/h/w streams differ (t counts, h and w are seeded ids)."""
+    batch = {"inputs": tokens(cfg, b, s, seed)}
+    if cfg.rope == "mrope":
+        hw = np.random.default_rng(seed + 100).integers(0, 8, (2, b, s))
+        batch["positions"] = np.concatenate([text_positions(cfg, b, s)[:1], hw]).astype(np.int32)
+    return batch
 
 
 def leaves(tree, prefix=""):
@@ -61,7 +85,7 @@ def leaves(tree, prefix=""):
 
 
 # -- configs -------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", sorted(jbase.ARCHS))
 def test_config_equals_reference_field_by_field(arch):
     got, want = base.get_arch(arch), jbase.get_arch(arch)
     assert [f.name for f in dataclasses.fields(got)] == [f.name for f in dataclasses.fields(want)]
@@ -72,11 +96,15 @@ def test_config_equals_reference_field_by_field(arch):
 
 
 def test_shapes_equal_reference_and_unported_archs_raise():
+    """The shape cells and the registry are the reference's (every arch is
+    ported); a name the registry lacks raises."""
     assert {k: dataclasses.asdict(v) for k, v in base.SHAPES.items()} == {
         k: dataclasses.asdict(v) for k, v in jbase.SHAPES.items()
     }
+    assert set(base.ARCHS) == set(jbase.ARCHS)
+    assert all(Model(base.get_arch(arch), device="cpu").cfg.name == arch for arch in base.ARCHS)
     with pytest.raises(KeyError):
-        base.get_arch("olmo-1b")
+        base.get_arch("olmo-7b")
 
 
 # -- layers --------------------------------------------------------------------
@@ -151,8 +179,8 @@ def test_params_from_jax_defaults_to_the_card(models):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_equals_reference(models, arch):
     cfg, _, jp, _, params = models[arch]
-    toks = tokens(cfg, 2, 19)
-    pos = np.broadcast_to(np.arange(19)[None], (2, 19)).astype(np.int32)
+    batch = prompt_batch(cfg, 2, 19, seed=2)
+    toks, pos = batch["inputs"], batch.get("positions", text_positions(cfg, 2, 19))
     want, _, _ = jtfm.forward(cfg, jp, jnp.asarray(toks), jnp.asarray(pos))
     got = tfm.forward(cfg, params, torch.from_numpy(toks), torch.from_numpy(pos))
     assert got.shape == (2, 19, cfg.padded_vocab) and got.dtype == torch.float32
@@ -164,9 +192,10 @@ def test_forward_equals_reference(models, arch):
 def test_prefill_and_decode_equal_reference(models, arch, index):
     cfg, jm, jp, model, params = models[arch]
     toks = tokens(cfg, 2, 10, seed=3)
+    batch = {**prompt_batch(cfg, 2, 8, seed=3), "inputs": toks[:, :8]}
     jc, c = jm.init_cache(2, 32), model.init_cache(2, 32)
-    jl, jc = jm.prefill(jp, {"inputs": jnp.asarray(toks[:, :8])}, jc)
-    lg, c = model.prefill(params, {"inputs": torch.from_numpy(toks[:, :8])}, c)
+    jl, jc = jm.prefill(jp, {k: jnp.asarray(v) for k, v in batch.items()}, jc)
+    lg, c = model.prefill(params, {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}, c)
     np.testing.assert_allclose(lg.numpy(), np.asarray(jl), **TOL)
     for step, t in enumerate((8, 9)):
         idx = [t, t] if index == "scalar" else [t, t - 3 + step]  # per-slot: slot 1 rewrites earlier slots
@@ -187,7 +216,7 @@ def test_decode_equals_forward(models, arch):
     """Greedy decode equals the teacher-forced forward (causality + cache)."""
     cfg, _, _, model, params = models[arch]
     toks = torch.from_numpy(tokens(cfg, 2, 9, seed=4))
-    full = tfm.forward(cfg, params, toks, torch.arange(9)[None].expand(2, 9))
+    full = tfm.forward(cfg, params, toks, torch.from_numpy(np.ascontiguousarray(text_positions(cfg, 2, 9))))
     cache = model.init_cache(2, 16)
     _, cache = model.prefill(params, {"inputs": toks[:, :8]}, cache)
     lg, _ = model.decode(params, {"tokens": toks[:, 8:9]}, cache, 8)
@@ -234,9 +263,9 @@ def test_a_state_that_does_not_fit_its_cache_raises(models, monkeypatch):
 def test_plain_route_equals_kernel_route_on_the_cpu(models, arch):
     """On the CPU both routes are the plain versions: same bits, no launch."""
     cfg, _, _, _, params = models[arch]
-    toks = torch.from_numpy(tokens(cfg, 1, 12, seed=5))
+    batch = {k: torch.from_numpy(v) for k, v in prompt_batch(cfg, 1, 12, seed=5).items()}
     kops.reset_launches()
-    out = [Model(cfg, device="cpu", use_kernel=k).prefill(params, {"inputs": toks}, Model(cfg, "cpu").init_cache(1, 16))[0]
+    out = [Model(cfg, device="cpu", use_kernel=k).prefill(params, batch, Model(cfg, "cpu").init_cache(1, 16))[0]
            for k in (True, False)]
     assert torch.equal(*out) and set(kops.LAUNCHES.values()) == {0}
 
@@ -251,7 +280,9 @@ def test_cast_weights_keeps_the_logits(arch):
     matmul = {"embed", "lm_head", "wq", "wk", "wv", "wo", "wi", "wz", "wx", "wB", "wC", "wdt", "out_proj",
               "shared_wi", "shared_wo"}  # an MoE router stays float32, as the reference's
     kinds = {(path.rsplit("/", 1)[1] in matmul, t.dtype) for path, t in leaves(params)}
-    assert kinds == {(True, torch.bfloat16), (False, torch.float32)}
+    # OLMo-1B's non-parametric LayerNorm has no leaves: all it keeps is its matmul weights
+    assert kinds == {(True, torch.bfloat16), (False, torch.float32)} - (
+        {(False, torch.float32)} if cfg.norm == "nonparametric_ln" else set())
 
     def widen(tree):
         if isinstance(tree, dict):

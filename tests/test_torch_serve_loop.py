@@ -1,8 +1,10 @@
 """The port's SlotServer and serving entry point against the JAX package's on
-the CPU (Granite-3-8B, Mamba2-2.7B, and the MoE models Jamba-v0.1, Grok-1 and
-Kimi-K2 at tiny widths): the same prompts and converted weights give the same
-completions; a batch gives each request what it gets alone; budgets and
-max_len retire."""
+the CPU (Granite-3-8B, Mamba2-2.7B, the MoE models Jamba-v0.1, Grok-1 and
+Kimi-K2, and OLMo-1B, InternLM2-20B and Mistral-Nemo-12B at tiny widths):
+the same prompts and converted weights give the same completions; a batch
+gives each request what it gets alone; budgets and max_len retire.  The
+serving entry point refuses the two models that take no token prompts, as
+the reference's does."""
 from __future__ import annotations
 
 import dataclasses
@@ -27,7 +29,8 @@ from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.runtime import requests  # noqa: E402
 from repro_torch.runtime.serve_loop import Request, SlotServer  # noqa: E402
 
-ARCHS = ["granite-3-8b", "mamba2-2.7b", "jamba-v0.1-52b", "grok-1-314b", "kimi-k2-1t-a32b"]
+ARCHS = ["granite-3-8b", "mamba2-2.7b", "jamba-v0.1-52b", "grok-1-314b", "kimi-k2-1t-a32b", "olmo-1b",
+         "internlm2-20b", "mistral-nemo-12b"]
 
 
 @pytest.fixture(scope="module")
@@ -122,3 +125,15 @@ def test_serve_entry_point_is_seeded_and_keeps_the_reference_defaults():
     assert all(4 <= len(x) < 32 and int(x.max()) < cfg.vocab_size for x in a)
     res = serve.serve(serve.parse_args(["--tiny", "--device", "cpu", "--requests", "3", "--slots", "3", "--max-new", "4"]))
     assert res.prefill_calls == 3 and res.decode_calls == 3 and res.new_tokens == 12
+
+
+def test_serve_refuses_models_without_token_prompts(capsys):
+    """An encoder-decoder gets the reference's message and code 2; a model of
+    embeddings (Qwen2-VL) raises a ValueError: the SlotServer feeds int
+    tokens, in the reference too."""
+    assert serve.main(["--arch", "seamless-m4t-medium", "--tiny", "--device", "cpu"]) == 2
+    assert "is encoder-decoder" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="embeddings"):
+        serve.serve(serve.parse_args(["--arch", "qwen2-vl-72b", "--tiny", "--device", "cpu"]))
+    with pytest.raises(ValueError, match="frames"):
+        serve.serve(serve.parse_args(["--arch", "seamless-m4t-medium", "--tiny", "--device", "cpu"]))

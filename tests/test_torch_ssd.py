@@ -40,9 +40,18 @@ def inputs(seed, b, s, h, p, n):
 
 def kernel_lcum(dta: torch.Tensor) -> torch.Tensor:
     """The kernel's in-chunk cumsum of dt * a over the last axis (Q steps),
-    in its order: lane l sums steps [l e, l e + e) in turn (e = ceil(Qp /
-    32), Qp = Q rounded up to 16), a Hillis-Steele scan over the 32 lanes'
-    sums, then each lane adds the sum of the lanes before it, all in f32."""
+    in its order: one thread adds the steps in turn, in f32."""
+    runs = [dta[..., 0]]
+    for k in range(1, dta.shape[-1]):
+        runs.append(runs[-1] + dta[..., k])
+    return torch.stack(runs, -1)
+
+
+def lane_lcum(dta: torch.Tensor) -> torch.Tensor:
+    """The lane-split order of the same cumsum: lane l sums steps [l e, l e + e)
+    in turn (e = ceil(Qp / 32), Qp = Q rounded up to 16), a Hillis-Steele
+    scan over the 32 lanes' sums, then each lane adds the sum of the lanes
+    before it, all in f32."""
     q = dta.shape[-1]
     qp = (q + 15) // 16 * 16
     e = (qp + LANES - 1) // LANES
@@ -66,9 +75,10 @@ def split(v: torch.Tensor, terms: int) -> list[torch.Tensor]:
     return [hi] if terms == 1 else [hi, (v - hi).to(torch.bfloat16).float()]
 
 
-def emulate(x, bm, cm, dt, a, chunk, terms=2):
+def emulate(x, bm, cm, dt, a, chunk, terms=2, lcum_order=None):
     """y [B, S, H, P] and states [B, nc, H, P, N] as the tensor-core kernel
-    computes them; terms=1 rounds M and x * seg to one bf16 term instead."""
+    computes them; terms=1 rounds M and x * seg to one bf16 term instead,
+    and ``lcum_order`` replaces the kernel's order of the cumsum."""
     x, bm, cm, dt, a = (torch.from_numpy(np.asarray(t, np.float32)) for t in (x, bm, cm, dt, a))
     b, s, h, p = x.shape
     n = bm.shape[-1]
@@ -76,7 +86,7 @@ def emulate(x, bm, cm, dt, a, chunk, terms=2):
     nc = s // q
     xc, bc, cc = x.reshape(b, nc, q, h, p), bm.reshape(b, nc, q, n), cm.reshape(b, nc, q, n)
     dth = dt.reshape(b, nc, q, h).transpose(2, 3)  # [B, nc, H, Q]
-    lcum = kernel_lcum(dth * a[:, None])
+    lcum = (lcum_order or kernel_lcum)(dth * a[:, None])
     seg = torch.exp(lcum[..., -1:] - lcum) * dth  # [B, nc, H, Q]
     cb = cc @ bc.transpose(-1, -2)  # [B, nc, Q, Q]: bf16 products, exact in f32
     causal = torch.ones((q, q), dtype=torch.bool).tril()
@@ -162,10 +172,42 @@ def test_one_bf16_term_misses_the_tolerance():
 def test_kernel_cumsum_order_is_a_cumsum(q):
     rng = np.random.default_rng(q)
     dta = -torch.from_numpy(rng.random((3, q), dtype=np.float32)) * 4
-    got = kernel_lcum(dta)
-    assert got.shape == (3, q) and got.dtype == torch.float32
-    torch.testing.assert_close(got, torch.cumsum(dta.double(), -1).float(), rtol=1e-6, atol=1e-5)
-    assert torch.equal(got[:, 0], dta[:, 0])
+    for got in (kernel_lcum(dta), lane_lcum(dta)):
+        assert got.shape == (3, q) and got.dtype == torch.float32
+        torch.testing.assert_close(got, torch.cumsum(dta.double(), -1).float(), rtol=1e-6, atol=1e-5)
+        assert torch.equal(got[:, 0], dta[:, 0])
+
+
+@pytest.mark.parametrize("seed", [7, 16, 28, 31])
+def test_in_order_cumsum_holds_q256_where_lane_runs_missed(seed):
+    """chip_smoke.py's "N in slices" shape (Q = 256, N = 200, |lcum| in the
+    hundreds), against the plain version, as the smoke holds the kernel:
+    with lane runs and a shuffle scan, lcum_i - lcum_j carries the
+    rounding of two different paths and y misses 2e-4 at these seeds (4 of
+    the first 40; on the card once, by 2.85e-5); summed in step order, as
+    the kernel now does, it holds.  Against the answer in float64 both
+    orders hold: the two f32 routes' errors add up in the smoke's check."""
+    args = inputs(seed, 1, 512, 3, 128, 200)
+    want, _ = kops.ssd_intra(*(torch.from_numpy(np.asarray(t, np.float32)) for t in args), chunk=256,
+                             use_kernel=False)
+    lane, in_order = emulate(*args, 256, lcum_order=lane_lcum)[0], emulate(*args, 256)[0]
+    assert excess(lane, want) > 0 and excess(in_order, want) <= 0
+    exact = y_float64(*args, 256)
+    assert excess(lane, exact) <= 0 and excess(in_order, exact) <= 0 and excess(want, exact) <= 0
+
+
+def y_float64(x, bm, cm, dt, a, q):
+    """y of the SSD intra-chunk step, every operation in float64."""
+    x, bm, cm, dt, a = (torch.from_numpy(np.asarray(v, np.float64)) for v in (x, bm, cm, dt, a))
+    b, s, h, p = x.shape
+    nc = s // q
+    xc, dtc = x.reshape(b, nc, q, h, p), dt.reshape(b, nc, q, h)
+    lcum = torch.cumsum(dtc * a, 2)
+    cb = torch.einsum("bcqn,bckn->bcqk", cm.reshape(b, nc, q, -1), bm.reshape(b, nc, q, -1))
+    causal = torch.ones((q, q), dtype=torch.bool).tril()[None, None, :, :, None]
+    ldiff = torch.where(causal, lcum[:, :, :, None, :] - lcum[:, :, None, :, :], 0.0)
+    m = torch.where(causal, cb[..., None] * torch.exp(ldiff) * dtc[:, :, None, :, :], 0.0)
+    return torch.einsum("bcqkh,bckhp->bcqhp", m, xc).reshape(b, s, h, p)
 
 
 # -- the N slice the wrapper sizes ---------------------------------------------------

@@ -27,7 +27,6 @@ from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ssd_scan  # noqa: E402
 
 TOL = dict(rtol=2e-4, atol=2e-4)  # chip_smoke.py's SSD_TOL: the kernel against its plain version
-LANES = 32
 LOG2E = 1.4426950408889634
 TILE = ssd_scan.F32_TILE
 
@@ -45,25 +44,14 @@ def inputs(seed, b, s, h, p, n):
 
 def kernel_lcum(dta: torch.Tensor) -> torch.Tensor:
     """The kernel's in-chunk cumsum of dt * a over the last axis (Q steps), in
-    its order: the steps padded with zeros to Qp (Q rounded up to 64), lane l
-    of the head's warp sums steps [l e, l e + e) in turn (e = Qp / 32), a
-    Hillis-Steele scan over the 32 lanes' sums, then each lane adds the sum
-    of the lanes before it, all in f32."""
+    its order: the steps padded with zeros to Qp (Q rounded up to 64), one
+    thread adding them in turn, in f32."""
     q = dta.shape[-1]
-    qp = -(-q // TILE) * TILE
-    e = qp // LANES
-    v = torch.nn.functional.pad(dta, (0, qp - q)).reshape(*dta.shape[:-1], LANES, e)
+    v = torch.nn.functional.pad(dta, (0, -(-q // TILE) * TILE - q))
     runs = [v[..., 0]]
-    for k in range(1, e):
+    for k in range(1, v.shape[-1]):
         runs.append(runs[-1] + v[..., k])
-    run = torch.stack(runs, -1)
-    incl = run[..., -1]
-    lane = torch.arange(LANES)
-    for d in (1, 2, 4, 8, 16):
-        shifted = torch.nn.functional.pad(incl, (d, 0))[..., :LANES]
-        incl = torch.where(lane >= d, shifted + incl, incl)
-    before = torch.nn.functional.pad(incl, (1, 0))[..., :LANES]
-    return (before[..., None] + run).reshape(*dta.shape[:-1], qp)
+    return torch.stack(runs, -1)
 
 
 def cb_tile(c: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
