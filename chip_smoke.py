@@ -25,7 +25,17 @@ x 2,048-token prompts), Qwen2-VL-72B cut to 36 layers on embeddings with
 M-RoPE streams that differ, at a scalar and at per-slot indices, and
 SeamlessM4T-medium's frames through its encoder, cross cache and 16 greedy
 steps, every K6 and K7 launch counted and tallied by shape, with the same
-route checks; then the whole parameter space
+route checks; the training side (``TRAIN_ARCH``): K6 at dh 16 (the tiny
+configs' head dim), K5 / K6 / K8 under autograd (the kernel forward, the
+plain version's vector-Jacobian product backward) against the plain route's
+input gradients at the tiny configs' shapes and one full-width layer each,
+the kernels without a gradient refusing an input that requires grad, all 12
+points of ``app_step_torch`` with their launches and each train point's loss
+against ``use_kernel=False``, OLMo-1B trained at full width and depth (bf16
+compute, float32 master weights, AdamW, 30 steps of 4 x 2,048 tokens) with
+its step split into forward, backward and optimizer, the card's busy share
+and step 0 held on three routes, and a restart drill through
+``run_with_restarts``; then the whole parameter space
 of the seven resource tasks (``compute_torch``, ``strings_torch``,
 ``memory_torch``, ``storage_torch``, ``index_offload_torch``,
 ``network_torch`` on NCCL, ``quantize_torch``) with each point's output held
@@ -52,7 +62,9 @@ the host link's), and prints:
     ``moe_shapes`` with their launches on the MoE path and ``torch.bmm``,
     every bf16 K5 launch of that path counted on it; the bf16
     ``flash_attention`` and ``decode_attention`` entries also carry the five
-    architectures' launches, ``lm5_launches``, and ``lm5_shapes``: InternLM2-20B's
+    architectures' launches, ``lm5_launches``, and ``lm5_shapes`` (both K6
+    entries also their launches on the training path, ``train_launches``,
+    and ``flash_attention_f32`` K6 at dh 16 in ``dh16_shapes``): InternLM2-20B's
     8 x 2,048-token prefill at G 6 and its decode, SeamlessM4T-medium's encoder,
     cross prefill and cross decode, each beside its plain version, SDPA and its
     bound);
@@ -1828,7 +1840,9 @@ def device_profile(fn, names=("",), calls=20) -> tuple[float, float]:
     # A trace now and then comes back without its device events, or with one
     # of a kernel's launches dropped (19 of 20 calls): take one whose every
     # kernel launched a whole number of times a call, else the last read.
-    for _ in range(3):
+    # Three empty traces in a row have happened once (alu_chain, after the
+    # training path), so up to six are taken, each empty one reported.
+    for attempt in range(6):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
@@ -1840,6 +1854,8 @@ def device_profile(fn, names=("",), calls=20) -> tuple[float, float]:
             seen = us / 1e3, sum(e.count for e in events) / calls
             if all(e.count % calls == 0 for e in events):
                 return seen
+        else:
+            print(f"[profile] trace {attempt + 1} of {names} came back without device time", flush=True)
     if seen is None:
         raise RuntimeError(f"check failed: the profiler's traces have no device time for {names}")
     return seen
@@ -2765,6 +2781,406 @@ def resource_kernel_entries(name, launches, errs, chains):
     return [alu, imm, quant, deq]
 
 
+# ---------------------------------------------------------------------------
+# The training side: K6 at dh 16, the kernels under autograd, app_step_torch,
+# OLMo-1B trained at full width and depth, the restart drill.
+TRAIN_ARCH = "olmo-1b"  # launch.train's default arch, at full width and depth
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 30, 4, 2048
+GRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # kernel route's input gradients vs the plain route's (rel L2)
+APP_STEP_RTOL = 1e-4  # app_step_torch's f32 train loss, kernel route vs use_kernel=False
+
+
+def k6_dh16_phase(dev):
+    """K6's CUDA-core kernel at dh 16 (the tiny configs' head dim), f32 and
+    bf16, causal and not, ragged Sq and Sk, G 1 and 4; each against the
+    plain version, bit-equal on a repeat (compare_k6) and a sequence
+    bit-equal alone and in a batch."""
+    gen = torch.Generator(device=dev).manual_seed(26)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, sq, sk, hq, hkv, causal in ((2, 64, 64, 4, 4, True), (2, 64, 64, 4, 2, True), (1, 1, 1, 4, 4, True),
+                                           (2, 300, 300, 8, 2, True), (2, 513, 513, 4, 1, True),
+                                           (2, 2048, 2048, 4, 4, True), (2, 100, 300, 4, 4, False),
+                                           (2, 200, 70, 8, 2, False), (1, 65, 65, 4, 4, False)):
+            err = compare_k6("dh 16", b, sq, sk, hq, hkv, 16, dtype, causal, gen, dev)
+            errs[f"attn_dh16_{dtype}"] = max(err, errs.get(f"attn_dh16_{dtype}", 0.0))
+        k6_batch_independence(300, 16, gen, dev, dtype)
+    return errs
+
+
+def rel_l2(got, want) -> float:
+    return float((got.double() - want.double()).norm() / want.double().norm().clamp(min=1e-30))
+
+
+def autograd_check(label, fn, inputs, tol, counter):
+    """The kernel route's input gradients against the plain route's on the
+    same inputs and loss (sum(out^2 * r) over every output, so the
+    cotangent carries the forward's own error), the forward launched once."""
+    from repro_torch.kernels import ops as kops
+
+    def grads(use_kernel):
+        xs = [x.detach().clone().requires_grad_(x.is_floating_point()) for x in inputs]
+        before = kops.LAUNCHES[counter]
+        out = fn(*xs, use_kernel=use_kernel)
+        launched = kops.LAUNCHES[counter] - before
+        outs = out if isinstance(out, tuple) else (out,)
+        gen = torch.Generator(device=xs[0].device).manual_seed(7)
+        loss = sum((o.float().square() * torch.rand(o.shape, generator=gen, device=o.device)).sum() for o in outs)
+        got = torch.autograd.grad(loss, [x for x in xs if x.requires_grad])
+        check(kops.LAUNCHES[counter] - before == launched, f"autograd {label}: the backward launched a kernel")
+        return got, launched
+
+    got, launched = grads(True)
+    want, plain_launched = grads(False)
+    check(launched == 1 and plain_launched == 0, f"autograd {label}: {launched} forward launches, want 1")
+    dists = [rel_l2(g, w) for g, w in zip(got, want)]
+    check(all(torch.isfinite(g).all() for g in got), f"autograd {label}: non-finite gradient")
+    check(max(dists) <= tol, f"autograd {label}: input gradients {dists} over {tol} from the plain route's")
+    print(f"[autograd] {label}: forward launched once, input gradients rel L2 {', '.join(f'{d:.3g}' for d in dists)} "
+          f"(limit {tol})", flush=True)
+    return max(dists)
+
+
+def autograd_phase(dev):
+    """gmm, flash_attention and ssd_intra under autograd on the card (the
+    kernel forward, the plain version's vector-Jacobian product backward) at
+    the tiny configs' shapes and at one full-width layer each: OLMo-1B's
+    attention, Mamba2-2.7B's SSD, a Jamba-v0.1-sized expert product; the
+    kernels without a gradient raise on an input that requires grad."""
+    from repro_torch.kernels import ops as kops
+
+    gen = torch.Generator(device=dev).manual_seed(27)
+    f32, bf16 = torch.float32, torch.bfloat16
+    out = {}
+
+    def rnd(shape, dtype, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+
+    for dtype in (f32, bf16):
+        counter = "gmm" if dtype == f32 else "gmm_tc"
+        # Kimi-K2 tiny's wi (E 4, C 64, d 64, 2f 256); Jamba-v0.1's wi at a 1,024-token batch's C (E 16, d 4,096, 2f 28,672)
+        for label, (e, c, d, f) in (("kimi-k2 tiny wi", (4, 64, 64, 256)), ("jamba-v0.1 wi", (16, 160, 4096, 28672))):
+            if dtype == f32 and e == 16:
+                continue  # Jamba trains its experts in bf16
+            out[f"k5 {label} {dtype}"] = autograd_check(
+                f"k5 {label} E={e} C={c} d={d} f={f} {dtype}", kops.gmm,
+                (rnd((e, c, d), dtype), rnd((e, d, f), dtype, d**-0.5)), GRAD_RTOL[dtype], counter)
+            free_card()
+    for label, dtype, (b, sq, sk, hq, hkv, dh), causal in (
+            ("tiny", f32, (2, 64, 64, 4, 4, 16), True), ("tiny cross", f32, (2, 64, 40, 4, 4, 16), False),
+            ("f32 dh 64", f32, (2, 300, 300, 8, 2, 64), True), ("f32 dh 64 cross", f32, (2, 100, 300, 8, 2, 64), False),
+            ("olmo-1b attention", bf16, (4, 2048, 2048, 16, 16, 128), True),
+            ("bf16 dh 128 cross", bf16, (2, 512, 300, 16, 16, 128), False)):
+        out[f"k6 {label}"] = autograd_check(
+            f"k6 {label} B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} dh={dh} {dtype} causal={causal}",
+            lambda *t, use_kernel, causal=causal: kops.flash_attention(*t, causal=causal, use_kernel=use_kernel),
+            (rnd((b, sq, hq, dh), dtype), rnd((b, sk, hkv, dh), dtype), rnd((b, sk, hkv, dh), dtype)),
+            GRAD_RTOL[dtype], "flash_attention")
+        free_card()
+    for label, (b, s, h, p, n, q) in (("mamba2 tiny", (2, 64, 16, 8, 16, 8)),
+                                      ("mamba2-2.7b ssd", (1, 2048, 80, 64, 128, 64))):
+        for dtype in (f32, bf16):
+            out[f"k8 {label} {dtype}"] = autograd_check(
+                f"k8 {label} B={b} S={s} H={h} P={p} N={n} Q={q} {dtype}",
+                lambda *t, use_kernel, q=q: kops.ssd_intra(*t, chunk=q, use_kernel=use_kernel),
+                (rnd((b, s, h, p), dtype), rnd((b, s, n), dtype, 0.5), rnd((b, s, n), dtype, 0.5),
+                 torch.nn.functional.softplus(rnd((b, s, h), f32)), -torch.exp(torch.linspace(0.0, 2.77, h, device=dev))),
+                GRAD_RTOL[dtype], "ssd_intra")
+            free_card()
+    # No gradient, no silent drop: K7 and the query kernels raise on the card.
+    from repro_torch.kernels import group_filter_agg as gfa
+
+    q, k, v = rnd((2, 4, 16), f32).requires_grad_(), rnd((2, 64, 2, 16), f32), rnd((2, 64, 2, 16), f32)
+    cols = torch.rand((4, 4096), generator=gen, device=dev).requires_grad_()
+    pred_ops, pred_consts = gfa.encode_predicates([("range", 0, 0.1, 0.5)])
+    agg_ops, agg_consts = gfa.encode_aggregates([[("col", 1)]])
+    keys = torch.zeros(4096, dtype=torch.int32, device=dev)
+    refusals = {"decode_attention": lambda: kops.decode_attention(q, k, v, 5),
+                "group_filter_agg": lambda: kops.group_filter_agg(
+                    cols, keys, pred_ops.to(dev), pred_consts.to(dev), agg_ops.to(dev), agg_consts.to(dev), num_groups=1),
+                "block_compact": lambda: kops.block_compact(cols, cols.detach()[0] > 0.5, 64),
+                "filter_agg": lambda: kops.filter_agg(cols, 0.1, 0.9, 0.2, 0.8)}
+    before = dict(kops.LAUNCHES)
+    for kname, call in refusals.items():
+        try:
+            call()
+        except ValueError as e:
+            check("has no gradient" in str(e), f"autograd: {kname} raised {e}")
+        else:
+            check(False, f"autograd: {kname} took an input that requires grad")
+    check(kops.LAUNCHES == before, "autograd: a refused call launched")
+    print(f"[autograd] {', '.join(refusals)} raise on an input that requires grad, launching nothing", flush=True)
+    return out
+
+
+def app_step_launches(cfg, kind, calls):
+    """The kernels one app_step_torch point launches in ``calls`` calls of a
+    tiny f32 config: a train call K6 a attention layer, K8 a Mamba2 layer and
+    K5 (CUDA cores) twice an MoE layer; a decode call K7 a attention layer
+    and K5 twice an MoE layer (a Mamba2 decode step runs no kernel)."""
+    n = layer_counts(cfg)
+    if kind == "train":
+        return {"flash_attention": n["flash_attention"] * calls, "ssd_intra": n["ssd_intra"] * calls,
+                "gmm": n["gmm"] * calls}
+    return {"decode_attention": n["decode_attention"] * calls, "gmm": n["gmm"] * calls}
+
+
+def app_step_phase(dev):
+    """All 12 points of app_step_torch on the card, each point's launches
+    exactly layers x calls; returns the rows and the launches."""
+    from repro_torch.configs.base import get_arch, tiny
+    from repro_torch.core.task import TaskContext
+    from repro_torch.kernels import ops as kops
+    from repro_torch.tasks import TASKS
+
+    task = TASKS["app_step_torch"]()
+    ctx = TaskContext(iters=10, warmup=2, device=dev)
+    rows, total = [], collections.Counter()
+    for point in points(task.param_space):
+        before = dict(kops.LAUNCHES)
+        res = task.execute_test(ctx, point)
+        delta = {k: kops.LAUNCHES[k] - before[k] for k in before}
+        calls = 1 if point["mode"] == "cold" else ctx.warmup + ctx.iters
+        want = app_step_launches(tiny(get_arch(point["arch"])), point["kind"], calls)
+        for kname, count in delta.items():
+            check(count == want.get(kname, 0), f"app_step {point}: {kname} launched {count}, want {want.get(kname, 0)}")
+        total.update(delta)
+        rows.append({**point, **res.metrics, "launches": {k: v for k, v in delta.items() if v}})
+        print(f"[app_step] {json.dumps(rows[-1])}", flush=True)
+    task.clean(ctx)
+    return rows, dict(total)
+
+
+def app_step_route_phase(dev):
+    """Each train point's loss on the kernel route against use_kernel=False
+    on the same parameters and batch (f32: within APP_STEP_RTOL relative)."""
+    from repro_torch.configs.base import get_arch, tiny
+    from repro_torch.core.task import TaskContext
+    from repro_torch.models.model import Model
+    from repro_torch.tasks import TASKS
+
+    task = TASKS["app_step_torch"]()
+    out = {}
+    for arch in task.param_space["arch"]:
+        fn, (params, batch), _ = task.step(TaskContext(device=dev), {"arch": arch, "kind": "train"})
+        with torch.no_grad():
+            got = float(fn(params, batch))
+            want = float(Model(tiny(get_arch(arch)), device=dev, use_kernel=False).loss(params, batch)[0])
+        out[arch] = abs(got - want) / abs(want)
+        check(math.isfinite(got) and out[arch] <= APP_STEP_RTOL,
+              f"app_step {arch} train: loss {got} vs the plain route's {want}")
+    print(f"[app_step] train loss, kernel route vs use_kernel=False, relative: {json.dumps(out)}", flush=True)
+    return out
+
+
+def train_split(model, params, opt_state, data, step, opt, schedule):
+    """One training step in its parts, each timed by CUDA events: the loss
+    forward, the backward (autograd), the optimizer; returns ms of each and
+    the new state."""
+    from repro_torch.optim.tree import tree_leaves, tree_map
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    batch = data.batch_at(step)
+    ev[0].record()
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, _ = model.loss(live, batch)
+    ev[1].record()
+    leaves = tree_leaves(live)
+    got = iter(torch.autograd.grad(loss, leaves))
+    grads = tree_map(lambda p: next(got), live)
+    ev[2].record()
+    params, opt_state, _ = opt.update(grads, opt_state, params, schedule(step))
+    ev[3].record()
+    torch.cuda.synchronize()
+    return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)], params, opt_state
+
+
+def train_phase(dev):
+    """OLMo-1B at full width and depth trained on the card: bf16 compute,
+    float32 master weights and AdamW, 30 steps of 4 x 2,048 tokens, warmup
+    10, lr 3e-4, no checkpoints; then three more steps split into forward,
+    backward and optimizer, and the card's busy share of a step."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import for_model
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.model import Model
+    from repro_torch.optim import make_optimizer, make_schedule
+    from repro_torch.runtime import train_loop
+
+    cfg = get_arch(TRAIN_ARCH)
+    check(cfg.n_layers == 16 and cfg.d_model == 2048 and cfg.compute_dtype == "bfloat16"
+          and cfg.param_dtype == "float32" and cfg.optimizer == "adamw", f"{TRAIN_ARCH}: the published config")
+    from repro_torch.kernels import flash_attention as fa
+
+    check(cfg.head_dim in fa.TENSOR_CORE_HEAD_DIMS, f"{TRAIN_ARCH}: K6 at dh {cfg.head_dim} is off the tensor cores")
+    model = Model(cfg, device=dev)
+    data = for_model(cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, device=dev)
+    tc = train_loop.TrainConfig(steps=TRAIN_STEPS, warmup_steps=10, lr=3e-4, ckpt_dir=None)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(kops.LAUNCHES)
+    t0 = time.perf_counter()
+    res = train_loop.train(model, data, tc)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    delta = {k: kops.LAUNCHES[k] - before[k] for k in before}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(res.final_step == TRAIN_STEPS and len(res.losses) == TRAIN_STEPS, f"{TRAIN_ARCH} train: steps")
+    check(all(math.isfinite(x) for x in res.losses), f"{TRAIN_ARCH} train: a loss is not finite: {res.losses}")
+    check(res.losses[-1] < res.losses[0], f"{TRAIN_ARCH} train: the loss did not fall ({res.losses[0]} -> {res.losses[-1]})")
+    want = {"flash_attention": cfg.n_layers * TRAIN_STEPS}
+    for kname, count in delta.items():
+        check(count == want.get(kname, 0), f"{TRAIN_ARCH} train: {kname} launched {count}, want {want.get(kname, 0)}")
+    steady = sorted(res.step_times[1:])
+    step_ms = 1e3 * steady[len(steady) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    opt = make_optimizer(cfg.optimizer)
+    schedule = make_schedule(tc.schedule, peak_lr=tc.lr, warmup_steps=tc.warmup_steps, total_steps=tc.steps)
+    params, opt_state, splits = res.params, res.opt_state, []
+    for step in range(TRAIN_STEPS, TRAIN_STEPS + 3):
+        ms, params, opt_state = train_split(model, params, opt_state, data, step, opt, schedule)
+        splits.append(ms)
+    split = [sorted(col)[1] for col in zip(*splits)]
+    step_fn = train_loop.make_train_step(model, opt, schedule)
+    state = {"params": params, "opt": opt_state, "step": TRAIN_STEPS + 3}
+
+    def one_step():
+        state["params"], state["opt"], m = step_fn(state["params"], state["opt"], data.batch_at(state["step"]),
+                                                  state["step"])
+        state["step"] += 1
+        return m
+
+    busy = device_share(f"{TRAIN_ARCH} train step (B={TRAIN_BATCH} x {TRAIN_SEQ}, full width)", one_step, calls=2)
+    out = {"steps": TRAIN_STEPS, "loss_first": res.losses[0], "loss_last": res.losses[-1], "losses": res.losses,
+           "seconds": seconds, "step_ms": step_ms, "tokens_per_s": tokens / (step_ms / 1e3),
+           "forward_ms": split[0], "backward_ms": split[1], "optimizer_ms": split[2], "busy_share": busy,
+           "peak_gb": peak_gb, "stragglers": res.stragglers, "launches": {k: v for k, v in delta.items() if v},
+           "n_params": cfg.n_params()}
+    print(f"[train] {TRAIN_ARCH} full width and depth ({cfg.n_params() / 1e9:.3f} B params), bf16 compute, f32 "
+          f"master weights, AdamW: {json.dumps(out)}", flush=True)
+    del res, params, opt_state, state, step_fn
+    free_card()
+    return out
+
+
+def restart_drill(dev):
+    """Tiny OLMo-1B on the card through run_with_restarts: a failure at step
+    6, a checkpoint every 4 steps, 12 steps, into a temporary directory."""
+    import tempfile
+
+    from repro_torch.configs.base import get_arch, tiny
+    from repro_torch.data.pipeline import for_model
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.model import Model
+    from repro_torch.runtime import train_loop
+
+    cfg = tiny(get_arch(TRAIN_ARCH))
+    model = Model(cfg, device=dev)
+    data = for_model(cfg, seq_len=64, global_batch=8, device=dev)
+    before = dict(kops.LAUNCHES)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ck:
+        tc = train_loop.TrainConfig(steps=12, ckpt_every=4, ckpt_dir=ck, warmup_steps=2, lr=3e-3, failure_at=6)
+        res = train_loop.run_with_restarts(model, data, tc)
+    delta = {k: kops.LAUNCHES[k] - before[k] for k in before}
+    check((res.restarts, res.restored_from, res.final_step) == (1, 4, 12),
+          f"restart drill: restarts {res.restarts}, restored_from {res.restored_from}, final_step {res.final_step}")
+    check(all(math.isfinite(x) for x in res.losses) and res.losses[-1] < res.losses[0],
+          f"restart drill: the loss did not fall: {res.losses}")
+    check(delta["flash_attention"] == cfg.n_layers * (6 + 8) and sum(delta.values()) == delta["flash_attention"],
+          f"restart drill: launches {delta}")
+    out = {"restarts": res.restarts, "restored_from": res.restored_from, "final_step": res.final_step,
+           "losses": res.losses, "launches": {k: v for k, v in delta.items() if v}}
+    print(f"[train] restart drill (tiny {TRAIN_ARCH}, f32 dh 16): {json.dumps(out)}", flush=True)
+    return out
+
+
+def train_path(dev):
+    """The training side's main path: app_step_torch's 12 points, OLMo-1B
+    trained at full width and depth, the restart drill.  Returns the
+    summary and the f32 launches (app_step and the drill: tiny configs)."""
+    rows, app_launches = app_step_phase(dev)
+    drill = restart_drill(dev)
+    full = train_phase(dev)
+    f32 = collections.Counter(app_launches)
+    f32.update(drill["launches"])
+    return {"app_step": rows, "train": full, "restart_drill": drill}, dict(f32)
+
+
+def train_route_phase(dev):
+    """Step 0 of the OLMo-1B training run on three routes: the kernel route
+    (bf16), the plain route in bf16 and the plain route in float32, at the
+    same float32 master weights and batch, the batch's 4 sequences as 4
+    microbatches (the float32 route's activations would not fit at once).
+    The kernel route's loss and gradient (relative L2 over every leaf) are
+    no farther than LM_EXACT_RATIO x the bf16 plain route's distance e from
+    the float32 answer, and within LM_ROUTE_RATIO x e of the plain route."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import for_model
+    from repro_torch.models.model import Model
+    from repro_torch.optim.tree import tree_leaves
+    from repro_torch.runtime import train_loop
+
+    cfg = get_arch(TRAIN_ARCH)
+    data = for_model(cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, device=dev)
+    batch = train_loop.split_microbatches(data.batch_at(0), TRAIN_BATCH)
+    params = train_loop.master_params(Model(cfg, device=dev), 0)
+
+    def route(model):
+        grads, loss = None, 0.0
+        for i in range(TRAIN_BATCH):
+            l, _, g = train_loop.value_and_grad(model, params, {k: v[i] for k, v in batch.items()})
+            g = tree_leaves(g)
+            grads = g if grads is None else [a.add_(b) for a, b in zip(grads, g)]
+            loss = loss + float(l)
+            del g
+        return loss / TRAIN_BATCH, torch.cat([g.flatten() / TRAIN_BATCH for g in grads])
+
+    f32_cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    ref_loss, ref_g = route(Model(f32_cfg, device=dev, use_kernel=False))
+    free_card()
+    plain_loss, plain_g = route(Model(cfg, device=dev, use_kernel=False))
+    free_card()
+    k_loss, k_g = route(Model(cfg, device=dev))
+    free_card()
+    e_loss, e_g = abs(plain_loss - ref_loss) / abs(ref_loss), rel_l2(plain_g, ref_g)
+    d_loss, d_g = abs(k_loss - ref_loss) / abs(ref_loss), rel_l2(k_g, ref_g)
+    kp_loss = abs(k_loss - plain_loss) / abs(ref_loss)
+    kp_g = float((k_g.double() - plain_g.double()).norm() / ref_g.double().norm())
+    out = {"loss_f32": ref_loss, "loss_plain_bf16": plain_loss, "loss_kernel": k_loss,
+           "loss_e": e_loss, "loss_kernel_vs_f32": d_loss, "loss_kernel_vs_plain": kp_loss,
+           "grad_e": e_g, "grad_kernel_vs_f32": d_g, "grad_kernel_vs_plain": kp_g,
+           "loss_ratio": d_loss / max(e_loss, 1e-30), "grad_ratio": d_g / e_g}
+    print(f"[train] {TRAIN_ARCH} step 0 routes: {json.dumps(out)}", flush=True)
+    check(all(math.isfinite(x) for x in (ref_loss, plain_loss, k_loss)), "train routes: a loss is not finite")
+    check(d_loss <= LM_EXACT_RATIO * e_loss and kp_loss <= LM_ROUTE_RATIO * e_loss,
+          f"train routes: the kernel route's loss is {d_loss:.3g} from the f32 answer (e {e_loss:.3g})")
+    check(d_g <= LM_EXACT_RATIO * e_g and kp_g <= LM_ROUTE_RATIO * e_g,
+          f"train routes: the kernel route's gradient is {d_g:.3g} from the f32 answer (e {e_g:.3g})")
+    del ref_g, plain_g, k_g, params
+    free_card()
+    return out
+
+
+def k6_dh16_rows(name, launches):
+    """K6 at app_step_torch's train shape (B 2, S 64, Hq 4, Hkv 4, dh 16,
+    causal) in f32 (its launches on the training path) and bf16, each one
+    call beside its plain version, SDPA (with its backend) and its bound."""
+    bw, flops, _ = peaks(name)
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        run, plain, lib, lib_err, nbytes, nops, _ = k6_calls(2, 64, 64, 4, 4, 16, dtype, True, gen, "cuda")
+        err = close(f"k6 dh 16 {dtype}", run(), plain(), *ATTN_TOL[dtype])
+        bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * nops / flops  # the CUDA cores: the f32 rate for both types
+        rows.append({"shape": f"app_step_torch train: B=2 Sq=Sk=64 Hq=4 Hkv=4 dh=16 {dtype} causal",
+                     "launches": launches if dtype == torch.float32 else 0, "max_abs_err": err, "ms": time_ms(run),
+                     "plain_ms": time_ms(plain, reps=20, warmup=2), "bound_ms": max(bytes_ms, ops_ms),
+                     "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": time_ms(lib),
+                     "library": f"SDPA, enable_gqa ({sdpa_backend(lib)}; max_abs_err {lib_err:.3g} from the kernel)"})
+        print(f"[k6] dh 16 {json.dumps(rows[-1])}", flush=True)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -2804,11 +3220,11 @@ def main() -> int:
                   "int_matmul": ("int_matmul_kernel",), "quantize": ("quantize_kernel",)}
     redesigned = {fn: info for src, kerns in tc_kernels.items() for fn, info in ptxas_report(logs[src]).items()
                   if any(kern in fn for kern in kerns)}
-    # dh 64 / 128 (tensor cores) and f32 dh 32 / 64 / 128 and bf16 dh 32 (CUDA cores); f32 / bf16;
+    # dh 64 / 128 (tensor cores) and f32 dh 16 / 32 / 64 / 128 and bf16 dh 16 / 32 (CUDA cores); f32 / bf16;
     # bf16 dh 32 / 64 / 128 and f32 dh 16 / 32 / 64 / 128 x G tiles 1 / 2 / 4 / 8 / 16; one scan kernel;
     # P <= 64 / 128 in bf16 and in f32; one kernel each; 4 types x 4 ops; int8 / int32;
     # quantize and dequantize; K5 f32 / bf16 on the CUDA cores and bf16 on the tensor cores at C <= 64 / above
-    want = {"flash_attention": 6, "gmm": 4, "decode_attention": 3 + 20, "group_filter_agg": 1, "ssd_intra": 4,
+    want = {"flash_attention": 8, "gmm": 4, "decode_attention": 3 + 20, "group_filter_agg": 1, "ssd_intra": 4,
             "block_compact": 1, "filter_agg": 1, "alu_chain": 16, "int_matmul": 2, "quantize": 2}
     for fn, info in redesigned.items():
         if any(k in fn for k in ("decode_mma_kernel", "group_filter_agg_kernel", "ssd_intra_mma_kernel", "gmm_tc_kernel",
@@ -2844,6 +3260,8 @@ def main() -> int:
     errs["k3"] = k3_phase(pd_ctx.scratch, dev)
     errs["k4"] = k4_phase(pd_ctx.scratch, dev)
     errs.update(k5_k6_phase(dev))
+    errs.update(k6_dh16_phase(dev))
+    grad_dists = autograd_phase(dev)
     errs.update(k7_k8_phase(dev))
     errs.update(resource_kernels_phase(dev))
 
@@ -2856,6 +3274,7 @@ def main() -> int:
         "moe": ("gmm_tc", "flash_attention", "decode_attention", "ssd_intra"),
         "lm5": ("flash_attention", "decode_attention"),
         "resources": RESOURCE_KERNELS,
+        "train": ("flash_attention", "decode_attention", "ssd_intra", "gmm"),
     }
     launches = dict.fromkeys(kops.LAUNCHES, 0)
     path_counts = {}
@@ -2876,6 +3295,9 @@ def main() -> int:
             moe_out, moe_shapes = moe_path(dev)
         elif path == "lm5":
             lm5_out, lm5_shapes = lm5_path(dev)
+        elif path == "train":
+            free_card()
+            train_out, train_f32 = train_path(dev)
         else:
             resources = resources_phase(dev, name)
         counts = dict(kops.LAUNCHES)
@@ -2895,6 +3317,9 @@ def main() -> int:
     lm_route = {arch: lm_route_phase(arch, dev) for arch in LM_LAYERS}
     lm_route.update({arch: lm_route_phase(arch, dev, moe_config(arch)) for arch in MOE_LAYERS})
     lm_route.update({arch: lm_route_phase(arch, dev, lm5_config(arch)) for arch in LM5_LAYERS})
+    free_card()
+    train_out["routes"] = train_route_phase(dev)
+    train_out["app_step_routes"] = app_step_route_phase(dev)
     per_query = {}
     kops.reset_launches()
     queries.q1_fused(li)
@@ -2905,7 +3330,8 @@ def main() -> int:
 
     # The float32 kernels' launches on the LM path are the float32 long-context
     # phases' (the counters do not tell the types apart); the rest are bf16.
-    f32_launches = {k: sum(lm[f"{arch} long float32"]["launches"].get(k, 0) for arch in LM_LAYERS)
+    # The training path's tiny configs (app_step_torch, the restart drill) are float32 too.
+    f32_launches = {k: sum(lm[f"{arch} long float32"]["launches"].get(k, 0) for arch in LM_LAYERS) + train_f32.get(k, 0)
                     for k in ("decode_attention", "ssd_intra", "flash_attention")}
     for kname, count in f32_launches.items():
         launches[kname] -= count
@@ -2923,12 +3349,19 @@ def main() -> int:
         ent = next(e for e in entries if e["name"] == kname)
         ent["lm5_launches"] = path_counts["lm5"][kname]
         ent["lm5_shapes"] = rows
+    # K6 at dh 16 (the CUDA-core kernel) and each K6 entry's launches on the training path.
+    k6_f32 = next(e for e in entries if e["name"] == "flash_attention_f32")
+    k6_f32["dh16_shapes"] = k6_dh16_rows(name, train_f32.get("flash_attention", 0))
+    k6_f32["train_launches"] = train_f32.get("flash_attention", 0)
+    next(e for e in entries if e["name"] == "flash_attention")["train_launches"] = \
+        path_counts["train"]["flash_attention"] - train_f32.get("flash_attention", 0)
     entries += resource_kernel_entries(name, launches, errs, chains)
     f32_route_times(name)
     print(f"[times] per query at sf1 (ms): {json.dumps(per_query_times(plans))}", flush=True)
     print(f"[lm] summary: {json.dumps({'paths': lm, 'moe': moe_out, 'lm5': lm5_out, 'route_rel_l2': lm_route})}",
           flush=True)
     print(f"[resources] seconds a task: {json.dumps(resources)}", flush=True)
+    print(f"[train] summary: {json.dumps({**train_out, 'autograd_rel_l2': grad_dists})}", flush=True)
     pd_task.clean(pd_ctx)
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(card, flush=True)

@@ -8,7 +8,7 @@ Layout (one directory per step):
       step_00000120/                # atomic rename when complete
 
 Leaves are flattened in the order ``jax.tree_util`` flattens a pytree (dict
-keys sorted, lists and tuples in order, None holds no leaf), so a
+keys sorted, lists, tuples and NamedTuples in order, None holds no leaf), so a
 checkpoint written by either package is restored by the other.  A leaf is a
 tensor, a numpy array or a number; a leaf numpy cannot hold (bfloat16)
 raises, where the JAX package writes its raw bytes.
@@ -49,6 +49,11 @@ def _flatten(tree: Any) -> tuple[list[Any], list[str], Callable[[list[Any]], Any
             parts = [walk(node[k], f"{path}[{k!r}]") for k in keys]
             return ((lambda it: {k: f(it) for k, (f, _) in zip(keys, parts)}),
                     "{" + ", ".join(f"{k!r}: {d}" for k, (_, d) in zip(keys, parts)) + "}")
+        if hasattr(node, "_fields"):  # a NamedTuple (an optimizer state): fields by name, in order
+            parts = [walk(v, f"{path}.{name}") for name, v in zip(node._fields, node)]
+            kind = type(node)
+            desc = f"CustomNode(namedtuple[{kind.__name__}], [{', '.join(d for _, d in parts)}])"
+            return (lambda it: kind(*(f(it) for f, _ in parts))), desc
         if isinstance(node, (list, tuple)):
             parts = [walk(v, f"{path}[{i}]") for i, v in enumerate(node)]
             kind = type(node)

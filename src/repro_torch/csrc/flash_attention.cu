@@ -46,9 +46,10 @@
 //     overlap, ping-pong turns between the two warpgroups and 3-6 stages ran
 //     no faster at Granite's prefill; 2 stages ran slower.
 //
-// f32 (every dh) and bf16 at dh 32: the CUDA cores (flash_attention_kernel).
-//   The reference is exact f32 and TF32 would miss its 2e-4; dh 32 has a
-//   64-byte bf16 row, below the 128-byte swizzle of the tensor-core path.
+// f32 (every dh) and bf16 at dh 16 and 32: the CUDA cores
+//   (flash_attention_kernel).  The reference is exact f32 and TF32 would miss
+//   its 2e-4; dh 16 and 32 have 32- and 64-byte bf16 rows, below the 128-byte
+//   swizzle of the tensor-core path.
 //   Bound: operations at the f32 rate (accel_torch large: B 1, Hq 4, Hkv 2,
 //   S 2048, dh 64, causal is 2.15 GFLOP against 4.2 MB; Granite-3-8B's
 //   2,048-token prefill in f32 34.4 GFLOP).  The first design (csrc/
@@ -73,7 +74,8 @@
 //     kernels/flash_attention.py.
 //   * Loads in flight.  Each segment's Q tile, then its K and V tiles, go by
 //     TMA (rank-4 maps [dh, H, S, B], boxes of 128-byte rows with the
-//     128-byte swizzle; 64 bytes for bf16 at dh 32) through a ring of 16 KB
+//     128-byte swizzle; 64 bytes for bf16 at dh 32 and f32 at dh 16, 32
+//     for bf16 at dh 16, each swizzled at its width) through a ring of 16 KB
 //     chunks (a K or V tile, or 32 keys of one at dh 128; 2 chunks, 3 at dh
 //     128) on full mbarriers.  Every warp's lane 0 keeps a cursor a ring
 //     ahead, and the last warp to release a chunk (a shared counter) loads
@@ -94,7 +96,10 @@
 //     P goes through a per-warp [64 keys][16 rows] buffer (16-byte chunks
 //     swizzled by key); P V takes per key 2 broadcast loads of P and 1 or 2
 //     of V for 32 or 64 FMAs into an 8-row x 8-column tile (4 at dh 32),
-//     the halves splitting the keys (dh 32 and 64) or the columns (dh 128).
+//     the halves splitting the keys (dh 16 to 64) or the columns (dh 128).
+//     At dh 16 (the models' tiny configs) a row has 4 column groups of 4,
+//     so lanes cg and cg + 4 compute the same columns and only cg < 4 store
+//     them: a new shape on this design, not tuned.
 //     The step and key loops stay loops: fully unrolled, the kernel ran 2x
 //     slower on an H100 (PERF.md).  Two blocks (8 warps) an SM; the
 //     per-thread row sums live in shared memory, so 255 registers hold the
@@ -129,7 +134,7 @@ constexpr int kMaxTiles = 32768;  // query or key tiles of a sequence (2^21 toke
 template <typename T, int DH>
 struct CcLayout {
   static constexpr int kBoxCols = 128 / static_cast<int>(sizeof(T)) < DH ? 128 / static_cast<int>(sizeof(T)) : DH;
-  static constexpr int kRowBytes = kBoxCols * static_cast<int>(sizeof(T));  // a box row: 128 (64: bf16, dh 32)
+  static constexpr int kRowBytes = kBoxCols * static_cast<int>(sizeof(T));  // a box row: 128, 64 or 32 (dh 16, 32)
   static constexpr int kBoxes = DH / kBoxCols;             // boxes across dh
   static constexpr int kQChunks = DH > 64 ? 2 : 1;         // ring chunks of a Q tile, by columns
   static constexpr int kQChunkBoxes = kBoxes / kQChunks;   // [64 rows] boxes of a Q chunk
@@ -257,10 +262,11 @@ __host__ __device__ inline Segment segment(const Plan& p, int u, int i, int x0, 
 // ---- shared-memory reads ---------------------------------------------------------
 // Byte offset of 16-byte chunk c16 of row r in a box TMA wrote with the
 // swizzle of its row width: chunk ^ (r % 8) for 128-byte rows, chunk ^
-// ((r / 2) % 4) for 64-byte rows.
+// ((r / 2) % 4) for 64-byte rows, chunk ^ ((r / 4) % 2) for 32-byte rows.
 template <int kRowBytes>
 __device__ __forceinline__ int swz(int r, int c16) {
-  return r * kRowBytes + ((kRowBytes == 128 ? c16 ^ (r & 7) : c16 ^ ((r >> 1) & 3)) << 4);
+  const int x = kRowBytes == 128 ? r & 7 : kRowBytes == 64 ? (r >> 1) & 3 : (r >> 2) & 1;
+  return r * kRowBytes + ((c16 ^ x) << 4);
 }
 
 // 16 bytes of T from shared memory as floats.
@@ -508,12 +514,13 @@ __device__ __forceinline__ void softmax_tile(float (&p)[8][4], float (&m)[8], fl
   }
 }
 
-// The thread's output columns: 4-column vector v of kOCols / 4.  At dh 32
-// and 64 the two halves split P V's keys (each key k with k % 8 in [4 kh,
-// 4 kh + 4)) and add their sums at the end; at dh 128 they split the columns.
+// The thread's output columns: 4-column vector v of kOCols / 4.  At dh 16
+// to 64 the two halves split P V's keys (each key k with k % 8 in [4 kh,
+// 4 kh + 4)) and add their sums at the end; at dh 128 they split the
+// columns.  At dh 16 column groups cg and cg + 4 hold the same 4 columns.
 template <int DH>
 __device__ __forceinline__ int out_col(int v, int kh, int cg) {
-  return (DH > 64 ? 64 * kh : 0) + 32 * v + 4 * cg;
+  return DH == 16 ? 4 * (cg % 4) : (DH > 64 ? 64 * kh : 0) + 32 * v + 4 * cg;
 }
 
 // o += P V over V chunk hc (keys hc * kKVRows ..): per key, P for the 8
@@ -572,7 +579,7 @@ __device__ void consume(const Plan& plan, int u, int x0, int x1, uint8_t* smem, 
                         int* __restrict__ tickets, int b, int h, int kvh, int sq, int sk, int hq, float scale_log2) {
   using L = CcLayout<T, DH>;
   constexpr bool kKeySplit = DH <= 64;
-  constexpr int kOCols = DH == 32 ? 4 : 8;             // output columns of a thread
+  constexpr int kOCols = DH <= 32 ? 4 : 8;             // output columns of a thread
   constexpr int kPartFloats = kRows * DH + 2 * kRows;  // a partial: acc [64][dh], m [64], l [64]
   __shared__ int s_last[2];  // per cut row: whether this block merges it
   __shared__ int4 s_cut[2];  // row, index, count, slot of the piece's cut segments
@@ -588,8 +595,8 @@ __device__ void consume(const Plan& plan, int u, int x0, int x1, uint8_t* smem, 
   float* lw = reinterpret_cast<float*>(smem + L::kLOffset) + warp * 8 * 32 + lane;  // [warp][row][lane]
   const int r0 = 16 * warp + 8 * rg;  // the thread's rows: r0 .. r0 + 7 of the tile
   // The rows whose output this lane writes: all 8, or its half's 4 where
-  // the halves split the keys.
-  auto writes = [&](int r) { return !kKeySplit || r / 4 == kh; };
+  // the halves split the keys; at dh 16 only column groups 0-3 write.
+  auto writes = [&](int r) { return (!kKeySplit || r / 4 == kh) && (DH > 16 || cg < 4); };
   int n = 0;                       // chunks taken
   Cursor& ahead = s_ahead[warp];   // lane 0: chunk n + kStages
   if (lane == 0) {
@@ -1088,7 +1095,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap map_q, const __gri
 
 // A dense tensor [d3][d2][d1][d0] of T (d0 innermost) as a rank-4 TMA map
 // whose box is [box2 rows of d2] x [1 of d1] x [box0 of d0], box0 * sizeof(T)
-// bytes (128 or 64) swizzled at that width.  Returns a cudaError_t code.
+// bytes (128, 64 or 32) swizzled at that width.  Returns a cudaError_t code.
 template <typename T>
 int encode_cc_4d(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64_t d2, uint64_t d3,
                  uint32_t box0, uint32_t box2) {
@@ -1100,7 +1107,9 @@ int encode_cc_4d(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, u
   const cuuint32_t box[4] = {box0, 1, box2, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUtensorMapDataType type = sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  const CUtensorMapSwizzle swizzle = box0 * e == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  const CUtensorMapSwizzle swizzle = box0 * e == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : box0 * e == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult r = fn(map, type, 4, const_cast<void*>(base), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
@@ -1151,6 +1160,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int b, int
 int launch_f32(const void* q, const void* k, const void* v, void* out, void* ws, void* tickets, int b, int sq, int sk,
                int hq, int hkv, int dh, bool causal, float scale, cudaStream_t s) {
   switch (dh) {
+    case 16: return launch<float, 16>(q, k, v, out, ws, tickets, b, sq, sk, hq, hkv, causal, scale, s);
     case 32: return launch<float, 32>(q, k, v, out, ws, tickets, b, sq, sk, hq, hkv, causal, scale, s);
     case 64: return launch<float, 64>(q, k, v, out, ws, tickets, b, sq, sk, hq, hkv, causal, scale, s);
     case 128: return launch<float, 128>(q, k, v, out, ws, tickets, b, sq, sk, hq, hkv, causal, scale, s);
@@ -1192,8 +1202,8 @@ int flash_attention_f32_schedule(int sq, int sk, int causal, int* out, int cap) 
   return segments;
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike); dh in {32, 64,
-// 128}; q, k and v 16-byte aligned (TMA).  bf16 at dh 64 and 128 runs on the
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out alike); dh in {16, 32,
+// 64, 128}; q, k and v 16-byte aligned (TMA).  bf16 at dh 64 and 128 runs on the
 // tensor cores; the rest on the CUDA cores, which need `ws` (B * Hq * slots
 // partials of 64 * (dh + 2) floats, 16-byte aligned) when the schedule cuts a
 // row and `tickets` (B * Hq * n_q ints, 0 before the launch and left at 0
@@ -1209,6 +1219,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* ou
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (dh == 64) return launch_tc<64>(q, k, v, out, b, sq, sk, hq, hkv, causal != 0, scale, s);
   if (dh == 128) return launch_tc<128>(q, k, v, out, b, sq, sk, hq, hkv, causal != 0, scale, s);
+  if (dh == 16)
+    return launch<__nv_bfloat16, 16>(q, k, v, out, ws, tickets, b, sq, sk, hq, hkv, causal != 0, scale, s);
   if (dh == 32)
     return launch<__nv_bfloat16, 32>(q, k, v, out, ws, tickets, b, sq, sk, hq, hkv, causal != 0, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);

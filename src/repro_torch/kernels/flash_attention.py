@@ -5,7 +5,8 @@ or not, float32 or bfloat16, output in q's type.  Counterpart of the JAX
 package's ``kernels/flash_attention.py``; the kernel masks ragged tails of
 Sq and Sk itself, so no shape is padded.  Both of its kernels load by TMA,
 which needs 16-byte-aligned tensors.  bfloat16 at dh 64 and 128 runs on
-the tensor cores; everything else on the CUDA cores, whose blocks each take
+the tensor cores; everything else (dh 16 and 32 in bf16, every dh in f32)
+on the CUDA cores, whose blocks each take
 one piece of :func:`schedule`.  A query tile's row of key tiles cut by
 pieces leaves a partial a piece in a workspace kept per device and stream
 (:data:`WORKSPACES`); the last piece of the row merges them in order.  The
@@ -32,7 +33,7 @@ _SIGNATURES = {
 }
 #: The kernel's input types and their codes in ``flash_attention_launch``.
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
 #: Head dims whose bfloat16 inputs go to the tensor-core (TMA + wgmma) kernel.
 TENSOR_CORE_HEAD_DIMS = (64, 128)
 TILE = 64  # query rows and keys of a tile of the CUDA-core kernel

@@ -6,6 +6,18 @@ tensor launches the hand-written CUDA kernel or raises.  ``use_kernel=False``
 asks for the plain version on any device; it is never chosen for the
 caller.  ``LAUNCHES`` counts, per wrapper, the kernel launches it made
 (``gmm`` per kernel: ``gmm`` and ``gmm_tc``).
+
+Gradients.  The reference differentiates plain jnp: none of its Pallas
+kernels has a backward kernel or a ``custom_vjp``.  So where an input of
+``gmm``, ``flash_attention`` or ``ssd_intra`` requires grad on the kernel
+route, the call is a ``torch.autograd.Function`` (:class:`PlainVJP`) whose
+forward is the hand-written kernel, launched once, and whose backward is
+the vector-Jacobian product of the plain version, recomputed from the saved
+inputs: the reference's own gradient.  The other wrappers (``decode_attention``
+and the kernels off the LM path) have no gradient and raise ``ValueError``
+on an input that requires grad, on any device, unless ``use_kernel=False``
+asks for the plain version, which autograd differentiates as it is.  A CPU
+tensor takes the plain version under ordinary autograd.
 """
 from __future__ import annotations
 
@@ -35,6 +47,51 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+def _grad_wanted(*inputs) -> bool:
+    """Whether autograd records a call on ``inputs``."""
+    return torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad for t in inputs)
+
+
+def _refuse_grad(name: str, use_kernel: bool, *inputs) -> None:
+    """Raise where a kernel without a gradient would take an input that requires grad."""
+    if use_kernel and _grad_wanted(*inputs):
+        raise ValueError(f"{name} has no gradient (the reference differentiates no such kernel): call it under "
+                         "torch.no_grad(), on tensors that do not require grad, or with use_kernel=False")
+
+
+class PlainVJP(torch.autograd.Function):
+    """``kernel(*inputs)`` in the forward, launched once; in the backward the
+    vector-Jacobian product of ``plain(*inputs)``, recomputed from the saved
+    inputs under ``torch.enable_grad()``.  Both return a tensor or a tuple of
+    tensors."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, *inputs):
+        ctx.plain = plain
+        ctx.save_for_backward(*inputs)
+        return kernel(*inputs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inputs = [x.detach().requires_grad_(need) for x, need in zip(ctx.saved_tensors, ctx.needs_input_grad[2:])]
+        with torch.enable_grad():
+            outs = ctx.plain(*inputs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, grads) if g is not None and o.requires_grad]
+        wanted = [x for x in inputs if x.requires_grad]
+        got = torch.autograd.grad([o for o, _ in pairs], wanted, [g for _, g in pairs], allow_unused=True) \
+            if pairs else [None] * len(wanted)
+        it = iter(got)
+        return (None, None, *(next(it) if x.requires_grad else None for x in inputs))
+
+
+def _launch(kernel, plain, *inputs):
+    """The kernel on ``inputs``; under autograd through :class:`PlainVJP`."""
+    if _grad_wanted(*inputs):
+        return PlainVJP.apply(kernel, plain, *inputs)
+    return kernel(*inputs)
+
+
 def _route(cols: torch.Tensor, use_kernel: bool) -> bool:
     """True when the kernel runs; False for the plain version."""
     if cols.is_cuda:
@@ -55,6 +112,7 @@ def group_filter_agg(
     ``encode_aggregates``).  Returns [num_groups, A + 1]: per-group
     aggregate sums, then the masked count.
     """
+    _refuse_grad("group_filter_agg", use_kernel, cols, pred_consts, agg_consts)
     if not _route(cols, use_kernel):
         return ref.group_filter_agg_ref(
             cols, keys, pred_ops, pred_consts, agg_ops, agg_consts, num_groups
@@ -77,6 +135,7 @@ def group_filter_agg_multi(
     ``[B, num_groups, A + 1]``; slot ``b`` is bit-equal to the
     single-program call with that program's constants.
     """
+    _refuse_grad("group_filter_agg_multi", use_kernel, cols, pred_consts, agg_consts)
     if not _route(cols, use_kernel):
         return ref.group_filter_agg_multi_ref(
             cols, keys, pred_ops, pred_consts, agg_ops, agg_consts, num_groups
@@ -100,6 +159,7 @@ def block_compact(
     the device.
     """
     seq = not isinstance(cols, torch.Tensor)
+    _refuse_grad("block_compact", use_kernel, *(cols if seq else (cols,)))
     if seq:
         cols = bc.columns(cols)
     elif cols.dim() != 2:
@@ -117,6 +177,7 @@ def filter_agg(cols: torch.Tensor, lo, hi, lo2, hi2, *, use_kernel: bool = True)
     Returns [2] f32: (SUM(cols[2] * cols[3]), COUNT) over rows with
     ``lo <= cols[0] < hi`` and ``lo2 <= cols[1] < hi2``.
     """
+    _refuse_grad("filter_agg", use_kernel, cols)
     if not _route(cols, use_kernel):
         return ref.filter_agg_ref(cols, lo, hi, lo2, hi2)
     out = filter_scan.launch(cols, lo, hi, lo2, hi2)
@@ -130,7 +191,7 @@ def gmm(lhs: torch.Tensor, rhs: torch.Tensor, *, use_kernel: bool = True) -> tor
     tensor cores) or ``gmm`` (the CUDA cores), by ``moe_gmm.kernel_for``."""
     if not _route(lhs, use_kernel):
         return ref.gmm_ref(lhs, rhs)
-    out = moe_gmm.launch(lhs, rhs)
+    out = _launch(moe_gmm.launch, ref.gmm_ref, lhs, rhs)
     LAUNCHES[moe_gmm.kernel_for(lhs.dtype, *lhs.shape, rhs.shape[-1])] += 1
     return out
 
@@ -148,7 +209,7 @@ def flash_attention(
         if use_kernel:
             fa.check_shapes(q, k, v, causal)
         return ref.flash_attention_ref(q, k, v, causal=causal)
-    out = fa.launch(q, k, v, causal)
+    out = _launch(lambda *t: fa.launch(*t, causal), lambda *t: ref.flash_attention_ref(*t, causal=causal), q, k, v)
     LAUNCHES["flash_attention"] += 1
     return out
 
@@ -159,7 +220,9 @@ def decode_attention(
     """One query token per sequence against its cache: q [B, Hq, dh],
     k, v [B, S, Hkv, dh], ``kv_len`` [B] (or a number for every sequence)
     valid slots -> [B, Hq, dh] in q's type.  Slots at or past ``kv_len`` are
-    never read; ``kv_len = 0`` gives zeros."""
+    never read; ``kv_len = 0`` gives zeros.  No gradient: an input that
+    requires grad raises unless ``use_kernel=False``."""
+    _refuse_grad("decode_attention", use_kernel, q, k, v)
     kv_len = torch.as_tensor(kv_len, dtype=torch.int32, device=q.device)
     if kv_len.dim() == 0:
         kv_len = kv_len.expand(q.shape[0])
@@ -183,7 +246,7 @@ def ssd_intra(
         if use_kernel:
             ssd_scan.check_shapes(x, bmat, cmat, dt, a, chunk)
         return ref.ssd_intra_ref(x, bmat, cmat, dt, a, chunk)
-    out = ssd_scan.launch(x, bmat, cmat, dt, a, chunk)
+    out = _launch(lambda *t: ssd_scan.launch(*t, chunk), lambda *t: ref.ssd_intra_ref(*t, chunk), x, bmat, cmat, dt, a)
     LAUNCHES["ssd_intra"] += 1
     return out
 
@@ -193,6 +256,7 @@ def alu_chain(x: torch.Tensor, op: str, operand: torch.Tensor, *, use_kernel: bo
     int8, int32, bfloat16 or float32, in its type: integers wrap and divide
     by floor division, bfloat16 rounds after every step.  ``operand`` is a
     0-d tensor of ``x``'s type."""
+    _refuse_grad("alu_chain", use_kernel, x, operand)
     if not _route(x, use_kernel):
         return ref.alu_chain_ref(x, op, operand)
     out = alu.launch(x, op, operand)
@@ -203,6 +267,7 @@ def alu_chain(x: torch.Tensor, op: str, operand: torch.Tensor, *, use_kernel: bo
 def int_matmul(a: torch.Tensor, b: torch.Tensor, *, use_kernel: bool = True) -> torch.Tensor:
     """``a @ b`` of int8 or int32 matrices [M, K] x [K, N] in their type,
     wrapping modulo 2^8 or 2^32 (any strides)."""
+    _refuse_grad("int_matmul", use_kernel, a, b)
     if not _route(a, use_kernel):
         return ref.int_matmul_ref(a, b)
     out = imm.launch(a, b)
@@ -213,6 +278,7 @@ def int_matmul(a: torch.Tensor, b: torch.Tensor, *, use_kernel: bool = True) -> 
 def quantize(x: torch.Tensor, *, use_kernel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-block (1024) absmax int8 quantization of float32 ``x`` (a multiple
     of 1024 elements): (q [n / 1024, 1024] int8, scale [n / 1024, 1] f32)."""
+    _refuse_grad("quantize", use_kernel, x)
     if not _route(x, use_kernel):
         return ref.quantize_ref(x)
     out = qz.launch_quantize(x)
@@ -222,6 +288,7 @@ def quantize(x: torch.Tensor, *, use_kernel: bool = True) -> tuple[torch.Tensor,
 
 def dequantize(q: torch.Tensor, scale: torch.Tensor, *, use_kernel: bool = True) -> torch.Tensor:
     """``float(q) * scale`` flattened: the inverse of :func:`quantize`."""
+    _refuse_grad("dequantize", use_kernel, q, scale)
     if not _route(q, use_kernel):
         return ref.dequantize_ref(q, scale)
     out = qz.launch_dequantize(q, scale)

@@ -45,6 +45,12 @@ def init_attention(cfg, gen: torch.Generator, stack: tuple = ()) -> Params:
     }
 
 
+def attention_specs(cfg) -> Params:
+    """The reference's logical axes of each projection (self and cross alike)."""
+    return {"wq": ("embed", "heads", "head_dim"), "wk": ("embed", "kv_heads", "head_dim"),
+            "wv": ("embed", "kv_heads", "head_dim"), "wo": ("heads", "head_dim", "embed")}
+
+
 def attend(
     q: torch.Tensor,
     k: torch.Tensor,

@@ -1,9 +1,9 @@
-"""Model facade for serving (the port's copy of the JAX package's
-``models/model.py``, serving half), over decoder-only, hybrid, SSM and
-encoder-decoder configs:
+"""Model facade (the port's copy of the JAX package's ``models/model.py``),
+over decoder-only, hybrid, SSM and encoder-decoder configs:
 
     model = Model(cfg)                         # device="cuda", use_kernel=True
     params = model.init(seed)
+    loss, metrics = model.loss(params, batch)  # differentiable by autograd
     cache = model.init_cache(batch, max_len)
     logits, cache = model.prefill(params, {"inputs": tokens}, cache)
     logits, cache = model.decode(params, {"tokens": last}, cache, index)
@@ -13,18 +13,20 @@ The batches are the reference's (``input_specs``): ``inputs`` int tokens
 then ``tokens`` is [B, 1, d]); ``positions`` [B, S], or [3, B, S] t/h/w ids
 under M-RoPE, by default the text-mode positions 0..S-1; an
 encoder-decoder prefills ``{"frames": [B, S_src, d], "tgt_tokens": [B,
-S_tgt]}`` and decodes its tokens [B, 1] in lockstep, at one scalar index.
+S_tgt]}`` and decodes its tokens [B, 1] in lockstep, at one scalar index;
+a prefill of more frames than the cache holds grows its cross K/V to them,
+as the reference replaces its cross cache.
 The cache is updated in place (the returned cache is the one given), where
 the reference returns a new one.  ``use_kernel=False`` runs every kernel's
 plain version instead, on any device.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import kvcache
 from repro_torch.models import transformer as tfm
@@ -59,6 +61,22 @@ class Model:
         init = encdec_mod.init_encdec if self.cfg.encoder_decoder else tfm.init_transformer
         return init(self.cfg, gen, getattr(torch, self.cfg.param_dtype))
 
+    def param_specs(self) -> Params:
+        """The reference's logical axes of every parameter (plain data)."""
+        if self.cfg.encoder_decoder:
+            return encdec_mod.encdec_specs(self.cfg)
+        return tfm.transformer_specs(self.cfg)
+
+    # -- training ------------------------------------------------------------
+    def loss(self, params: Params, batch: dict[str, torch.Tensor]):
+        """(loss, {"ce", "aux"}) of a batch (``input_specs``' train kind),
+        moved to the model's device; autograd differentiates it on either
+        route (the kernels' gradient is the plain version's, ``kernels/ops``)."""
+        batch = {k: v.to(self.device) for k, v in batch.items()}
+        if self.cfg.encoder_decoder:
+            return encdec_mod.encdec_loss(self.cfg, params, batch, use_kernel=self.use_kernel)
+        return tfm.lm_loss(self.cfg, params, batch, use_kernel=self.use_kernel)
+
     # -- serving -------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> dict[str, Any]:
         return kvcache.init_cache(self.cfg, batch, max_len, self.dtype, self.device)
@@ -75,7 +93,11 @@ class Model:
             frames, tgt = batch["frames"].to(dev), batch["tgt_tokens"].to(dev)
             src_pos = positions(1, frames.shape[1], device=dev)
             enc_out = encdec_mod.encode(cfg, params, frames, src_pos, use_kernel=self.use_kernel)
-            encdec_mod.build_cross_cache(cfg, params, enc_out, cache["cross"])
+            cross = cache["cross"]
+            if frames.shape[1] > cross["k"].shape[2]:  # more frames than slots: grow to them
+                shape = cross["k"].shape[:2] + (frames.shape[1],) + cross["k"].shape[3:]
+                cache["cross"] = cross = {n: t.new_zeros(shape) for n, t in cross.items()}
+            encdec_mod.build_cross_cache(cfg, params, enc_out, cross)
             cache["src_len"] = frames.shape[1]
             tgt_pos = positions(1, tgt.shape[1], device=dev)
             logits = encdec_mod.decode_step(cfg, params, tgt, tgt_pos, cache, 0, use_kernel=self.use_kernel)
@@ -108,3 +130,47 @@ class Model:
         logits = tfm.forward(cfg, params, tokens, pos, cache=cache, cache_index=index,
                              decode=True, use_kernel=self.use_kernel)
         return logits[:, -1], cache
+
+
+# ---------------------------------------------------------------------------
+class Spec(NamedTuple):
+    """An input's shape and type (the reference's ``jax.ShapeDtypeStruct``)."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+
+def input_specs(cfg: ArchConfig, cell: ShapeCell) -> dict[str, Spec]:
+    """Inputs of the step function the cell exercises: a train step's batch,
+    a prefill's, or a decode step's (one new token a sequence)."""
+    b, s = cell.global_batch, cell.seq_len
+    cdt, i32 = getattr(torch, cfg.compute_dtype), torch.int32
+    inp = Spec((b, s), i32) if cfg.embed_inputs else Spec((b, s, cfg.d_model), cdt)
+    pos = Spec((3, b, s) if cfg.rope == "mrope" else (b, s), i32)
+    if cell.kind == "train":
+        if cfg.encoder_decoder:
+            return {"frames": Spec((b, s, cfg.d_model), cdt), "tgt_tokens": Spec((b, s), i32),
+                    "labels": Spec((b, s), i32)}
+        return {"inputs": inp, "labels": Spec((b, s), i32), "positions": pos}
+    if cell.kind == "prefill":
+        if cfg.encoder_decoder:
+            return {"frames": Spec((b, s, cfg.d_model), cdt), "tgt_tokens": Spec((b, s), i32)}
+        return {"inputs": inp, "positions": pos}
+    if cfg.encoder_decoder or cfg.embed_inputs:
+        return {"tokens": Spec((b, 1), i32)}
+    return {"tokens": Spec((b, 1, cfg.d_model), cdt)}
+
+
+def batch_like(specs: dict[str, Spec], gen: torch.Generator | None = None,
+               device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
+    """Small concrete inputs matching a spec tree, drawn from ``gen`` (seed 0
+    on ``device`` by default): the reference's distributions, integers in
+    [0, 128) and normals x 0.02, not its numbers."""
+    gen = gen if gen is not None else torch.Generator(device=device).manual_seed(0)
+    out = {}
+    for name, sd in specs.items():
+        if sd.dtype.is_floating_point:
+            out[name] = (torch.randn(sd.shape, generator=gen, device=gen.device) * 0.02).to(sd.dtype)
+        else:
+            out[name] = torch.randint(0, 128, sd.shape, generator=gen, device=gen.device, dtype=sd.dtype)
+    return out

@@ -53,6 +53,14 @@ def init_ssm(cfg, gen: torch.Generator, dtype: torch.dtype, stack: tuple = ()) -
 
 
 # ---------------------------------------------------------------------------
+def ssm_specs(cfg) -> Params:
+    """The reference's logical axes of each leaf."""
+    return {"wz": ("embed", "inner"), "wx": ("embed", "inner"), "wB": ("embed", None), "wC": ("embed", None),
+            "wdt": ("embed", "ssm_heads"), "conv_w": (None, "conv_ch"), "conv_b": ("conv_ch",),
+            "A_log": ("ssm_heads",), "D": ("ssm_heads",), "dt_bias": ("ssm_heads",), "norm_scale": ("inner",),
+            "out_proj": ("inner", "embed")}
+
+
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv over [B, S, C] with kernel [K, C]; silu activation."""
     k, s = w.shape[0], xbc.shape[1]

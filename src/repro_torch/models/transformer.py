@@ -1,5 +1,5 @@
-"""Decoder-only stack: blocks, layer loop, logits (the port's copy of the JAX
-package's ``models/transformer.py``, serving half).
+"""Decoder-only stack: blocks, layer loop, logits and the LM losses (the
+port's copy of the JAX package's ``models/transformer.py``).
 
 Parameters keep the reference's tree: ``{"embed", "first": [blocks],
 "body": {"l<i>": block leaves stacked over the pattern's repeats},
@@ -9,13 +9,19 @@ taking views of its row of every stacked leaf (parameters and cache alike).
 Blocks are pre-norm residual: x += mixer(norm(x)); x += ffn(norm(x)), the
 mixer attention or Mamba2 and the FFN dense (SwiGLU or GELU), MoE or none, in any
 combination the pattern names (Jamba: Mamba2 mixers before dense and MoE
-FFNs); ``first_k_dense`` leading attention + dense layers come first.
+FFNs); ``first_k_dense`` leading attention + dense layers come first.  An
+MoE layer's load-balance loss comes out through ``aux_out`` (a list the
+layers append to), summed in layer order by ``lm_loss`` as the reference's
+scan sums it; serving passes no list and launches the same kernels.
+Parameter specs (``block_specs``, ``transformer_specs``) are the
+reference's logical-axis tuples, plain data.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, LayerKind
 from repro_torch.models import attention as attn_mod
@@ -42,6 +48,50 @@ def init_block(cfg: ArchConfig, kind: LayerKind, gen: torch.Generator, dtype, st
     return p
 
 
+def norm_specs(cfg: ArchConfig) -> Params:
+    if cfg.norm == "rmsnorm":
+        return {"scale": ("embed",)}
+    return {} if cfg.norm == "nonparametric_ln" else {"scale": ("embed",), "bias": ("embed",)}
+
+
+def mlp_specs(cfg: ArchConfig) -> Params:
+    return {"wi": ("embed", None, "mlp") if cfg.act == "swiglu" else ("embed", "mlp"), "wo": ("mlp", "embed")}
+
+
+def block_specs(cfg: ArchConfig, kind: LayerKind) -> Params:
+    p: Params = {"norm1": norm_specs(cfg)}
+    if kind.mixer == "attn":
+        p["attn"] = attn_mod.attention_specs(cfg)
+    else:
+        p["ssm"] = ssm_mod.ssm_specs(cfg)
+    if kind.ffn != "none":
+        p["norm2"] = norm_specs(cfg)
+        if kind.ffn == "moe":
+            p["moe"] = moe_mod.moe_specs(cfg)
+        else:
+            p["mlp"] = mlp_specs(cfg)
+    return p
+
+
+def stack_specs(tree: Any) -> Any:
+    """A spec tree with ``"layers"`` in front of every leaf's axes."""
+    if isinstance(tree, dict):
+        return {k: stack_specs(v) for k, v in tree.items()}
+    return ("layers",) + tuple(tree)
+
+
+def transformer_specs(cfg: ArchConfig) -> Params:
+    p: Params = {}
+    if cfg.embed_inputs:
+        p["embed"] = ("vocab", "embed")
+    p["first"] = [block_specs(cfg, LayerKind("attn", "dense")) for _ in range(cfg.first_k_dense)]
+    p["body"] = {f"l{i}": stack_specs(block_specs(cfg, kind)) for i, kind in enumerate(cfg.pattern)}
+    p["final_norm"] = norm_specs(cfg)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = ("embed", "vocab")
+    return p
+
+
 def apply_block(
     cfg: ArchConfig,
     kind: LayerKind,
@@ -53,8 +103,10 @@ def apply_block(
     cache_index: torch.Tensor | int | None = None,
     decode: bool = False,
     use_kernel: bool = True,
+    aux_out: list | None = None,
 ) -> torch.Tensor:
-    """One block; a given cache (this layer's views) is updated in place."""
+    """One block; a given cache (this layer's views) is updated in place, and
+    an MoE layer's aux loss is appended to ``aux_out`` when one is given."""
     h = apply_norm(cfg, p["norm1"], x)
     if kind.mixer == "attn":
         y = attn_mod.apply_attention(cfg, p["attn"], h, positions, kv_cache=cache,
@@ -71,7 +123,9 @@ def apply_block(
     if kind.ffn != "none":
         h = apply_norm(cfg, p["norm2"], x)
         if kind.ffn == "moe":
-            y, _ = moe_mod.apply_moe(cfg, p["moe"], h, use_kernel=use_kernel)  # serving drops the aux loss
+            y, aux = moe_mod.apply_moe(cfg, p["moe"], h, use_kernel=use_kernel)
+            if aux_out is not None:
+                aux_out.append(aux)
         else:
             y = apply_mlp(cfg, p["mlp"], h)
         x = x + y
@@ -110,10 +164,13 @@ def hidden_states(
     cache_index: torch.Tensor | int | None = None,
     decode: bool = False,
     use_kernel: bool = True,
+    aux_out: list | None = None,
 ) -> torch.Tensor:
     """inputs: int tokens [B, S] (embed_inputs) or embeddings [B, S, d].
     Returns the final-normed hidden states [B, S, d]; a given cache is
-    updated in place."""
+    updated in place, and the MoE layers' aux losses of the body (the
+    reference's scan carries them; its leading dense layers have none) are
+    appended to ``aux_out`` in layer order."""
     dtype = getattr(torch, cfg.compute_dtype)
     x = p["embed"][inputs].to(dtype) if cfg.embed_inputs else inputs.to(dtype)
     kw = dict(cache_index=cache_index, decode=decode, use_kernel=use_kernel)
@@ -123,7 +180,7 @@ def hidden_states(
     for r in range(cfg.n_repeats):
         for j, kind in enumerate(cfg.pattern):
             cj = layer_row(cache["body"][f"l{j}"], r) if cache is not None else None
-            x = apply_block(cfg, kind, layer_row(p["body"][f"l{j}"], r), x, positions, cache=cj, **kw)
+            x = apply_block(cfg, kind, layer_row(p["body"][f"l{j}"], r), x, positions, cache=cj, aux_out=aux_out, **kw)
     return apply_norm(cfg, p["final_norm"], x)
 
 
@@ -152,3 +209,71 @@ def forward(
     x = hidden_states(cfg, p, inputs, positions, cache=cache, cache_index=cache_index,
                       decode=decode, use_kernel=use_kernel)
     return logits_from_hidden(cfg, p, x)
+
+
+# ---------------------------------------------------------------------------
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits [B, S, V] (f32), labels [B, S] int. Mean over all tokens."""
+    m = logits.max(dim=-1, keepdim=True).values.detach()
+    shifted = logits - m
+    # m must be detached on BOTH uses: d lse / d logits == softmax(logits)
+    # comes entirely from the log-sum-exp term (adding a live m back would
+    # leak an extra onehot(argmax) into every gradient).
+    lse = torch.log(torch.exp(shifted).sum(dim=-1)) + m[..., 0]
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (lse - gold).mean()
+
+
+def chunked_cross_entropy(cfg: ArchConfig, p: Params, x: torch.Tensor, labels: torch.Tensor,
+                          chunk: int) -> torch.Tensor:
+    """CE over vocab chunks: the [B, S, V] f32 logits are never materialized.
+
+    An online log-sum-exp over chunks of the head: each step computes the
+    logits of ``chunk`` vocab columns (as ``logits_from_hidden`` does), folds
+    them into a running (max, sum of exponentials) and picks up the gold
+    logit where the label falls in the chunk.  Each step is recomputed in
+    the backward (``torch.utils.checkpoint``), so memory is O(B S chunk).
+    Equals ``softmax_cross_entropy(logits_from_hidden(x), labels)`` up to
+    rounding."""
+    head = p["embed"].T if cfg.tie_embeddings else p["lm_head"]  # [d, V]
+    v = head.shape[-1]
+    if v % chunk:
+        raise ValueError(f"vocab {v} is not a multiple of the chunk {chunk}")
+    b, s, _ = x.shape
+    xf = x.to(torch.float32)
+
+    def body(m, se, gold, hslice, ci):
+        lg = xf @ hslice.to(x.dtype).to(torch.float32)
+        if cfg.logit_softcap > 0.0:
+            lg = torch.tanh(lg / cfg.logit_softcap) * cfg.logit_softcap
+        cm = torch.maximum(m, lg.max(dim=-1).values)
+        se = se * torch.exp(m - cm) + torch.exp(lg - cm[..., None]).sum(dim=-1)
+        local = labels.long() - ci * chunk
+        in_chunk = (local >= 0) & (local < chunk)
+        g = torch.gather(lg, -1, local.clamp(0, chunk - 1)[..., None])[..., 0]
+        return cm, se, torch.where(in_chunk, g, gold)
+
+    m = torch.full((b, s), float("-inf"), dtype=torch.float32, device=x.device)
+    se = torch.zeros((b, s), dtype=torch.float32, device=x.device)
+    gold = torch.zeros((b, s), dtype=torch.float32, device=x.device)
+    for ci in range(v // chunk):
+        m, se, gold = checkpoint(body, m, se, gold, head[:, ci * chunk:(ci + 1) * chunk], ci, use_reentrant=False)
+    return (torch.log(se) + m - gold).mean()
+
+
+def lm_loss(cfg: ArchConfig, p: Params, batch: dict[str, torch.Tensor], aux_weight: float = 0.01, *,
+            use_kernel: bool = True) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """batch: {"inputs": [B, S] or [B, S, d], "labels": [B, S], "positions":
+    [B, S] or [3, B, S]} -> (ce + aux_weight * aux, {"ce", "aux"}): the
+    mean token cross-entropy and the MoE layers' load-balance losses summed
+    in layer order (0 without MoE)."""
+    aux_out: list[torch.Tensor] = []
+    x = hidden_states(cfg, p, batch["inputs"], batch["positions"], use_kernel=use_kernel, aux_out=aux_out)
+    if cfg.ce_vocab_chunk > 0:
+        ce = chunked_cross_entropy(cfg, p, x, batch["labels"], cfg.ce_vocab_chunk)
+    else:
+        ce = softmax_cross_entropy(logits_from_hidden(cfg, p, x), batch["labels"])
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    for a in aux_out:
+        aux = aux + a
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 from repro_torch.core.task import Task
 from repro_torch.tasks.compute import ComputeTask, StringTask
-from repro_torch.tasks.dbms import DBMSTask
+from repro_torch.tasks.dbms import AppStepTask, DBMSTask
 from repro_torch.tasks.index_offload import IndexOffloadTask
 from repro_torch.tasks.memory import MemoryTask
 from repro_torch.tasks.network import NetworkTask
@@ -25,4 +25,5 @@ TASKS: dict[str, type[Task]] = {
     IndexOffloadTask.name: IndexOffloadTask,
     NetworkTask.name: NetworkTask,
     QuantizeTask.name: QuantizeTask,
+    AppStepTask.name: AppStepTask,
 }

@@ -14,6 +14,10 @@ Params: scale x query x mode x impl. `impl` picks the execution plan:
 `unfused` is the plain torch graph (one pass per mask/derived column/
 aggregate), `fused` the single-pass `group_filter_agg` CUDA kernel
 (engine.queries.FUSED_QUERIES).  Metrics: query latency (avg/p99) and rows/s.
+
+`app_step_torch` runs an LM step as the end-to-end application, as the
+reference's `app_step` does: a tiny config's loss forward (train) or one
+decode step (decode), on the port's kernels.
 """
 from __future__ import annotations
 
@@ -22,11 +26,13 @@ from typing import Any
 
 import torch
 
+from repro_torch.configs.base import ShapeCell, get_arch, tiny
 from repro_torch.core.metrics import Samples
 from repro_torch.core.task import Task, TaskContext
 from repro_torch.core.timing import block, measure
 from repro_torch.engine import datagen, queries
 from repro_torch.engine.table import Table
+from repro_torch.models.model import Model, batch_like, input_specs
 
 _SCALES = {"0.001": 6_000, "0.01": 60_000, "0.1": 600_000}
 
@@ -113,3 +119,53 @@ class DBMSTask(Task):
             )
 
         return Samples(times_s=times, items_per_iter=float(li.num_rows))
+
+
+class AppStepTask(Task):
+    """LM train / serve step as the end-to-end application (tiny configs).
+
+    train — the loss forward of a [2, 64] batch, with no gradient (the
+            reference times ``model.loss(p, b)[0]`` alone);
+    decode — one decode step of 2 sequences at cache slot 8 of a fresh
+            ``init_cache(2, 64)``, with no prefill (the step writes slot 8
+            in place, the same bits every call).
+    cold is the first call on a fresh model (the reference's includes its
+    XLA compile; the port builds no graph, and its kernels are built once a
+    process); hot is the steady state.  Parameters come from ``Model.init(0)``
+    and inputs from ``batch_like`` (the reference's distributions)."""
+
+    name = "app_step_torch"
+    param_space = {
+        "arch": ["olmo-1b", "mamba2-2.7b", "kimi-k2-1t-a32b"],
+        "kind": ["train", "decode"],
+        "mode": ["cold", "hot"],
+    }
+    default_metrics = ("avg_latency_us", "items_per_s")
+
+    def step(self, ctx: TaskContext, params: dict[str, Any]):
+        """(fn, args, items per call) of one point: ``fn(*args)`` is the
+        timed call, ``fn(params, batch)`` or ``fn(params, batch, cache)``."""
+        cfg = tiny(get_arch(params.get("arch", "olmo-1b")))
+        model = Model(cfg, device=ctx.device)
+        mparams = model.init(0)
+        if params.get("kind", "train") == "train":
+            batch = batch_like(input_specs(cfg, ShapeCell("t", 64, 2, "train")), device=ctx.device)
+            return (lambda p, b: model.loss(p, b)[0]), (mparams, batch), 2 * 64
+        batch = batch_like(input_specs(cfg, ShapeCell("d", 64, 2, "decode")), device=ctx.device)
+        cache = model.init_cache(2, 64)
+        return (lambda p, b, c: model.decode(p, b, c, 8)[0]), (mparams, batch, cache), 2
+
+    def run(self, ctx: TaskContext, params: dict[str, Any]) -> Samples:
+        fn, args, items = self.step(ctx, params)
+
+        @torch.no_grad()
+        def call():
+            return fn(*args)
+
+        if params.get("mode", "hot") == "cold":
+            t0 = time.perf_counter()
+            block(call())
+            times = [time.perf_counter() - t0]
+        else:
+            times = measure(call, iters=ctx.iters, warmup=ctx.warmup, min_time_s=ctx.min_time_s)
+        return Samples(times_s=times, items_per_iter=float(items))

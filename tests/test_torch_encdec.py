@@ -147,15 +147,29 @@ def test_plain_route_equals_kernel_route_on_the_cpu(pair):
     assert torch.equal(out[0], out[2]) and torch.equal(out[1], out[3]) and set(kops.LAUNCHES.values()) == {0}
 
 
-def test_frames_past_the_cache_and_per_slot_indices_raise(pair):
-    """More frames than max_len raise, as does a per-slot index: the
-    reference decodes an encoder-decoder in lockstep at one scalar index."""
-    cfg, _, _, model, params = pair
+def test_frames_past_the_cache_grow_it_and_per_slot_indices_raise(pair):
+    """20 frames into init_cache(2, 16): the prefill grows the cross K/V to
+    the 20 positions, as the reference replaces its cross cache, and a
+    prefill and one decode step equal the reference's, every logit and
+    cache leaf.  A per-slot index still raises: the reference decodes an
+    encoder-decoder in lockstep at one scalar index."""
+    cfg, jm, jp, model, params = pair
     frames, tgt = inputs(cfg, s_src=20)
-    batch = {"frames": torch.from_numpy(frames), "tgt_tokens": torch.from_numpy(tgt)}
-    with pytest.raises(ValueError, match="do not fit"):
-        model.prefill(params, batch, model.init_cache(2, 16))
-    _, cache = model.prefill(params, batch, model.init_cache(2, 32))
+    batch = {"frames": torch.from_numpy(frames), "tgt_tokens": torch.from_numpy(tgt[:, :4])}
+    jc = jm.init_cache(2, 16)
+    jl, jc = jm.prefill(jp, {"frames": jnp.asarray(frames), "tgt_tokens": jnp.asarray(tgt[:, :4])}, jc)
+    lg, cache = model.prefill(params, batch, model.init_cache(2, 16))
+    assert cache["src_len"] == 20 and cache["cross"]["k"].shape == (cfg.n_layers, 2, 20, cfg.n_kv_heads,
+                                                                    cfg.head_dim)
+    np.testing.assert_allclose(lg.numpy(), np.asarray(jl), **TOL)
+    jl, jc = jm.decode(jp, {"tokens": jnp.asarray(tgt[:, 4:5])}, jc, jnp.int32(4))
+    lg, cache = model.decode(params, {"tokens": torch.from_numpy(tgt[:, 4:5])}, cache, 4)
+    np.testing.assert_allclose(lg.numpy(), np.asarray(jl), **TOL)
+    jleaves = dict(leaves(jax.tree_util.tree_map(np.asarray, jc)))
+    got = dict(leaves(cache))
+    assert set(got) == set(jleaves) | {"/src_len"}
+    for name, want in jleaves.items():
+        np.testing.assert_allclose(got[name].numpy(), want, **TOL, err_msg=name)
     with pytest.raises(ValueError, match="lockstep"):
         model.decode(params, {"tokens": batch["tgt_tokens"][:, :1]}, cache, torch.tensor([5, 5]))
 

@@ -81,6 +81,9 @@ def test_the_schedule_reads_only_the_sequence_shape():
     one = fa.workspace_sizes(1, 2048, 2048, 1, 64, True)
     assert fa.workspace_sizes(3, 2048, 2048, 5, 64, True) == (15 * one[0], 15 * one[1])
     assert fa.workspace_sizes(2, 300, 700, 4, 64, False) == (0, 0)  # no row is cut
+    p = fa.plan(2048, 2048, True)  # a partial is 64 rows of dh + 2 floats at every dh, 16 included
+    assert [fa.workspace_sizes(1, 2048, 2048, 1, dh, True)[0] for dh in (16, 64)] == [p.slots * 64 * 18,
+                                                                                    p.slots * 64 * 66]
 
 
 def test_sizes_match_the_source():
@@ -92,6 +95,9 @@ def test_sizes_match_the_source():
     tiles = int(re.search(r"constexpr int kMaxTiles = (\d+);", src).group(1))
     assert fa.MAX_TOKENS == fa.TILE * tiles and tiles * (tiles + 1) // 2 < 2**31
     assert "p.w = p.rows ? p.n_k : (p.n_q + 3) / 4;" in src
+    for dh in fa.HEAD_DIMS:  # each head dim the wrapper lets through has its f32 instance
+        assert f"case {dh}: return launch<float, {dh}>" in src
+    assert fa.HEAD_DIMS == (16, 32, 64, 128) and "launch<__nv_bfloat16, 16>" in src
 
 
 # -- the kernel's arithmetic, emulated -----------------------------------------------
@@ -154,6 +160,9 @@ def qkv(seed, b, sq, sk, hq, hkv, dh):
     (1, 513, 513, 2, 1, 64, True),  # w = 3: three-way cuts
     (2, 100, 300, 6, 3, 32, False),
     (1, 200, 70, 4, 4, 128, False),  # Sq > Sk
+    (2, 64, 64, 4, 4, 16, True),  # the tiny configs' dh 16: app_step_torch's train shape
+    (1, 300, 300, 4, 2, 16, True),  # dh 16, rows cut (w = 2)
+    (2, 100, 70, 4, 4, 16, False),  # dh 16 cross-attention, Sq > Sk
 ])
 def test_emulation_equals_the_jax_oracle(b, sq, sk, hq, hkv, dh, causal):
     q, k, v = qkv(sq + 7 * dh, b, sq, sk, hq, hkv, dh)
@@ -167,6 +176,7 @@ def test_emulation_equals_the_jax_oracle(b, sq, sk, hq, hkv, dh, causal):
     (2, 256, 8, 2, 64, 128, 128),
     (2, 256, 6, 2, 32, 64, 64),
     (1, 512, 4, 1, 128, 128, 256),
+    (2, 128, 4, 4, 16, 64, 64),
 ])
 def test_emulation_equals_the_pallas_kernel(b, s, hq, hkv, dh, bq, bk):
     """Against the JAX package's Pallas kernel in interpret mode, as
@@ -177,7 +187,7 @@ def test_emulation_equals_the_pallas_kernel(b, s, hq, hkv, dh, bq, bk):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("s,dh", [(300, 64), (513, 128)])
+@pytest.mark.parametrize("s,dh", [(300, 64), (513, 128), (300, 16)])
 def test_emulation_gives_a_sequence_the_same_bits_alone_or_in_a_batch(s, dh):
     q, k, v = (torch.from_numpy(x) for x in qkv(s, 2, s, s, 4, 2, dh))
     both = emulate(q, k, v, True)
