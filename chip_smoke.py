@@ -10,7 +10,12 @@ each kernel against its plain PyTorch version on the card, drives the main
 paths (the ``dbms_torch`` and ``serving_torch`` tasks and a ``QueryServer``
 over TPC-H scale factor 1 under open-loop load; the whole ``pushdown_torch``
 parameter space, with its plans held to one another; the whole
-``accel_torch`` parameter space; LM serving through ``launch.serve`` for
+``accel_torch`` parameter space; the sweep runner
+(``python -m repro_torch.core.runner`` through its ``main``) on the
+reference's pushdown platform sweep sequentially, in a spawned pool of 2
+and a thread pool of 4, on an impl=kernel variant (K3), on the serving box
+and from its cache, and ``python -m repro_torch.runtime.serve_query`` in a
+process of its own; LM serving through ``launch.serve`` for
 Granite-3-8B and Mamba2-2.7B at full width and depth, then at long context
 in bf16 and in float32 (K7's and K8's CUDA-core kernels, their launches
 checked against layers x calls), with the kernel route held to the plain one
@@ -107,6 +112,7 @@ GMM_TOL = {torch.float32: (2e-4, 2e-3), torch.bfloat16: (3e-2, 0.5)}
 SSD_TOL = (2e-4, 2e-4)  # K8 in f32 from f32 inputs; from bf16, f32 accumulation of two-term bf16 splits
 TIMING_REPS = 25
 TIMING_WARMUP = 5
+PROFILE_PAD_S = 0.05  # idle time at each end of a profiler window (device_profile)
 
 # The LM kernel route against the plain route on the same weights, relative
 # L2 of the logits.  In bf16 both routes sit ~e from the plain route in f32
@@ -1096,6 +1102,125 @@ def free_card() -> None:
     torch.cuda.empty_cache()
 
 
+RUNNER_BOXES = ROOT / "src" / "repro_torch" / "boxes"
+RUNNER_LEFT_BYTES = 64 * 2**20  # what the runner phase may leave allocated on the card
+# pushdown_torch's pushdown plan at impl=kernel (K3); the shipped box, like
+# the reference's, leaves impl at its default (the engine's compaction).
+K3_BOX = {"name": "pushdown_compact_kernel", "platforms": ["cpu-host", "dpu-sim"],
+          "tasks": [{"task": "pushdown_torch", "params": {"scale": ["0.01"], "selectivity": [0.01, 0.1, 0.5],
+                                                          "plan": ["pushdown"], "impl": ["kernel"]},
+                     "metrics": ["items_per_s"]}]}
+
+
+def row_key(row: dict) -> tuple:
+    return (row.get("platform"), row["task"], tuple(sorted((k, str(v)) for k, v in row.items()
+                                                        if k.startswith("param:"))))
+
+
+def runner_step(label, box, args, tmp, rows, kernels=()):
+    """``repro_torch.core.runner.main`` on one box file: the report as JSON
+    rows, every unit error and the cached count off its standard error.
+    Fails unless it returned 0 with ``rows`` rows and no error, and each of
+    ``kernels`` was launched in-process during the call."""
+    import io
+
+    from repro_torch.core import runner
+    from repro_torch.kernels import ops as kops
+
+    out = tmp / f"{label}.json"
+    err = io.StringIO()
+    before = dict(kops.LAUNCHES)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = runner.main([str(box), *args, "--format", "json", "--out", str(out)])
+    wall = time.perf_counter() - t0
+    launched = {k: kops.LAUNCHES[k] - before[k] for k in before if kops.LAUNCHES[k] > before[k]}
+    got = json.loads(out.read_text())["rows"]
+    errors = [line for line in err.getvalue().splitlines() if line.startswith("ERROR")]
+    cached = re.search(r"# cached=(\d+)/(\d+)", err.getvalue())
+    n_cached = int(cached.group(1)) if cached else 0
+    print(f"[runner] {label}: units {len(got)}, cached {n_cached}, errors {len(errors)}, wall {wall:.2f}s, "
+          f"launches {json.dumps(launched)}", flush=True)
+    for line in errors:
+        print(f"[runner] {label}: {line}", flush=True)
+    check(rc == 0 and not errors, f"runner {label}: rc {rc}, errors {errors}")
+    check(len(got) == rows, f"runner {label}: {len(got)} rows, want {rows}")
+    for kname in kernels:
+        check(launched.get(kname, 0) > 0, f"runner {label}: {kname} was not launched")
+    return got, {"units": len(got), "cached": n_cached, "errors": len(errors), "wall_s": wall,
+                 "launches": launched}
+
+
+def runner_phase():
+    """The port's sweep runner on the card (``python -m repro_torch.core.runner``
+    through its ``main``): the pushdown platform sweep sequentially, in a
+    spawned pool of 2 and in a thread pool of 4 (the same row keys in the same
+    order), K3 through an impl=kernel box, the serving box (no sheds below
+    saturation), a cached rerun equal value for value, and the serving CLI in
+    its own process.  Every prepared table is freed afterwards."""
+    import os
+    import tempfile
+
+    free_card()
+    resident = torch.cuda.memory_allocated()
+    pushdown = RUNNER_BOXES / "pushdown_platform_sweep_torch.json"
+    measure = ["--iters", "3", "--warmup", "1"]
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        seq, out["workers 1"] = runner_step("pushdown", pushdown, measure + ["--no-cache"], tmp, 18, ("filter_agg",))
+        check(all(r.get("platform") in ("cpu-host", "dpu-sim") for r in seq), "runner pushdown: no platform column")
+        keys = [row_key(r) for r in seq]
+        for label, extra in (("process 2", ["--workers", "2", "--pool", "process"]),
+                             ("thread 4", ["--workers", "4", "--pool", "thread"])):
+            rows, out[label] = runner_step(f"pushdown {label}", pushdown, measure + ["--no-cache"] + extra, tmp, 18)
+            check([row_key(r) for r in rows] == keys, f"runner pushdown {label}: row keys differ from workers 1")
+        k3_box = tmp / "pushdown_compact_kernel.json"
+        k3_box.write_text(json.dumps(K3_BOX))
+        _, out["compact kernel"] = runner_step("pushdown impl=kernel", k3_box, measure + ["--no-cache"], tmp, 6,
+                                               ("block_compact",))
+
+        serve, out["serving"] = runner_step("serving", RUNNER_BOXES / "serving_latency_torch.json",
+                                            ["--iters", "1", "--warmup", "0", "--no-cache"], tmp, 24,
+                                            ("group_filter_agg", "group_filter_agg_multi"))
+        check(all(r["shed_requests"] == 0 for r in serve), "runner serving: a request was shed below saturation")
+        table = {}
+        for r in serve:
+            key = f"{r['param:query']} {r['param:rate']:g}qps batching={r['param:batching']}"
+            table.setdefault(key, {})[r["platform"]] = {m: r[m] for m in (
+                "p50_latency_us", "p99_latency_us", "qps", "saturation_qps")}
+        print(f"[runner] serving p50/p99 (us), qps, saturation by platform: {json.dumps(table)}", flush=True)
+        out["serving"]["rows"] = table
+
+        cache = ["--cache", str(tmp / "cache.json")]
+        first, out["cache first"] = runner_step("pushdown cache first", pushdown, measure + cache, tmp, 18)
+        again, out["cache second"] = runner_step("pushdown cache second", pushdown, measure + cache, tmp, 18)
+        check(out["cache first"]["cached"] == 0 and out["cache second"]["cached"] == 18,
+              "runner cache: the second run was not served whole from the cache")
+        check(again == first, "runner cache: cached rows differ from the measured ones")
+
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.runtime.serve_query", "--query", "q6", "--platforms", "cpu-host",
+             "--no-cache"],
+            capture_output=True, text=True, timeout=600, cwd=str(ROOT),
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        )
+        wall = time.perf_counter() - t0
+        print(f"[runner] serve_query q6 cpu-host: rc {proc.returncode}, wall {wall:.2f}s, report "
+              f"{proc.stdout.strip()!r}", flush=True)
+        check(proc.returncode == 0 and "serving_torch" in proc.stdout,
+              f"serve_query failed ({proc.returncode}): {proc.stderr[-2000:]}")
+        out["serve_query"] = {"rc": proc.returncode, "wall_s": wall}
+    free_card()
+    left = torch.cuda.memory_allocated() - resident
+    print(f"[runner] card memory held after the phase: {left / 2**20:.1f} MiB", flush=True)
+    # The phase prepares ~0.3 GB of tables a platform; the kernels' own
+    # workspaces are already at their largest from the earlier phases.
+    check(left <= RUNNER_LEFT_BYTES, f"the runner phase left {left} bytes on the card")
+    return out
+
+
 def lm_serve_phase(arch):
     """``launch.serve`` with the reference's defaults (16 requests, 4 slots,
     max_len 256, 16 new tokens) at full width and depth; each decode step is
@@ -1134,11 +1259,13 @@ def device_share(label, fn, calls=3):
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)  # as device_profile does; outside the wall time
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
+        time.sleep(PROFILE_PAD_S)
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     check(busy_us > 0, f"{label}: the profiler's trace has no device time")
@@ -1837,16 +1964,23 @@ def device_profile(fn, names=("",), calls=20) -> tuple[float, float]:
     fn()
     torch.cuda.synchronize()
     seen = None
-    # A trace now and then comes back without its device events, or with one
-    # of a kernel's launches dropped (19 of 20 calls): take one whose every
-    # kernel launched a whole number of times a call, else the last read.
-    # Three empty traces in a row have happened once (alu_chain, after the
-    # training path), so up to six are taken, each empty one reported.
+    # The longer the process has kept the card busy, the more of its first
+    # device events a short trace loses: profile_window_probe.py's traces of
+    # 20 one-microsecond kernels kept one fewer every ~8 s of load and none
+    # after ~4.5 minutes, as alu_chain's did late in this script.  With
+    # PROFILE_PAD_S of idle time inside the window at both ends they kept all
+    # 20 from 1.5 minutes on (the idle time at the start is what counts: its
+    # --variants mode).  Late in this script a first trace still comes back
+    # empty now and then, so a trace without device time, or with a
+    # kernel's launches dropped, is taken again: the first whose every
+    # kernel launched a whole number of times a call is read, else the last.
     for attempt in range(6):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
         events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA and e.count and any(k in e.key for k in names)]
         us = sum(e.self_device_time_total / e.count * max(1, round(e.count / calls)) for e in events)
@@ -3270,6 +3404,7 @@ def main() -> int:
         "query": ("group_filter_agg", "group_filter_agg_multi"),
         "pushdown": ("block_compact", "filter_agg"),
         "accel": ("filter_agg", "gmm", "flash_attention"),
+        "runner": ("group_filter_agg", "group_filter_agg_multi", "block_compact", "filter_agg"),
         "lm": ("decode_attention", "ssd_intra", "flash_attention"),
         "moe": ("gmm_tc", "flash_attention", "decode_attention", "ssd_intra"),
         "lm5": ("flash_attention", "decode_attention"),
@@ -3289,6 +3424,8 @@ def main() -> int:
             pushdown_phase(pd_task, pd_ctx)
         elif path == "accel":
             accel_phase(dev)
+        elif path == "runner":
+            runner_out = runner_phase()
         elif path == "lm":
             lm = lm_path(dev)
         elif path == "moe":
@@ -3362,6 +3499,7 @@ def main() -> int:
           flush=True)
     print(f"[resources] seconds a task: {json.dumps(resources)}", flush=True)
     print(f"[train] summary: {json.dumps({**train_out, 'autograd_rel_l2': grad_dists})}", flush=True)
+    print(f"[runner] summary: {json.dumps(runner_out)}", flush=True)
     pd_task.clean(pd_ctx)
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(card, flush=True)

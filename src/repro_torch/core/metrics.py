@@ -54,6 +54,10 @@ METRICS: dict[str, Callable[[Samples], float]] = {
 }
 
 
+def known_metrics() -> tuple[str, ...]:
+    return tuple(METRICS)
+
+
 def compute_metrics(samples: Samples, names: tuple[str, ...] | list[str]) -> dict[str, float]:
     out: dict[str, float] = {}
     for name in names:

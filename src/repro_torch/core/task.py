@@ -9,12 +9,17 @@ device). `run` executes one concrete test — one point of the parameter
 cross-product — and returns raw `Samples`. `report` turns accumulated
 results into report rows. `clean` removes all prepared state.
 
-The port's tasks are listed in ``repro_torch.tasks.TASKS``.
+The port's tasks are listed in ``repro_torch.tasks.TASKS``; the sweep runner
+finds them through ``repro_torch.core.registry``.
 """
 from __future__ import annotations
 
 import abc
+import hashlib
+import inspect
+import sys
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Any
 
 from repro_torch.core.metrics import Samples, compute_metrics
@@ -24,6 +29,7 @@ from repro_torch.core.metrics import Samples, compute_metrics
 class TaskContext:
     """Shared state handed to every phase.
 
+    `platform` describes the execution target (name + capability flags);
     `device` is where the task's data and kernels live: the card unless the
     caller asks for the CPU.  `scratch` is the task's private prepared state;
     `log` accumulates per-test records.
@@ -79,6 +85,28 @@ class Task(abc.ABC):
         ctx.scratch.clear()
 
     # -- helpers -----------------------------------------------------------
+    def source_fingerprint(self) -> str:
+        """Content hash of the task's implementation source.
+
+        Part of the result-cache key: cached metrics are only trustworthy
+        while the code that measured them is unchanged, so editing a task
+        module must miss the cache.  Hashes the defining module's file when
+        it exists on disk (covers helpers the task calls in the same
+        module), else the class source; unknowable sources hash to "" and
+        rely on the rest of the key.  The kernels' CUDA sources are not
+        part of it.
+        """
+        mod = sys.modules.get(type(self).__module__)
+        path = getattr(mod, "__file__", None)
+        try:
+            if path and Path(path).is_file():
+                blob = Path(path).read_bytes()
+            else:
+                blob = inspect.getsource(type(self)).encode()
+        except (OSError, TypeError):
+            return ""
+        return hashlib.sha256(blob).hexdigest()[:16]
+
     def validate_params(self, params: dict[str, Any]) -> None:
         unknown = set(params) - set(self.param_space)
         if unknown:

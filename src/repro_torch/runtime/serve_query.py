@@ -11,11 +11,18 @@ serial execution.
 Latency is measured from each request's *scheduled* open-loop arrival time
 — queueing delay included — so an overloaded server shows up as tail
 latency and shed requests, never as a silently throttled workload.
+
+``python -m repro_torch.runtime.serve_query`` serves an open-loop trace
+through the sweep executor (the ``serving_torch`` task) and prints latency
+percentiles per (query, platform).
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import json
 import random
+import sys
 import time
 from typing import Any, Callable
 
@@ -212,3 +219,81 @@ def measure_saturation(
         server.step()
     elapsed = time.perf_counter() - t0
     return n_requests / elapsed if elapsed > 0 else 0.0
+
+
+# ---------------------------------------------------------------------------
+def main(argv: list[str] | None = None) -> int:
+    """Serve an open-loop trace through the sweep executor and report
+    latency percentiles per (query, platform).
+
+    The serving knobs and the sweep surface both come from
+    :mod:`repro_torch.core.config` — this CLI shares every execution flag
+    (--platforms/--workers/--cache/--device/...) with the runner.
+    """
+    from repro_torch.core import config as config_mod
+    from repro_torch.core import report as report_mod
+    from repro_torch.core.box import Box
+
+    p = argparse.ArgumentParser(
+        prog="repro_torch.runtime.serve_query",
+        description="Open-loop query serving benchmark",
+    )
+    config_mod.add_serving_args(p)
+    config_mod.add_sweep_args(p, iters=1, warmup=0, platforms=["cpu-host"])
+    p.add_argument("--format", choices=("csv", "md", "json"), default="csv")
+    p.add_argument("--out", default=None, help="write report here instead of stdout")
+    args = p.parse_args(argv)
+
+    serve_cfg = config_mod.ServeConfig.from_args(args)
+    sweep_cfg = config_mod.SweepConfig.from_args(args)
+    shard = config_mod.validate_sweep(sweep_cfg, p.error)
+    executor = config_mod.make_executor(sweep_cfg)
+
+    box = Box.from_dict(
+        {
+            "name": "serving",
+            "platforms": sweep_cfg.platforms or ["cpu-host"],
+            "tasks": [
+                {
+                    "task": "serving_torch",
+                    "params": {
+                        "query": serve_cfg.queries,
+                        "rate": serve_cfg.arrival_rate,
+                        "arrival": serve_cfg.arrival,
+                        "batching": serve_cfg.batching,
+                        "scale": serve_cfg.scale,
+                        "duration": serve_cfg.duration_s,
+                        "queue_depth": serve_cfg.queue_depth or 0,
+                        "seed": serve_cfg.seed,
+                    },
+                    "metrics": [
+                        "p50_latency_us",
+                        "p99_latency_us",
+                        "qps",
+                        "saturation_qps",
+                        "shed_requests",
+                    ],
+                }
+            ],
+        }
+    )
+    res = executor.run_box(box, shard=shard)
+    if args.format == "md":
+        text = report_mod.to_markdown(res.rows)
+    elif args.format == "json":
+        text = json.dumps({"box": res.box, "rows": res.rows}, indent=1, default=str) + "\n"
+    else:
+        text = report_mod.to_csv(res.rows)
+    if args.out:
+        from pathlib import Path
+
+        Path(args.out).write_text(text)
+    else:
+        sys.stdout.write(text)
+    for err in res.errors:
+        print(f"ERROR {err['task']} {err['params']}: {err['error']}", file=sys.stderr)
+    return 1 if res.errors else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -5,8 +5,11 @@ open-loop trace, drive the long-lived QueryServer against it, and report
 the per-request latency distribution (p50/p99 — queueing included),
 delivered QPS, closed-loop saturation QPS, and admission-control sheds.
 
-The JAX package divides rates by a simulated platform's time scale; the
-port runs on the card itself and reports rates as measured (scale 1.0).
+``times_s`` carries per-request latencies, so platform time dilation
+(e.g. dpu-sim's 3.5x) applies to them through the executor's
+``transform_samples`` path; rate extras (qps/saturation_qps/offered_qps)
+are divided by the platform's time_scale here, as the JAX package's task
+does, keeping latency x throughput coherent on simulated platforms.
 """
 from __future__ import annotations
 
@@ -44,6 +47,14 @@ class ServingTask(Task):
             od = datagen.orders(gen, rows=max(rows // 4, 256), device=ctx.device)
             ctx.scratch[f"plans_{name}"] = queries.make_serving_plans(li, od)
 
+    def _time_scale(self, ctx: TaskContext) -> float:
+        from repro_torch.core.platform import get_platform
+
+        try:
+            return float(get_platform(ctx.platform.get("name", "default")).time_scale)
+        except KeyError:
+            return 1.0
+
     def run(self, ctx: TaskContext, params: dict[str, Any]) -> Samples:
         scale = params.get("scale", "0.001")
         query = params.get("query", "q6")
@@ -69,13 +80,17 @@ class ServingTask(Task):
         server.warmup([query])
         trace = generate_trace([query], rate, duration, arrival=arrival, seed=seed)
         report = run_open_loop(server, trace)
+
+        # Rates dilate inversely with platform time_scale; times_s dilates
+        # through transform_samples, so only the extras are adjusted here.
+        ts = self._time_scale(ctx)
         return Samples(
             times_s=report.latencies_s,
             items_per_iter=1.0,  # one request per sample
             extra={
-                "qps": report.qps,
-                "offered_qps": report.offered_qps,
-                "saturation_qps": sat,
+                "qps": report.qps / ts,
+                "offered_qps": report.offered_qps / ts,
+                "saturation_qps": sat / ts,
                 "shed_requests": float(report.shed),
                 "completed_requests": float(len(report.completed)),
                 "kernel_calls": float(server.kernel_calls),
