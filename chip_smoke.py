@@ -15,7 +15,13 @@ parameter space, with its plans held to one another; the whole
 reference's pushdown platform sweep sequentially, in a spawned pool of 2
 and a thread pool of 4, on an impl=kernel variant (K3), on the serving box
 and from its cache, and ``python -m repro_torch.runtime.serve_query`` in a
-process of its own; LM serving through ``launch.serve`` for
+process of its own; the fleet layer: ``python -m repro_torch.core.remote
+worker`` processes on the card, registered with a membership registry,
+running the pushdown box at scale 0.01 and 1.0 (``--remote``, async
+transport), the impl=kernel box (``--registry``, threaded transport) and the
+serving box for the runner, each held to an in-process run, and a kill drill
+that re-runs a dead worker's units on a live one, the workers' own kernel
+launches read from their pings; LM serving through ``launch.serve`` for
 Granite-3-8B and Mamba2-2.7B at full width and depth, then at long context
 in bf16 and in float32 (K7's and K8's CUDA-core kernels, their launches
 checked against layers x calls), with the kernel route held to the plain one
@@ -1117,38 +1123,52 @@ def row_key(row: dict) -> tuple:
                                                         if k.startswith("param:"))))
 
 
-def runner_step(label, box, args, tmp, rows, kernels=()):
+def runner_step(label, box, args, tmp, rows, kernels=(), tag="runner"):
     """``repro_torch.core.runner.main`` on one box file: the report as JSON
-    rows, every unit error and the cached count off its standard error.
-    Fails unless it returned 0 with ``rows`` rows and no error, and each of
-    ``kernels`` was launched in-process during the call."""
+    rows, and the run's errors and ``SweepStats`` (cached, speculated,
+    re-dispatched, blacklisted) from the result its ``Runner.run_box``
+    returned.  Fails unless it returned 0 with ``rows`` rows and no error,
+    and each of ``kernels`` was launched in-process during the call.
+    ``tag`` heads its printed lines."""
     import io
+    from unittest import mock
 
     from repro_torch.core import runner
     from repro_torch.kernels import ops as kops
 
     out = tmp / f"{label}.json"
-    err = io.StringIO()
+    results = []
+    run_box = runner.Runner.run_box
+
+    def keep(self, *a, **kw):
+        results.append(run_box(self, *a, **kw))
+        return results[-1]
+
     before = dict(kops.LAUNCHES)
+    err = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stderr(err):
-        rc = runner.main([str(box), *args, "--format", "json", "--out", str(out)])
+    try:
+        with contextlib.redirect_stderr(err), mock.patch.object(runner.Runner, "run_box", keep):
+            rc = runner.main([str(box), *args, "--format", "json", "--out", str(out)])
+    except SystemExit as e:  # the CLI refused its arguments
+        rc = e.code
     wall = time.perf_counter() - t0
+    check(bool(results), f"runner {label}: rc {rc} before running: {err.getvalue()[-2000:]}")
     launched = {k: kops.LAUNCHES[k] - before[k] for k in before if kops.LAUNCHES[k] > before[k]}
     got = json.loads(out.read_text())["rows"]
-    errors = [line for line in err.getvalue().splitlines() if line.startswith("ERROR")]
-    cached = re.search(r"# cached=(\d+)/(\d+)", err.getvalue())
-    n_cached = int(cached.group(1)) if cached else 0
-    print(f"[runner] {label}: units {len(got)}, cached {n_cached}, errors {len(errors)}, wall {wall:.2f}s, "
+    errors = results[0].errors
+    stats = dataclasses.asdict(results[0].stats)
+    print(f"[{tag}] {label}: units {len(got)}, cached {stats['cached']}, errors {len(errors)}, wall {wall:.2f}s, "
           f"launches {json.dumps(launched)}", flush=True)
-    for line in errors:
-        print(f"[runner] {label}: {line}", flush=True)
-    check(rc == 0 and not errors, f"runner {label}: rc {rc}, errors {errors}")
+    for e in errors:
+        print(f"[{tag}] {label}: ERROR {e['task']} {e['params']}: {e['error']}", flush=True)
+    check(rc == 0 and not errors, f"runner {label}: rc {rc}, errors {len(errors)}")
     check(len(got) == rows, f"runner {label}: {len(got)} rows, want {rows}")
     for kname in kernels:
         check(launched.get(kname, 0) > 0, f"runner {label}: {kname} was not launched")
-    return got, {"units": len(got), "cached": n_cached, "errors": len(errors), "wall_s": wall,
-                 "launches": launched}
+    return got, {"units": len(got), "cached": stats["cached"], "errors": len(errors), "wall_s": wall,
+                 "launches": launched, "speculated": stats["speculated"], "redispatched": stats["redispatched"],
+                 "blacklisted": stats["blacklisted"]}
 
 
 def runner_phase():
@@ -1218,6 +1238,211 @@ def runner_phase():
     # The phase prepares ~0.3 GB of tables a platform; the kernels' own
     # workspaces are already at their largest from the earlier phases.
     check(left <= RUNNER_LEFT_BYTES, f"the runner phase left {left} bytes on the card")
+    return out
+
+
+FLEET_WORKER_START_S = 120  # a worker's start: one interpreter importing torch, one CUDA context
+
+
+def fleet_box(box: dict) -> dict:
+    """``box`` at the table sizes users run as well: scale 0.01 and 1.0
+    (pushdown_torch's lineitem of 6,000,000 rows)."""
+    out = json.loads(json.dumps(box))
+    out["name"] = f"{box['name']}_fleet"
+    out["tasks"][0]["params"]["scale"] = ["0.01", "1.0"]
+    return out
+
+
+def worker_pings(workers) -> dict:
+    """Each worker's ping (None for one that is down or does not answer)."""
+    from repro_torch.core import remote
+
+    return {w.endpoint: remote.get_transport(w.endpoint).info() if w.alive else None for w in workers}
+
+
+def fleet_step(label, box, args, tmp, rows, workers, kernels, yardstick=None):
+    """:func:`runner_step` for a fleet run, with each worker's units and
+    kernel launches in the run (from its pings before and after) beside the
+    run's wall time and re-dispatches.  Fails unless the workers together
+    launched each of ``kernels``, and each that ran a unit launched one of
+    them; with ``yardstick`` (the in-process launches of the same box) and
+    no unit run twice, the workers' launches of ``kernels`` must equal it."""
+    before = worker_pings(workers)
+    got, info = runner_step(label, box, args, tmp, rows, tag="fleet")
+    after = worker_pings(workers)
+    units, launched = {}, {}
+    for ep, a in after.items():
+        b = before[ep]
+        units[ep] = None if a is None or b is None else a["throughput"]["units"] - b["throughput"]["units"]
+        launched[ep] = None if units[ep] is None else \
+            {k: a["launches"][k] - b["launches"][k] for k in a["launches"] if a["launches"][k] > b["launches"][k]}
+    total = {}
+    for per in launched.values():
+        for k, v in (per or {}).items():
+            total[k] = total.get(k, 0) + v
+    info.update(units_per_worker=units, worker_launches=launched, launches=total)
+    print(f"[fleet] {label}: units per worker {json.dumps(units)}, launches per worker {json.dumps(launched)}, "
+          f"redispatched {info['redispatched']}, speculated {info['speculated']}", flush=True)
+    for kname in kernels:
+        check(total.get(kname, 0) > 0, f"fleet {label}: no worker launched {kname}")
+        if kname in total and yardstick is not None and not info["speculated"]:
+            check(total[kname] == yardstick.get(kname), f"fleet {label}: the workers launched {kname} "
+                  f"{total[kname]} times, the in-process run {yardstick.get(kname)}")
+    for ep, n in units.items():
+        check(not n or any(launched[ep].get(k) for k in kernels),
+              f"fleet {label}: worker {ep} ran {n} units and launched none of {kernels}")
+    return got, info
+
+
+def fleet_phase(dev="cuda"):
+    """The fleet layer on the card: ``python -m repro_torch.core.remote
+    worker`` processes (``LocalWorker``, ``device=dev``) run the port's
+    pushdown and serving units, sent by ``repro_torch.core.runner.main``
+    with ``--remote`` or ``--registry``.  A membership registry in this
+    process and two workers at capacity 1, registered with it and started
+    at once; the pushdown box at scale 0.01 and 1.0 (``fleet_box``, 36 units)
+    in this process as the yardstick, then (a) on both workers over the async
+    transport (the yardstick's row keys in its order, its moved bytes value
+    for value, its K4 launches count for count), (b) the K3 box at both
+    scales (12 units) through the registry over the threaded transport, its
+    exact moved bytes and K3 launches equal to an in-process run's, (c) the
+    serving box (24 units, K1/K2) on both workers with no shed request, and
+    (d) a kill drill: a third worker killed by its first unit, the box on
+    ``--remote w1,w3`` with a fresh cache, then again on that cache (cost
+    evidence sets the unit deadlines; ``--cache-max-entries 0`` makes it
+    measure again).  Each worker's ping must name the card, and every
+    worker has exited when the phase ends.
+
+    The workers launch K1-K4 in their own processes: each step reads every
+    worker's launch counts from its pings before and after the step, and
+    the phase returns their sum over the steps under ``"launches"``, the
+    path's own counts.  This process's counters see only the yardsticks'
+    launches, which stay out of the ``kernels`` line's counts; the kernels
+    are held against their plain versions by the earlier phases."""
+    import os
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.core import remote
+    from repro_torch.core.cache import ResultCache
+    from repro_torch.core.faults import FaultSpec, inject
+    from repro_torch.runtime.membership import MembershipRegistry, MembershipServer
+
+    free_card()
+    resident = torch.cuda.memory_allocated()
+    measure = ["--iters", "3", "--warmup", "1", "--device", dev]
+    shipped = json.loads((RUNNER_BOXES / "pushdown_platform_sweep_torch.json").read_text())
+    # The registry's beat period is the workers' (HEARTBEAT_INTERVAL_S): a
+    # shorter one would call live workers suspect between their beats.
+    srv = MembershipServer("127.0.0.1", 0, registry=MembershipRegistry())
+    srv.serve_in_thread()
+    out = {}
+    workers: list = []
+    try:
+        def start(**kwargs):
+            w = remote.LocalWorker(device=dev, capacity=1, startup_timeout=FLEET_WORKER_START_S, **kwargs)
+            t0 = time.perf_counter()
+            w.__enter__()
+            workers.append(w)
+            return w, time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(2) as pool:
+            started = list(pool.map(lambda _: start(register=srv.endpoint), range(2)))
+        w1, w2 = (w for w, _ in started)
+        out["start_s"] = [s for _, s in started]
+        remote.wait_members(srv.endpoint, count=2, timeout=30, required=True)
+        pings = worker_pings((w1, w2))
+        print(f"[fleet] workers {w1.endpoint} {w2.endpoint}: started in "
+              f"{', '.join(f'{s:.2f}s' for s in out['start_s'])} (both: {time.perf_counter() - t0:.2f}s); "
+              f"devices {json.dumps({ep: p['device'] for ep, p in pings.items()})}", flush=True)
+        want_device = "cpu" if dev == "cpu" else f"cuda {torch.cuda.get_device_name(0)}"
+        check(all(p["device"] == want_device for p in pings.values()), f"fleet workers' devices: {pings}")
+        pids = {p["pid"] for p in pings.values()}
+
+        with tempfile.TemporaryDirectory() as d:
+            tmp = Path(d)
+            box_a = tmp / "pushdown_fleet.json"
+            box_a.write_text(json.dumps(fleet_box(shipped)))
+            both = ["--remote", f"{w1.endpoint},{w2.endpoint}"]
+            yard, out["yardstick"] = runner_step("fleet yardstick", box_a, measure + ["--no-cache"], tmp, 36,
+                                                 ("filter_agg",), tag="fleet")
+            rows_a, out["a"] = fleet_step("a pushdown async", box_a,
+                                          measure + both + ["--transport", "async", "--no-cache"], tmp, 36,
+                                          (w1, w2), ("filter_agg",), out["yardstick"]["launches"])
+            check([row_key(r) for r in rows_a] == [row_key(r) for r in yard], "fleet a: row keys differ")
+            check(all(list(r) == list(y) for r, y in zip(rows_a, yard)), "fleet a: row columns differ")
+            for m in ("moved_bytes", "moved_bytes_exact"):
+                check([r[m] for r in rows_a] == [y[m] for y in yard], f"fleet a: {m} differs from the yardstick's")
+            check(all(out["a"]["units_per_worker"].values()), "fleet a: a worker ran no unit")
+            # The pids nvidia-smi lists are this process's namespace's only
+            # where it lists this process too (it holds a context as well).
+            smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+                                 capture_output=True, text=True, timeout=30)
+            listed = sorted(int(f[0]) for line in smi.stdout.splitlines() if (f := line.split(","))[0].isdigit())
+            print(f"[fleet] a: nvidia-smi compute processes {listed}, this process {os.getpid()}, workers "
+                  f"{sorted(pids)}", flush=True)
+            if os.getpid() in listed:
+                check(pids <= set(listed), f"fleet a: workers {sorted(pids)} not among the card's {listed}")
+
+            box_b = tmp / "pushdown_compact_fleet.json"
+            box_b.write_text(json.dumps(fleet_box(K3_BOX)))
+            near, out["b yardstick"] = runner_step("fleet b yardstick", box_b, measure + ["--no-cache"], tmp, 12,
+                                                   ("block_compact",), tag="fleet")
+            rows_b, out["b"] = fleet_step("b compact registry threaded", box_b,
+                                          measure + ["--registry", srv.endpoint, "--transport", "threaded",
+                                                     "--no-cache"], tmp, 12, (w1, w2), ("block_compact",),
+                                          out["b yardstick"]["launches"])
+            check([r["moved_bytes_exact"] for r in rows_b] == [r["moved_bytes_exact"] for r in near],
+                  "fleet b: moved_bytes_exact differs from the in-process run")
+
+            serve, out["c"] = fleet_step("c serving", RUNNER_BOXES / "serving_latency_torch.json",
+                                         ["--iters", "1", "--warmup", "0", "--device", dev, "--no-cache"] + both,
+                                         tmp, 24, (w1, w2), ("group_filter_agg", "group_filter_agg_multi"))
+            check(all(r["shed_requests"] == 0 for r in serve), "fleet c: a request was shed below saturation")
+            table = {}
+            for r in serve:
+                key = f"{r['param:query']} {r['param:rate']:g}qps batching={r['param:batching']}"
+                table.setdefault(key, {})[r["platform"]] = {m: r[m] for m in (
+                    "p50_latency_us", "p99_latency_us", "qps", "saturation_qps")}
+            print(f"[fleet] serving p50/p99 (us), qps, saturation by platform: {json.dumps(table)}", flush=True)
+            out["c"]["rows"] = table
+
+            # (d) the kill drill.
+            w3, out["d start_s"] = start(allow_faults=True)
+            inject(w3.endpoint, FaultSpec("kill"))
+            cache = tmp / "drill" / "cache.json"
+            drill_args = measure + ["--cache", str(cache), "--cache-max-entries", "0"]
+            # The rerun leaves the dead worker out: the runner refuses a
+            # --remote list with a worker that does not answer.
+            for label, fleet in (("d kill", (w1, w3)), ("d rerun", (w1,))):
+                rows_d, out[label] = fleet_step(label, box_a, drill_args + ["--remote", ",".join(
+                    w.endpoint for w in fleet)], tmp, 36, fleet, ("filter_agg",), out["yardstick"]["launches"])
+                health = ResultCache(cache).health.get(w3.endpoint) or {}
+                print(f"[fleet] {label}: blacklisted {out[label]['blacklisted']}, w3 alive {w3.alive}, "
+                      f"w3 health {json.dumps(health)}", flush=True)
+                check([row_key(r) for r in rows_d] == [row_key(r) for r in yard], f"fleet {label}: row keys differ")
+                out[label]["w3_health"] = health
+            check(not w3.alive, "fleet d: the killed worker is still running")
+            check(out["d kill"]["w3_health"].get("failures", 0) >= 1,
+                  "fleet d: the health sidecar holds no failure against the killed worker")
+            out["pings"] = {ep: p["throughput"] for ep, p in worker_pings((w1, w2)).items()}
+            launches = {}
+            for step in ("a", "b", "c", "d kill", "d rerun"):
+                for k, v in out[step]["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+            out["launches"] = launches
+    finally:
+        for w in workers:
+            w.__exit__(None, None, None)
+        srv.shutdown()
+        srv.server_close()
+    check(workers and not any(w.alive for w in workers), "fleet: a worker outlived the phase")
+    free_card()
+    left = torch.cuda.memory_allocated() - resident
+    print(f"[fleet] workers exited: {[not w.alive for w in workers]}; card memory held after the phase: "
+          f"{left / 2**20:.1f} MiB", flush=True)
+    check(left <= RUNNER_LEFT_BYTES, f"the fleet phase left {left} bytes on the card")
     return out
 
 
@@ -3405,6 +3630,8 @@ def main() -> int:
         "pushdown": ("block_compact", "filter_agg"),
         "accel": ("filter_agg", "gmm", "flash_attention"),
         "runner": ("group_filter_agg", "group_filter_agg_multi", "block_compact", "filter_agg"),
+        # Counted in the workers' processes (their pings), not in this one.
+        "fleet": ("group_filter_agg", "group_filter_agg_multi", "block_compact", "filter_agg"),
         "lm": ("decode_attention", "ssd_intra", "flash_attention"),
         "moe": ("gmm_tc", "flash_attention", "decode_attention", "ssd_intra"),
         "lm5": ("flash_attention", "decode_attention"),
@@ -3426,6 +3653,8 @@ def main() -> int:
             accel_phase(dev)
         elif path == "runner":
             runner_out = runner_phase()
+        elif path == "fleet":
+            fleet_out = fleet_phase()
         elif path == "lm":
             lm = lm_path(dev)
         elif path == "moe":
@@ -3438,10 +3667,18 @@ def main() -> int:
         else:
             resources = resources_phase(dev, name)
         counts = dict(kops.LAUNCHES)
+        if path == "fleet":
+            # The fleet's units launch in the workers' processes: the path's
+            # counts are theirs, and the yardsticks' in-process launches
+            # (a repeat of the runner path's) stay out of the kernels line.
+            print(f"[launches] fleet yardsticks, in this process: {json.dumps(counts)}", flush=True)
+            counts = {**dict.fromkeys(counts, 0), **fleet_out["launches"]}
         path_counts[path] = counts
         print(f"[launches] {path} path: {json.dumps(counts)}", flush=True)
         for kname in kernels:
             check(counts[kname] > 0, f"{kname} was not launched on the {path} path")
+        if path == "fleet":
+            continue
         for kname, count in counts.items():
             launches[kname] += count
     print(f"[launches] main paths: {json.dumps(launches)}", flush=True)
@@ -3500,6 +3737,7 @@ def main() -> int:
     print(f"[resources] seconds a task: {json.dumps(resources)}", flush=True)
     print(f"[train] summary: {json.dumps({**train_out, 'autograd_rel_l2': grad_dists})}", flush=True)
     print(f"[runner] summary: {json.dumps(runner_out)}", flush=True)
+    print(f"[fleet] summary: {json.dumps(fleet_out)}", flush=True)
     pd_task.clean(pd_ctx)
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(card, flush=True)

@@ -1,7 +1,9 @@
 """The port's framework core: tasks, boxes, platforms, the registry, the
 result cache, sharding, the scheduler, the sweep executor and the runner
-(the counterpart of ``repro.core``; ``remote_platform`` waits for the
-fleet slice)."""
+(the counterpart of ``repro.core``).  The fleet layer lives beside them:
+``repro_torch.core.remote`` (workers and their clients),
+``repro_torch.core.aiotransport``, ``repro_torch.core.faults`` and
+``repro_torch.runtime.membership``."""
 from repro_torch.core.box import Box, TaskSpec
 from repro_torch.core.cache import EwmaCostStore, ResultCache, cache_key
 from repro_torch.core.cost import CostModel
@@ -12,6 +14,7 @@ from repro_torch.core.platform import (
     get_platform,
     known_platforms,
     register_platform,
+    remote_platform,
 )
 from repro_torch.core.report import merge_shard_reports
 from repro_torch.core.runner import Runner, RunnerResult
@@ -33,6 +36,7 @@ __all__ = [
     "ResultCache", "cache_key", "CostModel", "EwmaCostStore",
     "FleetScheduler", "Sink", "WorkItem", "Outcome",
     "Platform", "get_platform", "known_platforms", "register_platform",
+    "remote_platform",
     "ShardSpec", "shard_of", "partition", "cost_shard_map", "cost_partition",
     "resolve_auto_weights",
     "merge_shard_reports",

@@ -10,7 +10,7 @@ definition of the flag surface:
   * :meth:`SweepConfig.from_args` lifts the parsed namespace into a typed
     dataclass;
   * :func:`validate_sweep` runs the CLI-side checks (platform names, shard
-    spec syntax) through the parser's ``error``;
+    spec syntax, remote fleet liveness) through the parser's ``error``;
   * :func:`make_cache` / :func:`make_executor` turn the config into the
     live objects.
 
@@ -21,9 +21,9 @@ Serving adds its own knob block the same way (:class:`ServeConfig` /
 Where the port departs from the reference: ``--device`` (default ``cuda``)
 names where every unit runs, and a run caches into
 :data:`DEFAULT_CACHE_PATH` unless it passes ``--cache PATH`` or
-``--no-cache``, so the two packages never share a cache file.  The fleet
-flags (``--remote``, ``--registry``, ``--transport``, ``--max-inflight``)
-wait for the port's fleet slice (ROADMAP Queue 1).
+``--no-cache``, so the two packages never share a cache file.  With
+``--remote`` or ``--registry`` the units run on the fleet's workers, on the
+device ``--device`` names; the runner itself then needs no card.
 """
 from __future__ import annotations
 
@@ -55,6 +55,10 @@ class SweepConfig:
     shard: str | None = None
     weighted_shard: bool = False
     shard_plan: bool = False
+    remote: str | None = None
+    registry: str | None = None
+    transport: str = "async"
+    max_inflight: int = 0
     steal: bool = False
     cache_path: str | None = None
     no_cache: bool = False
@@ -76,6 +80,10 @@ class SweepConfig:
             shard=ns.shard,
             weighted_shard=ns.weighted_shard,
             shard_plan=getattr(ns, "shard_plan", False),
+            remote=ns.remote,
+            registry=getattr(ns, "registry", None),
+            transport=getattr(ns, "transport", "async"),
+            max_inflight=getattr(ns, "max_inflight", 0),
             steal=getattr(ns, "steal", False),
             cache_path=ns.cache_path,
             no_cache=ns.no_cache,
@@ -144,6 +152,32 @@ def add_sweep_args(
         "--shard's N (and weights), then exit without running",
     )
     g.add_argument(
+        "--remote", default=None, metavar="HOST:PORT[,HOST:PORT...]",
+        help="dispatch unit execution to repro_torch.core.remote worker(s); "
+        "comma-separate a fleet — the dynamic schedule gives each worker "
+        "its own sink, and @auto shard weights calibrate from their pings",
+    )
+    g.add_argument(
+        "--registry", default=None, metavar="HOST:PORT[,HOST:PORT...]",
+        help="discover the worker fleet from repro_torch.runtime.membership "
+        "registry replica(s) instead of --remote's endpoint list: sinks "
+        "are the replicas' merged alive members and grow/shrink mid-sweep "
+        "on membership events; with several replicas every poll queries "
+        "all of them and fails over within the same tick (mutually "
+        "exclusive with --remote)",
+    )
+    g.add_argument(
+        "--transport", choices=("threaded", "async"), default="async",
+        help="fleet wire strategy: async (default) multiplexes every unit "
+        "over one persistent connection per worker on a single IO loop; "
+        "threaded keeps one puller thread + connection per in-flight unit",
+    )
+    g.add_argument(
+        "--max-inflight", type=int, default=0, metavar="N",
+        help="async transport: cap in-flight units per worker at N instead "
+        "of the worker's advertised capacity (0 = advertised)",
+    )
+    g.add_argument(
         "--steal", action="store_true",
         help="after draining this shard's slice, claim sibling shards' "
         "unfinished units through the shared --cache (exclusive claim "
@@ -169,12 +203,17 @@ def add_sweep_args(
     )
 
 
-def validate_sweep(cfg: SweepConfig, error: Callable[[str], None]) -> ShardSpec | None:
+def validate_sweep(
+    cfg: SweepConfig,
+    error: Callable[[str], None],
+    *,
+    ping_remote: bool = True,
+) -> ShardSpec | None:
     """CLI-side checks shared by every entry point.
 
     Resolves the shard spec (calling ``error`` — typically
-    ``parser.error`` — on bad syntax) and verifies platform names exist.
-    Returns the parsed ShardSpec.
+    ``parser.error`` — on bad syntax), verifies platform names exist, and
+    optionally pings the remote fleet.  Returns the parsed ShardSpec.
     """
     if cfg.platforms:
         from repro_torch.core.platform import get_platform
@@ -198,6 +237,44 @@ def validate_sweep(cfg: SweepConfig, error: Callable[[str], None]) -> ShardSpec 
     if cfg.steal and cfg.no_cache:
         error("--steal coordinates through the shared result cache; it "
               "cannot work with --no-cache")
+    if cfg.remote and cfg.registry:
+        error("--remote and --registry are mutually exclusive: an explicit "
+              "endpoint list or a discovered fleet, not both")
+    if cfg.remote:
+        from repro_torch.core import remote as remote_mod
+
+        try:
+            endpoints = remote_mod.parse_fleet(cfg.remote)
+        except ValueError as e:
+            error(str(e))
+            endpoints = []
+        if ping_remote and not cfg.shard_plan:
+            for ep in endpoints:
+                try:
+                    if not remote_mod.wait_ready(ep):
+                        error(f"remote worker {ep} is not answering")
+                except remote_mod.RemoteExecutionError as e:
+                    error(str(e))
+    if cfg.registry:
+        from repro_torch.core import remote as remote_mod
+
+        try:
+            replicas = remote_mod.parse_fleet(cfg.registry)
+        except ValueError as e:
+            error(str(e))
+            replicas = []
+        if replicas and ping_remote and not cfg.shard_plan:
+            # ANY answering replica is enough — the plane is replicated and
+            # consumers fail over per poll; demanding all of them up front
+            # would turn one down replica into a sweep that can't start.
+            try:
+                if remote_mod.wait_any_ready(replicas) is None:
+                    error(
+                        f"no membership registry replica answering "
+                        f"(tried: {', '.join(replicas)})"
+                    )
+            except remote_mod.RemoteExecutionError as e:
+                error(str(e))
     return shard
 
 
@@ -229,10 +306,14 @@ def make_executor(cfg: SweepConfig, *, cache: ResultCache | None = None) -> Swee
         min_time_s=cfg.min_time_s,
         cache=cache,
         pool=cfg.pool,
+        remote=cfg.remote,
+        fleet_registry=cfg.registry,
         weighted_shard=cfg.weighted_shard,
         schedule=cfg.schedule,
         straggler_factor=cfg.straggler_factor,
         steal=cfg.steal,
+        transport=cfg.transport,
+        max_inflight=cfg.max_inflight,
         device=cfg.device,
     )
 

@@ -26,9 +26,10 @@ lookup).
 
 In the port every platform runs on the executor's one device (the card
 unless the caller asks for the CPU); a simulated platform dilates what that
-device measured.  Remote platforms (``kind="remote"``) and the reference's
-``remote_platform`` wait for the port's fleet slice (ROADMAP Queue 1): the
-executor refuses them rather than running their units locally.
+device measured.  A remote platform (``kind="remote"``, made by
+:func:`remote_platform`) ships its units to the
+:mod:`repro_torch.core.remote` worker its ``endpoint`` flag names, which
+runs them on the device the runner asked for.
 """
 from __future__ import annotations
 
@@ -45,6 +46,8 @@ class Platform:
     kind: str = "host"  # host | sim | remote
     time_scale: float = 1.0  # sim targets: dilate measured times
     flags: dict[str, Any] = field(default_factory=dict)
+    # kind == "remote": flags["endpoint"] names the worker (host:port) this
+    # platform's units are dispatched to (see repro_torch.core.remote).
 
     def describe(self) -> dict[str, Any]:
         """The dict that lands in ``TaskContext.platform``."""
@@ -57,6 +60,21 @@ class Platform:
         return dataclasses.replace(
             samples, times_s=[t * self.time_scale for t in samples.times_s]
         )
+
+    def endpoint(self) -> str | None:
+        """Worker endpoint for ``kind == "remote"`` platforms, else None.
+
+        A remote platform without an ``endpoint`` flag is a configuration
+        error — there is nowhere to dispatch its units.  An optional
+        ``capacity`` flag hints the sink's concurrency when the worker's
+        ping cannot be reached (a live ping always wins).
+        """
+        if self.kind != "remote":
+            return None
+        ep = self.flags.get("endpoint")
+        if not ep:
+            raise ValueError(f"remote platform {self.name!r} has no 'endpoint' flag")
+        return str(ep)
 
     def cost_scale(self) -> float:
         """Relative per-unit wall-cost heuristic for scheduling.
@@ -167,3 +185,18 @@ def resolve(spec: "Platform | str | Mapping[str, Any] | None") -> Platform:
         base = dataclasses.replace(base, **scalars)
     return base
 
+
+def remote_platform(
+    endpoint: str, base: "Platform | str" = "cpu-host", name: str | None = None
+) -> Platform:
+    """A remote variant of ``base``: same capability flags, units dispatched
+    to the worker at ``endpoint``.  The endpoint lands in flags, hence in
+    ``cache_identity()`` — a remote measurement never aliases a local one.
+    """
+    b = resolve(base)
+    return dataclasses.replace(
+        b,
+        name=name or f"{b.name}@{endpoint}",
+        kind="remote",
+        flags={**b.flags, "endpoint": endpoint},
+    )

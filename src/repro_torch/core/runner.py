@@ -19,10 +19,26 @@ incremental.  ``--shard i/n`` executes one consistent-hash slice of the box
 cost), ``--shard-plan`` previews the partition, and ``--merge SHARD...``
 reassembles shard reports into the canonical unsharded table.
 
-Every unit runs on ``--device`` (default ``cuda``: the runner raises where
-there is no card, and never falls back to the CPU).  The box names the
+Pooled runs default to ``--schedule dynamic``: a pull-based fleet scheduler
+(one cost-descending queue, sinks per worker endpoint honoring advertised
+capacity, speculative re-dispatch of stragglers past ``--straggler-factor``
+times their estimate).  ``--schedule static`` keeps the up-front LPT plan.
+
+``--remote host:port[,host:port...]`` dispatches unit execution to
+:mod:`repro_torch.core.remote` workers.  Elastic fleets drop the endpoint
+list entirely: ``--registry host:port`` discovers workers from a
+:mod:`repro_torch.runtime.membership` registry (workers started with
+``--register``), grows/shrinks the sink set mid-sweep on membership events,
+detects dead/hung workers in seconds via heartbeats + cost-derived per-unit
+deadlines, and records per-endpoint health in a ``health.json`` sidecar for
+cross-run blacklisting.  ``--transport`` picks the fleet's wire strategy and
+``--max-inflight`` caps the units in flight to one worker.
+
+Every unit runs on ``--device`` (default ``cuda``; a local run raises where
+there is no card, and never falls back to the CPU).  With a fleet the units
+run on the workers' device — each worker refuses a payload for a device it
+does not run — and the runner itself needs no card.  The box names the
 port's tasks (``compute_torch``, ``pushdown_torch``, ...; ``--list-tasks``).
-Remote workers and registry fleets wait for the port's fleet slice.
 """
 from __future__ import annotations
 
@@ -75,6 +91,8 @@ class Runner:
         straggler_factor: float = 4.0,
         min_time_s: float = 0.0,
         fleet_registry: str | None = None,
+        transport: str = "async",
+        max_inflight: int = 0,
         device: str = "cuda",
     ):
         if platforms is not None and platform is not None:
@@ -96,6 +114,8 @@ class Runner:
             schedule=schedule,
             straggler_factor=straggler_factor,
             min_time_s=min_time_s,
+            transport=transport,
+            max_inflight=max_inflight,
             device=device,
         )
         self.platform = self._exec.platforms[0].describe()
@@ -118,9 +138,15 @@ class Runner:
             platforms=cfg.platforms,
             cache=cache,
             pool=cfg.pool,
+            remote=cfg.remote,
+            fleet_registry=cfg.registry,
             weighted_shard=cfg.weighted_shard,
             schedule=cfg.schedule,
             straggler_factor=cfg.straggler_factor,
+            # The reference's from_config leaves these two at their
+            # defaults; the port's runner honours the flags.
+            transport=cfg.transport,
+            max_inflight=cfg.max_inflight,
             device=cfg.device,
         )
 
@@ -165,7 +191,7 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("box_pos", nargs="?", metavar="box", help="path to box JSON")
     p.add_argument("--box", dest="box_opt", default=None, help="path to box JSON (same as the positional)")
     # The whole sweep surface (--iters/--workers/--platforms/--cache*/
-    # --shard*/--schedule/--device/...) comes from core.config so this CLI
+    # --shard*/--remote/--schedule/--device/...) comes from core.config so this CLI
     # and the serving CLI can never drift apart.
     config_mod.add_sweep_args(p)
     p.add_argument("--format", choices=("csv", "md", "json"), default="csv")

@@ -22,6 +22,36 @@ from repro_torch.launch import profiles  # noqa: E402
 from repro_torch.tasks import TASKS  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True)
+def isolated_registries(monkeypatch):
+    """Undo every task and plugin directory a test registers, in the port's
+    registry and the reference's: a task left behind would show in a later
+    test's ``--list-tasks`` (or shadow its own) depending on which files one
+    process happened to run first.  Only what ``_register_for_tests`` and
+    ``load_plugin_dir`` add is undone, so built-in tasks that load
+    meanwhile stay; for the port also ``register`` (the reference's own
+    built-in tasks register through it on import).  Test files that
+    register tasks import this fixture."""
+    for mod in (registry, jregistry):
+        monkeypatch.setattr(mod, "_PLUGIN_DIRS", list(mod._PLUGIN_DIRS))
+        for fname in ("_register_for_tests", "load_plugin_dir") + (("register",) if mod is registry else ()):
+            def tracked(*args, _fn=getattr(mod, fname), _tasks=mod._REGISTRY, **kwargs):
+                before = dict(_tasks)
+                out = _fn(*args, **kwargs)
+                for name, task in list(_tasks.items()):
+                    if before.get(name) is not task:
+                        # Put the old state back, then let monkeypatch make
+                        # the change (it undoes it at teardown).
+                        if name in before:
+                            _tasks[name] = before[name]
+                        else:
+                            del _tasks[name]
+                        monkeypatch.setitem(_tasks, name, task)
+                return out
+
+            monkeypatch.setattr(mod, fname, tracked)
 BOXES = ("compute_arithmetic", "memory_bandwidth", "pushdown_platform_sweep", "serving_latency")
 BOX_DICTS = [
     {"name": "dup", "tasks": [{"task": "t", "params": {"a": [1, 1, 2], "b": "x", "c": [True, False]}}]},
@@ -84,7 +114,13 @@ def test_dpu_sim_dilates_by_3_5():
     assert platform.resolve(None).name == "default"
     with pytest.raises(KeyError, match="unknown platform"):
         platform.get_platform("gpu-moon")
-    assert not hasattr(platform, "remote_platform")
+    # A remote variant keys and describes itself as the reference's does.
+    for args in (("10.0.0.2:7177",), ("h:1", "dpu-sim", "bf2")):
+        got, want = platform.remote_platform(*args), jplatform.remote_platform(*args)
+        assert (got.name, got.describe(), got.cache_identity()) == (want.name, want.describe(), want.cache_identity())
+        assert got.endpoint() == want.endpoint() == args[0]
+    with pytest.raises(ValueError, match="no 'endpoint' flag"):
+        platform.resolve({"name": "bf2", "kind": "remote"}).endpoint()
 
 
 # -- registry ----------------------------------------------------------------------

@@ -4,7 +4,8 @@ port at ``device="cpu"`` — prepare barriers, error isolation, the result
 cache, platform columns and context isolation, shards — plus what the port
 adds: the device in every context and in the cache identity, spawned
 children on the parent's device, no run without a card unless the caller
-asks for the CPU, and no remote dispatch until the fleet slice."""
+asks for the CPU, and a remote unit that its fleet cannot run is an error,
+never a local run."""
 from __future__ import annotations
 
 import json
@@ -15,7 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from test_torch_box_registry import make_torch_plugin  # noqa: E402
+from test_torch_box_registry import isolated_registries, make_torch_plugin  # noqa: E402,F401
 
 from repro.core import Box as JBox  # noqa: E402
 from repro.core import SweepExecutor as JSweepExecutor  # noqa: E402
@@ -416,19 +417,34 @@ def test_no_card_means_no_run(sweep_task, monkeypatch):
         SweepExecutor(device="mps")
 
 
-@pytest.mark.parametrize("kwargs", [{"remote": "127.0.0.1:7177"}, {"fleet_registry": "127.0.0.1:7178"},
-                                    {"platforms": [{"name": "bf2", "kind": "remote", "endpoint": "h:1"}]}],
+DEAD = "127.0.0.1:9"  # the discard port: nothing listens there
+ONE_UNIT = {"name": "r", "tasks": [{"task": "sweep_torch_test", "params": {"a": [1], "b": ["x"]}}]}
+
+
+@pytest.mark.parametrize("kwargs", [{"remote": DEAD}, {"fleet_registry": DEAD},
+                                    {"platforms": [{"name": "bf2", "kind": "remote", "endpoint": DEAD}]}],
                          ids=["remote", "fleet_registry", "remote-platform"])
-def test_remote_arguments_raise_not_implemented(sweep_task, kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        SweepExecutor(**kwargs, **CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        Runner(**kwargs, **CPU)
+def test_remote_arguments_raise_not_implemented(sweep_task, kwargs, monkeypatch):
+    """The fleet arguments build an executor and a Runner, and a unit that
+    the fleet cannot run is an error of that unit: it never runs in this
+    process instead.  A runner with an executor-wide fleet only dispatches,
+    so it needs no card even for ``device="cuda"``."""
+    assert SweepExecutor(**kwargs, **CPU).run_box(Box.from_dict(ONE_UNIT)).stats.errors == 1
+    assert Runner(**kwargs, **CPU).executor.platforms
+    if "platforms" not in kwargs:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        res = SweepExecutor(**kwargs).run_box(Box.from_dict(ONE_UNIT))
+        assert res.stats.errors == 1 and not res.rows
+    assert sweep_task.run_calls == 0 and sweep_task.prepare_calls == 0
 
 
 def test_box_declaring_a_remote_platform_raises_before_running(sweep_task):
-    d = {"name": "r", "platforms": ["cpu-host", {"name": "bf2", "kind": "remote", "endpoint": "h:1"}],
+    """A box mixing a local platform with a remote one: the local unit runs
+    here, the remote one goes to its worker (here, nowhere: an error) and
+    never runs locally."""
+    d = {"name": "r", "platforms": ["cpu-host", {"name": "bf2", "kind": "remote", "endpoint": DEAD}],
          "tasks": [{"task": "sweep_torch_test", "params": {"a": [1], "b": ["x"]}}]}
-    with pytest.raises(NotImplementedError, match="fleet slice"):
-        SweepExecutor(**CPU).run_box(Box.from_dict(d))
-    assert sweep_task.run_calls == 0
+    res = SweepExecutor(**CPU).run_box(Box.from_dict(d))
+    assert [e["platform"] for e in res.errors] == ["bf2"] and "WorkerUnreachable" in res.errors[0]["error"]
+    assert [r["platform"] for r in res.rows] == ["cpu-host"]
+    assert sweep_task.run_calls == 1

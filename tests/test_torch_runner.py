@@ -59,11 +59,13 @@ ARGVS = [
     ["--shard", "1/3@0.5:0.25:0.25", "--shard-plan", "--cache-file", "x.json", "--cache-max-entries", "9",
      "--cache-max-age", "60", "--steal"],
     ["--no-cache", "--shard", "0/2@auto"],
+    ["--remote", "h1:7177,h2:7177", "--transport", "threaded", "--max-inflight", "3"],
+    ["--registry", "h1:7170,h2:7170", "--workers", "2"],
 ]
 FLEET_FIELDS = {"remote", "registry", "transport", "max_inflight"}
 
 
-@pytest.mark.parametrize("argv", ARGVS, ids=["defaults", "pool", "shard", "auto"])
+@pytest.mark.parametrize("argv", ARGVS, ids=["defaults", "pool", "shard", "auto", "remote", "registry"])
 def test_sweep_config_equals_reference(argv):
     def parse(mod):
         p = argparse.ArgumentParser()
@@ -72,10 +74,10 @@ def test_sweep_config_equals_reference(argv):
 
     got, want = dataclasses.asdict(parse(config)), dataclasses.asdict(parse(jconfig))
     assert got.pop("device") == "cuda"
-    assert got == {k: v for k, v in want.items() if k not in FLEET_FIELDS}
+    assert got == want and FLEET_FIELDS <= set(got)
     errors: list[str] = []
-    assert str(config.validate_sweep(parse(config), errors.append)) == str(jconfig.validate_sweep(
-        parse(jconfig), errors.append, ping_remote=False))
+    assert str(config.validate_sweep(parse(config), errors.append, ping_remote=False)) == str(
+        jconfig.validate_sweep(parse(jconfig), errors.append, ping_remote=False))
     assert errors == []
 
 

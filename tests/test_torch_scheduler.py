@@ -19,6 +19,7 @@ from repro.core import registry as jregistry  # noqa: E402
 from repro.core import scheduler as jscheduler  # noqa: E402
 from repro.core.task import Task as JTask  # noqa: E402
 from repro_torch.core import Box, Samples, SweepExecutor, Task, registry, scheduler  # noqa: E402
+from test_torch_box_registry import isolated_registries  # noqa: E402,F401
 
 COSTS = [3.0, 1.0, 7.5, 1.0, 0.5, 7.5, 2.0, 2.0, 9.0, 1.0]
 
