@@ -46,7 +46,16 @@ against ``use_kernel=False``, OLMo-1B trained at full width and depth (bf16
 compute, float32 master weights, AdamW, 30 steps of 4 x 2,048 tokens) with
 its step split into forward, backward and optimizer, the card's busy share
 and step 0 held on three routes, and a restart drill through
-``run_with_restarts``; then the whole parameter space
+``run_with_restarts``; the remat policies (``REMAT_POLICIES``): OLMo-1B 3
+steps under each of "none", "dots" and "full" from the same weights, step
+0's loss and gradient norm held to "none"'s, K6's launches a step checked
+exactly (a recomputed forward launches once more), peak GB and step ms,
+one "full" step at 16 x 2,048, and K8 (Mamba2-2.7B's SSD) and K5
+(Jamba-v0.1's wi) under each policy; the dry run (``launch.dryrun --all``,
+every arch's cells traced on the meta device in processes of their own
+beside the remat path) and OLMo-1B's roofline terms at the training shape
+beside its measured steps; reshard / zero3_gather_hook / named on a
+one-rank NCCL (1, 1) DeviceMesh (``launch.mesh``); then the whole parameter space
 of the seven resource tasks (``compute_torch``, ``strings_torch``,
 ``memory_torch``, ``storage_torch``, ``index_offload_torch``,
 ``network_torch`` on NCCL, ``quantize_torch``) with each point's output held
@@ -78,7 +87,8 @@ the host link's), and prints:
     and ``flash_attention_f32`` K6 at dh 16 in ``dh16_shapes``): InternLM2-20B's
     8 x 2,048-token prefill at G 6 and its decode, SeamlessM4T-medium's encoder,
     cross prefill and cross decode, each beside its plain version, SDPA and its
-    bound);
+    bound); the bf16 ``flash_attention``, ``ssd_intra`` and ``gmm_bf16``
+    entries also their launches on the remat path, ``remat_launches``;
   * as its last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -87,6 +97,7 @@ it fails at once.
 """
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
 import dataclasses
@@ -1242,6 +1253,7 @@ def runner_phase():
 
 
 FLEET_WORKER_START_S = 120  # a worker's start: one interpreter importing torch, one CUDA context
+DRILL_NO_SPECULATION = 1e9  # a straggler factor that no unit's run time reaches
 
 
 def fleet_box(box: dict) -> dict:
@@ -1308,10 +1320,10 @@ def fleet_phase(dev="cuda"):
     exact moved bytes and K3 launches equal to an in-process run's, (c) the
     serving box (24 units, K1/K2) on both workers with no shed request, and
     (d) a kill drill: a third worker killed by its first unit, the box on
-    ``--remote w1,w3`` with a fresh cache, then again on that cache (cost
-    evidence sets the unit deadlines; ``--cache-max-entries 0`` makes it
-    measure again).  Each worker's ping must name the card, and every
-    worker has exited when the phase ends.
+    ``--remote w1,w3`` with a fresh cache and no speculation, then again on
+    that cache (cost evidence sets the unit deadlines;
+    ``--cache-max-entries 0`` makes it measure again).  Each worker's ping
+    must name the card, and every worker has exited when the phase ends.
 
     The workers launch K1-K4 in their own processes: each step reads every
     worker's launch counts from its pings before and after the step, and
@@ -1413,10 +1425,16 @@ def fleet_phase(dev="cuda"):
             inject(w3.endpoint, FaultSpec("kill"))
             cache = tmp / "drill" / "cache.json"
             drill_args = measure + ["--cache", str(cache), "--cache-max-entries", "0"]
+            # The kill run turns speculation off, so that the killed worker's
+            # unit ends only when the transport reports the dead worker, as
+            # the health check below reads.  With it on, a copy on w1 can end
+            # the sweep, and flush the cache, before a worker that holds a
+            # CUDA context has closed its connection (fleet_kill_probe.py).
             # The rerun leaves the dead worker out: the runner refuses a
             # --remote list with a worker that does not answer.
-            for label, fleet in (("d kill", (w1, w3)), ("d rerun", (w1,))):
-                rows_d, out[label] = fleet_step(label, box_a, drill_args + ["--remote", ",".join(
+            for label, fleet, extra in (("d kill", (w1, w3), ["--straggler-factor", str(DRILL_NO_SPECULATION)]),
+                                        ("d rerun", (w1,), [])):
+                rows_d, out[label] = fleet_step(label, box_a, drill_args + extra + ["--remote", ",".join(
                     w.endpoint for w in fleet)], tmp, 36, fleet, ("filter_agg",), out["yardstick"]["launches"])
                 health = ResultCache(cache).health.get(w3.endpoint) or {}
                 print(f"[fleet] {label}: blacklisted {out[label]['blacklisted']}, w3 alive {w3.alive}, "
@@ -3520,6 +3538,293 @@ def train_route_phase(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# remat, the dry run and the mesh: OLMo-1B trained under each
+# remat policy, K8 and K5 under "full" / "dots", every arch's cells traced on
+# the meta device, reshard / zero3_gather_hook / named on a one-rank NCCL mesh.
+REMAT_POLICIES = ("none", "dots", "full")
+REMAT_STEPS = 3  # from the same weights under each policy: step 0 held to "none"'s
+REMAT_TIMED = 5  # more steps a policy, timed
+REMAT_RTOL = 1e-6  # a policy's step-0 loss and gradient norm against "none"'s, relative
+REMAT_BIG_BATCH = 16  # "full" at 16 x TRAIN_SEQ: a reading, not a claim
+DRYRUN_JOBS = 4  # of the machine's 8 cores; this process drives the card on another
+
+
+def remat_launches(cfg, policy):
+    """K6 launches of one training step of a decoder: each attention layer's
+    forward once, and under "full" / "dots" each body unit's again in the
+    backward (its recomputed forward; the kernel runs in PlainVJP, which the
+    "dots" policy does not see); the first_k_dense layers stay outside."""
+    body = sum(k.mixer == "attn" for k in cfg.pattern) * cfg.n_repeats
+    return cfg.first_k_dense + body * (1 if policy == "none" else 2)
+
+
+def remat_train_phase(dev):
+    """OLMo-1B at full width and depth (bf16 compute, f32 master weights,
+    AdamW), REMAT_STEPS steps of TRAIN_BATCH x TRAIN_SEQ under each policy
+    from the same weights and batches, then REMAT_TIMED more: step 0's loss
+    and gradient norm held to "none"'s, K6's launches a step checked
+    exactly, step ms, and two peaks: a step's (AdamW's new trees beside the
+    old ones included) and one loss + backward's (the activations remat
+    trades); then one "full" step at REMAT_BIG_BATCH x TRAIN_SEQ."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import for_model
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.model import Model
+    from repro_torch.optim import make_optimizer, make_schedule
+    from repro_torch.runtime import train_loop
+
+    cfg = get_arch(TRAIN_ARCH)
+    data = for_model(cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, device=dev)
+    opt = make_optimizer(cfg.optimizer)
+    schedule = make_schedule("warmup_cosine", peak_lr=3e-4, warmup_steps=10, total_steps=TRAIN_STEPS)
+    params0 = train_loop.master_params(Model(cfg, device=dev), 0)
+
+    def run(policy, batch_at, steps):
+        pcfg = dataclasses.replace(cfg, remat=policy)
+        model = Model(pcfg, device=dev)
+        step_fn = train_loop.make_train_step(model, opt, schedule)
+        params, state = params0, opt.init(params0)
+        free_card()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _, grads = train_loop.value_and_grad(model, params, batch_at(0))
+        float(loss)
+        grad_peak = torch.cuda.max_memory_allocated()
+        del loss, grads
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        rows = []
+        for step in range(steps):
+            before = kops.LAUNCHES["flash_attention"]
+            t0 = time.perf_counter()
+            params, state, m = step_fn(params, state, batch_at(step), step)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])  # waits for the step
+            rows.append({"ms": 1e3 * (time.perf_counter() - t0), "loss": loss, "grad_norm": gnorm,
+                         "k6": kops.LAUNCHES["flash_attention"] - before})
+        out = {"peak_gb": torch.cuda.max_memory_allocated() / 1e9, "resident_gb": resident / 1e9,
+               "grad_peak_gb": grad_peak / 1e9,
+               "step_ms": [r["ms"] for r in rows], "loss0": rows[0]["loss"], "grad_norm0": rows[0]["grad_norm"],
+               "k6_a_step": [r["k6"] for r in rows], "k6_want": remat_launches(pcfg, policy)}
+        check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in rows),
+              f"remat {policy}: a loss or gradient norm is not finite: {rows}")
+        check(all(r["k6"] == out["k6_want"] for r in rows),
+              f"remat {policy}: K6 launched {out['k6_a_step']} a step, want {out['k6_want']}")
+        del params, state, step_fn, model
+        return out
+
+    out = {}
+    for policy in REMAT_POLICIES:
+        got = run(policy, data.batch_at, REMAT_STEPS + REMAT_TIMED)
+        got["steady_ms"] = sorted(got["step_ms"][1:])[len(got["step_ms"][1:]) // 2]
+        got["tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / (got["steady_ms"] / 1e3)
+        out[policy] = got
+        print(f"[remat] {TRAIN_ARCH} {TRAIN_BATCH} x {TRAIN_SEQ} remat={policy}: peak {got['peak_gb']:.3f} GB a step, "
+              f"{got['grad_peak_gb']:.3f} GB a loss + backward (resident {got['resident_gb']:.3f}), step ms "
+              f"{', '.join(f'{t:.1f}' for t in got['step_ms'])} (median of steps 1+: {got['steady_ms']:.1f}), "
+              f"loss0 {got['loss0']!r}, grad_norm0 {got['grad_norm0']!r}, K6 a step {got['k6_a_step']}", flush=True)
+    for policy in REMAT_POLICIES[1:]:
+        for key in ("loss0", "grad_norm0"):
+            rel = abs(out[policy][key] - out["none"][key]) / abs(out["none"][key])
+            out[policy][f"{key}_rel"] = rel
+            check(rel <= REMAT_RTOL, f"remat {policy}: step 0's {key} {out[policy][key]!r} is {rel:.3g} from "
+                                     f"none's {out['none'][key]!r}")
+    big = for_model(cfg, seq_len=TRAIN_SEQ, global_batch=REMAT_BIG_BATCH, device=dev)
+    got = run("full", big.batch_at, 1)
+    out[f"full_{REMAT_BIG_BATCH}x{TRAIN_SEQ}"] = got
+    print(f"[remat] {TRAIN_ARCH} {REMAT_BIG_BATCH} x {TRAIN_SEQ} remat=full, one step (a reading, not a claim): "
+          f"peak {got['peak_gb']:.3f} GB a step, {got['grad_peak_gb']:.3f} a loss + backward (resident "
+          f"{got['resident_gb']:.3f}), step ms {got['step_ms'][0]:.1f} "
+          f"(after one loss + backward at this shape), loss {got['loss0']!r}, K6 {got['k6_a_step']}", flush=True)
+    del params0
+    free_card()
+    return out
+
+
+def remat_kernel_checks(dev):
+    """The full-width one-layer autograd checks of K8 (Mamba2-2.7B's SSD) and
+    K5 (Jamba-v0.1's wi at a 1,024-token batch's C), bf16, under each policy
+    (``models.transformer.remat`` around the wrapper call and the square of
+    its outputs, whose backward needs them): the forward launches once, and
+    once more in the backward under "full" / "dots"; the input gradients
+    held to "none"'s (relative L2).  Around the bare wrapper call the
+    checkpoint would stop its recompute before the kernel: PlainVJP's
+    backward needs only its saved inputs."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.transformer import remat
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def rnd(shape, dtype, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+
+    b, s, h, p, n, q = 1, 2048, 80, 64, 128, 64
+    e, c, d, f = 16, 160, 4096, 28672
+    cases = {
+        "k8 mamba2-2.7b ssd": ("ssd_intra", lambda *t: kops.ssd_intra(*t, chunk=q),
+                               (rnd((b, s, h, p), bf16), rnd((b, s, n), bf16, 0.5), rnd((b, s, n), bf16, 0.5),
+                                torch.nn.functional.softplus(rnd((b, s, h), f32)),
+                                -torch.exp(torch.linspace(0.0, 2.77, h, device=dev)))),
+        "k5 jamba-v0.1 wi": ("gmm_tc", lambda *t: (kops.gmm(*t),), (rnd((e, c, d), bf16), rnd((e, d, f), bf16, d**-0.5))),
+    }
+    out = {}
+    for label, (counter, fn, inputs) in cases.items():
+        grads = {}
+        for policy in REMAT_POLICIES:
+            xs = [x.detach().clone().requires_grad_(x.is_floating_point()) for x in inputs]
+            before = kops.LAUNCHES[counter]
+            res = remat(lambda *t, fn=fn: tuple(o.float().square() for o in fn(*t)), policy)(*xs)
+            forward = kops.LAUNCHES[counter] - before
+            r = torch.Generator(device=dev).manual_seed(7)
+            loss = sum((o * torch.rand(o.shape, generator=r, device=dev)).sum() for o in res)
+            grads[policy] = torch.autograd.grad(loss, [x for x in xs if x.requires_grad])
+            launched = kops.LAUNCHES[counter] - before
+            want = 1 if policy == "none" else 2
+            check(forward == 1 and launched == want, f"remat {label} {policy}: {forward} forward and "
+                                                     f"{launched} launches in all, want 1 and {want}")
+            del res, loss, xs
+        dists = {pol: max(rel_l2(g, w) for g, w in zip(grads[pol], grads["none"])) for pol in REMAT_POLICIES[1:]}
+        same = {pol: all(torch.equal(g, w) for g, w in zip(grads[pol], grads["none"])) for pol in REMAT_POLICIES[1:]}
+        check(max(dists.values()) <= REMAT_RTOL, f"remat {label}: input gradients {dists} off none's")
+        out[label] = {"rel_l2": dists, "bit_equal": same}
+        print(f"[remat] {label} bf16 under dots / full: launches 2 (forward + recompute), none 1; input gradients "
+              f"vs none's rel L2 {json.dumps(dists)}, bit-equal {json.dumps(same)}", flush=True)
+        del grads
+        free_card()
+    return out
+
+
+def remat_path(dev):
+    return {"olmo": remat_train_phase(dev), "kernels": remat_kernel_checks(dev)}
+
+
+def start_dryrun(out_dir: Path):
+    """``python -m repro_torch.launch.dryrun --all --force`` in processes of
+    its own (DRYRUN_JOBS cells at once), on the meta device with no card
+    visible to them, started beside the remat path; ``dryrun_phase`` waits."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--force", "--jobs", str(DRYRUN_JOBS),
+           "--out", str(out_dir)]
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    atexit.register(stop_dryrun, proc)  # a failed check later leaves no process behind
+    return proc, time.perf_counter()
+
+
+def stop_dryrun(proc) -> None:
+    """Kill the dry run's process group (its workers too) if it still runs."""
+    import os
+    import signal
+
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def dryrun_phase(proc, t0, out_dir, name, train_out, remat_out):
+    """Every arch's cells traced on meta (``card`` mesh) by the subprocess,
+    one JSON each; then OLMo-1B traced in this process at the [train]
+    phase's shape under each policy, its roofline terms beside the measured
+    step ms (the measured step runs K6 in bf16 on the kernel route; the
+    trace counts the plain route's work, K6's forward in float32)."""
+    from repro_torch.configs.base import ShapeCell, all_archs, cells_for, get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as rf
+
+    try:
+        log, _ = proc.communicate(timeout=600)
+    finally:
+        stop_dryrun(proc)
+    wall = time.perf_counter() - t0
+    lines = log.splitlines()
+    for line in lines:
+        if line.startswith(("[ok]", "[FAIL]", "[dryrun]")):
+            print(f"[dryrun] {line}", flush=True)
+    cells = [(a, c) for a in all_archs() for c in cells_for(get_arch(a))]
+    written = [out_dir / "card" / a / f"{c}.json" for a, c in cells]
+    check(proc.returncode == 0 and all(p.exists() for p in written),
+          f"dry run: exit {proc.returncode}, {sum(p.exists() for p in written)}/{len(cells)} cells; {log[-2000:]}")
+    trace_s = sum(json.loads(p.read_text())["trace_s"] for p in written)
+    print(f"[dryrun] {len(cells)} cells of {len(all_archs())} archs on the meta device (card mesh): {wall:.1f}s "
+          f"wall in their process, {trace_s:.1f}s of it tracing", flush=True)
+    cfg = get_arch(TRAIN_ARCH)
+    cell = ShapeCell("train_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+    measured = {"none": train_out["step_ms"], **{p: remat_out["olmo"][p]["steady_ms"] for p in REMAT_POLICIES[1:]}}
+    out = {}
+    for policy in ("none",) + REMAT_POLICIES[1:]:
+        traced = dryrun.trace_cell(dataclasses.replace(cfg, remat=policy), cell)
+        roof = rf.analyze(traced["cost"], n_chips=1, model_flops_total=rf.model_flops(cfg, cell))
+        bound_ms = 1e3 * max(roof.compute_s, roof.memory_s)
+        label = "[train] phase" if policy == "none" else "[remat] phase"
+        out[policy] = {"compute_ms": 1e3 * roof.compute_s, "memory_ms": 1e3 * roof.memory_s,
+                       "bottleneck": roof.bottleneck, "useful": roof.useful_flops_ratio,
+                       "flops": traced["cost"]["flops"], "bytes": traced["cost"]["bytes accessed"],
+                       "measured_ms": measured[policy], "roofline_fraction": bound_ms / measured[policy],
+                       "trace_s": traced["trace_s"]}
+        print(f"[dryrun] {TRAIN_ARCH} {TRAIN_BATCH} x {TRAIN_SEQ} remat={policy}: compute {out[policy]['compute_ms']:.1f} ms, "
+              f"memory {out[policy]['memory_ms']:.1f} ms, <-{roof.bottleneck}, useful {roof.useful_flops_ratio:.3f}; "
+              f"measured step {measured[policy]:.1f} ms ({label}): roofline fraction "
+              f"{out[policy]['roofline_fraction']:.3f} on {name}", flush=True)
+    return {"wall_s": wall, "trace_s": trace_s, "olmo": out}
+
+
+def mesh_phase(dev):
+    """On a one-rank NCCL (1, 1) DeviceMesh over the card: ``reshard`` keeps
+    OLMo-1B's parameters bit for bit, ``zero3_gather_hook`` under FSDP rules
+    keeps them and strips every data placement, ``named`` gives each the
+    placements of its spec (its resharded DTensor's)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch import mesh
+    from repro_torch.models.model import Model
+    from repro_torch.optim.tree import tree_leaves
+    from repro_torch.runtime import elastic
+
+    t0 = time.perf_counter()
+    made = not dist.is_initialized()
+    cfg = get_arch(TRAIN_ARCH)
+    model = Model(cfg, device=dev)
+    params, specs = model.init(0), model.param_specs()
+    host = mesh.make_host_mesh(1, 1, dev)
+    check(dist.get_backend() == "nccl" and mesh.mesh_axes(host) == {"data": 1, "model": 1},
+          f"mesh: backend {dist.get_backend()}, axes {mesh.mesh_axes(host)}")
+    rules = mesh.logical_rules(cfg, host)
+    moved = elastic.reshard(params, rules, specs, host)
+    leaves, got = tree_leaves(params), tree_leaves(moved)
+    check(all(g.to_local().is_cuda and torch.equal(g.full_tensor(), p) for g, p in zip(got, leaves)),
+          "mesh: reshard changed a parameter")
+    fs = mesh.logical_rules(dataclasses.replace(cfg, fsdp=True), host)
+    placed = elastic.reshard(params, fs, specs, host)
+    gathered = mesh.zero3_gather_hook(fs, specs, host)(placed)
+    n_data = sum(isinstance(a.placements[0], Shard) for a in tree_leaves(placed))
+    check(n_data > 0 and all(b.placements[0] == Replicate() and torch.equal(b.full_tensor(), p)
+                             for b, p in zip(tree_leaves(gathered), leaves)),
+          "mesh: zero3_gather_hook changed a parameter or kept a data placement")
+    # named: the model axis (mesh dim 1) shards the dim that names it, the data axis nothing (no FSDP)
+    spec_leaves = mesh._spec_leaves(rules.tree_specs(specs))
+    named = tree_leaves(mesh.named(host, rules.tree_specs(specs)))
+    check(len(named) == len(leaves) and all(
+        s.placements == (Replicate(), Shard(spec.index("model")) if "model" in spec else Replicate())
+        for s, spec in zip(named, spec_leaves)) and any("model" in spec for spec in spec_leaves),
+        f"mesh: named's placements {[s.placements for s in named]} for the specs {spec_leaves}")
+    seconds = time.perf_counter() - t0
+    del moved, placed, gathered, params
+    if made:
+        dist.destroy_process_group()
+    free_card()
+    out = {"leaves": len(leaves), "data_sharded_under_fsdp": n_data, "seconds": seconds}
+    print(f"[mesh] one-rank NCCL (1, 1) mesh over the card: {TRAIN_ARCH}'s {len(leaves)} parameters resharded "
+          f"bit for bit; under FSDP rules {n_data} data-sharded, zero3_gather_hook back to Replicate() bit for "
+          f"bit; named shards the model axis' dims; {seconds:.2f}s", flush=True)
+    return out
+
+
 def k6_dh16_rows(name, launches):
     """K6 at app_step_torch's train shape (B 2, S 64, Hq 4, Hkv 4, dh 16,
     causal) in f32 (its launches on the training path) and bf16, each one
@@ -3637,6 +3942,7 @@ def main() -> int:
         "lm5": ("flash_attention", "decode_attention"),
         "resources": RESOURCE_KERNELS,
         "train": ("flash_attention", "decode_attention", "ssd_intra", "gmm"),
+        "remat": ("flash_attention", "ssd_intra", "gmm_tc"),
     }
     launches = dict.fromkeys(kops.LAUNCHES, 0)
     path_counts = {}
@@ -3664,6 +3970,11 @@ def main() -> int:
         elif path == "train":
             free_card()
             train_out, train_f32 = train_path(dev)
+        elif path == "remat":
+            free_card()
+            dryrun_dir = ROOT / "results" / "dryrun_torch"
+            dryrun_proc = start_dryrun(dryrun_dir)  # on the meta device, beside the remat path
+            remat_out = remat_path(dev)
         else:
             resources = resources_phase(dev, name)
         counts = dict(kops.LAUNCHES)
@@ -3694,6 +4005,8 @@ def main() -> int:
     free_card()
     train_out["routes"] = train_route_phase(dev)
     train_out["app_step_routes"] = app_step_route_phase(dev)
+    dryrun_out = dryrun_phase(*dryrun_proc, dryrun_dir, name, train_out["train"], remat_out)
+    mesh_out = mesh_phase(dev)
     per_query = {}
     kops.reset_launches()
     queries.q1_fused(li)
@@ -3711,12 +4024,16 @@ def main() -> int:
         launches[kname] -= count
     launches["flash_attention_f32"] += f32_launches["flash_attention"]
     # The MoE path's K5 is bf16, every launch on the tensor cores (the gmm_bf16 entry's).
-    check(path_counts["moe"]["gmm"] == 0, f"bf16 K5 ran {path_counts['moe']['gmm']} times on the CUDA cores")
+    check(path_counts["moe"]["gmm"] == 0 and path_counts["remat"]["gmm"] == 0,
+          f"bf16 K5 ran {path_counts['moe']['gmm']} + {path_counts['remat']['gmm']} times on the CUDA cores")
     entries = kernel_entries(plans, name, launches, per_query, per_step, errs)
     entries += new_kernel_entries(pd_ctx.scratch, name, launches, errs)
     entries += lm_kernel_entries(name, launches, errs)
     entries += lm_f32_kernel_entries(name, f32_launches)
-    entries.append(moe_gmm_entries(name, path_counts["moe"]["gmm_tc"], moe_shapes))
+    entries.append(moe_gmm_entries(name, path_counts["moe"]["gmm_tc"] + path_counts["remat"]["gmm_tc"], moe_shapes))
+    # The remat path's launches (bf16: OLMo-1B's K6 under each policy, K8 and K5's checks) in the bf16 entries' counts.
+    for kname, counter in (("flash_attention", "flash_attention"), ("ssd_intra", "ssd_intra"), ("gmm_bf16", "gmm_tc")):
+        next(e for e in entries if e["name"] == kname)["remat_launches"] = path_counts["remat"][counter]
     # The five architectures' K6 / K7 launches are in the bf16 entries' counts;
     # their shapes, times and launches by shape ride in those entries.
     for kname, rows in lm5_attention_rows(name, lm5_shapes).items():
@@ -3738,6 +4055,9 @@ def main() -> int:
     print(f"[train] summary: {json.dumps({**train_out, 'autograd_rel_l2': grad_dists})}", flush=True)
     print(f"[runner] summary: {json.dumps(runner_out)}", flush=True)
     print(f"[fleet] summary: {json.dumps(fleet_out)}", flush=True)
+    print(f"[remat] summary: {json.dumps(remat_out)}", flush=True)
+    print(f"[dryrun] summary: {json.dumps(dryrun_out)}", flush=True)
+    print(f"[mesh] summary: {json.dumps(mesh_out)}", flush=True)
     pd_task.clean(pd_ctx)
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(card, flush=True)

@@ -4,7 +4,8 @@ package's ``configs/base.py``).
 Every architecture is a frozen `ArchConfig`, with the same fields and
 defaults as the reference's.  `ARCHS` is the registry, the reference's ten
 configurations; `get_arch` raises for any other name.  `tiny()` derives the reduced config
-the CPU tests use.  `SHAPES` defines the four input-shape cells.
+the CPU tests use.  `SHAPES` defines the four input-shape cells; `cells_for`
+says which an arch takes.
 """
 from __future__ import annotations
 
@@ -70,8 +71,10 @@ class ArchConfig:
     logit_softcap: float = 0.0
     max_seq_len: int = 131_072
 
-    # Distribution and memory knobs of the reference's TPU meshes.  The port
-    # keeps them so configs compare field by field; it reads only the dtypes.
+    # Distribution and memory knobs.  The port reads the dtypes, remat (the
+    # body's repeating unit under torch.utils.checkpoint), fsdp and
+    # zero3_gather (launch/mesh's rules and the dry run); unroll_layers means
+    # nothing to its Python layer loop, which is always unrolled.
     fsdp: bool = False
     optimizer: str = "adamw"  # adamw | adafactor
     remat: str = "none"  # none | full | dots
@@ -148,6 +151,15 @@ class ArchConfig:
             total += enc + xattn
         return total
 
+    def n_active_params(self) -> int:
+        """Params touched per token (MoE: only the routed experts)."""
+        if not self.is_moe:
+            return self.n_params()
+        d, f = self.d_model, self.d_ff
+        inactive = (self.n_experts - self.experts_per_token) * 3 * d * f
+        n_moe_layers = sum(1 for k in self.pattern if k.ffn == "moe") * self.n_repeats
+        return self.n_params() - n_moe_layers * inactive
+
 
 # ---------------------------------------------------------------------------
 # Input shape cells: seq_len x global_batch
@@ -165,6 +177,15 @@ SHAPES: dict[str, ShapeCell] = {
     "decode_32k": ShapeCell("decode_32k", 32_768, 128, "decode"),
     "long_500k": ShapeCell("long_500k", 524_288, 1, "decode"),
 }
+
+
+def cells_for(cfg: ArchConfig) -> list[str]:
+    """The shape cells an arch takes: long_500k only where decode is
+    sub-quadratic (an SSM or hybrid), as the reference decides."""
+    cells = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.has_subquadratic_path:
+        cells.append("long_500k")
+    return cells
 
 
 # ---------------------------------------------------------------------------
@@ -186,6 +207,10 @@ def get_arch(name: str) -> ArchConfig:
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
     return importlib.import_module(ARCHS[name]).CONFIG
+
+
+def all_archs() -> list[str]:
+    return sorted(ARCHS)
 
 
 def tiny(cfg: ArchConfig, **overrides: Any) -> ArchConfig:

@@ -13,7 +13,10 @@ kernels has a backward kernel or a ``custom_vjp``.  So where an input of
 route, the call is a ``torch.autograd.Function`` (:class:`PlainVJP`) whose
 forward is the hand-written kernel, launched once, and whose backward is
 the vector-Jacobian product of the plain version, recomputed from the saved
-inputs: the reference's own gradient.  The other wrappers (``decode_attention``
+inputs: the reference's own gradient.  Under a ``remat`` policy ("full"
+or "dots", ``models/transformer.remat``) the backward recomputes the
+forward, and with it the kernel, once more: a launch counted like any
+other.  The other wrappers (``decode_attention``
 and the kernels off the LM path) have no gradient and raise ``ValueError``
 on an input that requires grad, on any device, unless ``use_kernel=False``
 asks for the plain version, which autograd differentiates as it is.  A CPU

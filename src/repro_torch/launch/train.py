@@ -9,8 +9,9 @@ card unless ``--device cpu`` is given, with random weights:
       --seq-len 128 --batch 8 --tiny --ckpt-dir /tmp/ckpt
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b --tiny --steps 20 --device cpu
 
-The port runs on one card and has no mesh: ``--data`` and ``--model`` above
-1 are refused.  It prints the reference's ``arch=... params=...`` and
+``--data`` x ``--model`` is the mesh: one larger than the cards present is
+refused (``launch/mesh.devices_present``), and so is any mesh above one
+card, since the port's training step runs on one card.  It prints the reference's ``arch=... params=...`` and
 ``done: step=... loss[0]=... loss[-1]=...`` lines and returns 1 when the
 loss did not fall.
 """
@@ -23,6 +24,7 @@ import torch
 
 from repro_torch.configs.base import get_arch, tiny
 from repro_torch.data.pipeline import for_model
+from repro_torch.launch.mesh import devices_present
 from repro_torch.models.model import Model
 from repro_torch.runtime.train_loop import TrainConfig, run_with_restarts, train
 
@@ -38,16 +40,22 @@ def main(argv=None) -> int:
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--ckpt-every", type=int, default=50)
     p.add_argument("--data", type=int, default=1,
-                   help="data-parallel mesh size; the port has no mesh yet, so only 1")
+                   help="data-parallel mesh size: refused above the cards present, and above 1 "
+                        "(the training step runs on one card)")
     p.add_argument("--model", type=int, default=1,
-                   help="model-parallel mesh size; the port has no mesh yet, so only 1")
+                   help="model-parallel mesh size: refused above the cards present, and above 1 "
+                        "(the training step runs on one card)")
     p.add_argument("--tiny", action="store_true", help="reduced config (CPU-runnable)")
     p.add_argument("--failure-at", type=int, default=None, help="inject a failure (restart drill)")
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.data != 1 or args.model != 1:
-        p.error(f"--data {args.data} --model {args.model}: the port trains on one device and has no mesh")
+    present = devices_present(args.device)
+    if args.data * args.model > present:
+        p.error(f"--data {args.data} --model {args.model}: no mesh of {args.data * args.model} devices with "
+                f"{present} {torch.device(args.device).type} device(s) present")
+    if args.data * args.model != 1:
+        p.error(f"--data {args.data} --model {args.model}: the port's training step runs on one card")
 
     cfg = get_arch(args.arch)
     if args.tiny:

@@ -41,7 +41,9 @@ def _ssm_cache(cfg, batch: int, dtype, device, stack: tuple) -> dict[str, torch.
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device="cuda") -> dict[str, Any]:
     """Zeroed cache tree: {"first": [per-layer dicts], "body": {pattern-pos:
-    stacked}}, and an encoder-decoder's "cross" and "src_len"."""
+    stacked}}, and an encoder-decoder's "cross" and "src_len".  On the
+    "meta" device its leaves are shapes and types only (the reference's
+    ``abstract=True``; ``Model.init_cache(..., abstract=True)``)."""
     reps = cfg.n_repeats
     first = [_attn_cache(cfg, batch, max_len, dtype, device, ()) for _ in range(cfg.first_k_dense)]
     body = {

@@ -19,6 +19,15 @@ import torch.nn.functional as F
 Params = dict[str, Any]
 
 
+class NoDraw:
+    """A stand-in for the init functions' ``torch.Generator`` that draws
+    nothing: every leaf comes out an uninitialised tensor on the meta device,
+    of its shape and type, with no memory behind it (``Model.abstract_params``,
+    the port's ``jax.eval_shape`` of an init)."""
+
+    device = torch.device("meta")
+
+
 def truncated_normal(gen: torch.Generator, shape, scale: float, dtype: torch.dtype,
                      block_dims: int | None = None) -> torch.Tensor:
     """Standard normal truncated to [-2, 2], times ``scale``, drawn in float32
@@ -27,7 +36,10 @@ def truncated_normal(gen: torch.Generator, shape, scale: float, dtype: torch.dty
     ``block_dims`` a ``dtype`` other than float32 is drawn one block of the
     last ``block_dims`` dims at a time (one expert's weights), so the float32
     temporary is one block, not the whole tensor: Kimi-K2's expert weights
-    are 22.5 GB in bf16 and would need 45 GB more in float32."""
+    are 22.5 GB in bf16 and would need 45 GB more in float32.  A
+    :class:`NoDraw` generator gets an empty meta tensor."""
+    if isinstance(gen, NoDraw):
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     if block_dims is None or dtype == torch.float32:
         x = torch.empty(shape, dtype=torch.float32, device=gen.device)
         torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
@@ -118,8 +130,7 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float, sections
     d = x.shape[-1]
     if sum(sections) != d // 2:
         raise ValueError(f"M-RoPE sections {tuple(sections)} must sum to head_dim / 2 = {d // 2}")
-    sel = torch.repeat_interleave(torch.arange(3, device=positions.device),
-                                  torch.tensor(sections, device=positions.device))
+    sel = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)], device=positions.device)
     pos = positions[sel].movedim(0, -1)  # [..., S, D/2]
     return _rotate(x, pos.to(torch.float32) * rope_freqs(d, theta, x.device))
 

@@ -2,7 +2,7 @@
 over decoder-only, hybrid, SSM and encoder-decoder configs:
 
     model = Model(cfg)                         # device="cuda", use_kernel=True
-    params = model.init(seed)
+    params = model.init(seed)                  # or model.abstract_params(): meta tensors
     loss, metrics = model.loss(params, batch)  # differentiable by autograd
     cache = model.init_cache(batch, max_len)
     logits, cache = model.prefill(params, {"inputs": tokens}, cache)
@@ -22,6 +22,7 @@ plain version instead, on any device.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, NamedTuple
 
 import torch
@@ -30,7 +31,7 @@ from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import kvcache
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import Params
+from repro_torch.models.layers import NoDraw, Params
 
 def positions(batch: int, seq: int, offset=0, device="cuda", mrope: bool = False) -> torch.Tensor:
     """[B, S] absolute positions offset..offset+S-1 (offset a number or [B]);
@@ -67,6 +68,17 @@ class Model:
             return encdec_mod.encdec_specs(self.cfg)
         return tfm.transformer_specs(self.cfg)
 
+    def abstract_params(self, *, serving: bool = False) -> Params:
+        """The parameter tree as tensors on the meta device: shapes and
+        types, no memory, no random numbers drawn (the reference's
+        ``jax.eval_shape`` of its init; the dry run traces on them).  The
+        types are the reference's, which are ``master_params``' (what the
+        port trains): matmul weights in ``param_dtype``.  With ``serving``
+        they are ``init``'s: matmul weights in the compute type."""
+        cfg = self.cfg if serving else dataclasses.replace(self.cfg, compute_dtype=self.cfg.param_dtype)
+        init = encdec_mod.init_encdec if cfg.encoder_decoder else tfm.init_transformer
+        return init(cfg, NoDraw(), getattr(torch, cfg.param_dtype))
+
     # -- training ------------------------------------------------------------
     def loss(self, params: Params, batch: dict[str, torch.Tensor]):
         """(loss, {"ce", "aux"}) of a batch (``input_specs``' train kind),
@@ -78,8 +90,10 @@ class Model:
         return tfm.lm_loss(self.cfg, params, batch, use_kernel=self.use_kernel)
 
     # -- serving -------------------------------------------------------------
-    def init_cache(self, batch: int, max_len: int) -> dict[str, Any]:
-        return kvcache.init_cache(self.cfg, batch, max_len, self.dtype, self.device)
+    def init_cache(self, batch: int, max_len: int, *, abstract: bool = False) -> dict[str, Any]:
+        """A zeroed cache on the model's device; with ``abstract`` its leaves
+        on the meta device (shapes and types, no memory)."""
+        return kvcache.init_cache(self.cfg, batch, max_len, self.dtype, "meta" if abstract else self.device)
 
     def cache_specs(self) -> dict[str, Any]:
         return kvcache.cache_specs(self.cfg)

@@ -6,6 +6,11 @@ Parameters keep the reference's tree: ``{"embed", "first": [blocks],
 "final_norm", "lm_head"}``.  Where the reference scans the repeating unit
 over the stacked leaves, the port walks it in a Python loop, each layer
 taking views of its row of every stacked leaf (parameters and cache alike).
+A row of the pattern is the repeating unit (``body_unit``): where autograd
+records, it runs under ``cfg.remat`` ("none", "full" or "dots", through
+``torch.utils.checkpoint``), and ``layer_param_hook`` maps its parameters
+before its blocks, as the reference's scan body does; the
+``first_k_dense`` layers stay outside it, as outside the reference's scan.
 Blocks are pre-norm residual: x += mixer(norm(x)); x += ffn(norm(x)), the
 mixer attention or Mamba2 and the FFN dense (SwiGLU or GELU), MoE or none, in any
 combination the pattern names (Jamba: Mamba2 mixers before dense and MoE
@@ -18,16 +23,18 @@ reference's logical-axis tuples, plain data.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ArchConfig, LayerKind
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import Params, apply_mlp, apply_norm, init_mlp, init_norm, truncated_normal, weight_dtype
+from repro_torch.optim.tree import tree_leaves
 
 
 def init_block(cfg: ArchConfig, kind: LayerKind, gen: torch.Generator, dtype, stack: tuple = ()) -> Params:
@@ -154,6 +161,81 @@ def layer_row(tree: Any, r: int) -> Any:
     return tree[r]
 
 
+# Per-unit parameter transform applied inside the body's repeating unit,
+# before its blocks run (the reference's ZeRO-3 at-use weight gathering).
+# Set by `layer_param_hook`; None = off.
+_LAYER_PARAM_HOOK = None
+
+
+class layer_param_hook:
+    """Context manager installing a per-unit parameter transform: inside it,
+    ``hook`` maps each repeating unit's parameters ({"l<j>": that row of
+    every stacked leaf}) before the unit's blocks run, inside the unit's
+    ``remat`` region, as the reference's hook runs inside its scan body."""
+
+    def __init__(self, hook):
+        self.hook = hook
+
+    def __enter__(self):
+        global _LAYER_PARAM_HOOK
+        self._prev = _LAYER_PARAM_HOOK
+        _LAYER_PARAM_HOOK = self.hook
+        return self
+
+    def __exit__(self, *exc):
+        global _LAYER_PARAM_HOOK
+        _LAYER_PARAM_HOOK = self._prev
+        return False
+
+
+# The products whose outputs remat "dots" saves (jax.checkpoint_policies.checkpoint_dots).
+DOTS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default,
+        torch.ops.aten.baddbmm.default]
+
+
+def remat(fn, policy: str):
+    """``fn`` under a rematerialisation policy: "none" stores every
+    activation; "full" keeps only the inputs and recomputes the whole of
+    ``fn`` in the backward; "dots" saves the matrix products' outputs
+    (``DOTS``) and recomputes the rest.  The kernels (K5, K6, K8) run inside
+    ``kernels/ops.PlainVJP``, a ``torch.autograd.Function`` the "dots" policy
+    does not see, so under either policy the backward launches each of
+    ``fn``'s kernels once more (one recomputed forward).  ``fn`` draws no
+    random numbers, so no RNG state is kept."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False, preserve_rng_state=False)
+    if policy == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts, DOTS)
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False, preserve_rng_state=False, context_fn=ctx)
+    raise ValueError(f"unknown remat policy {policy!r}")
+
+
+def body_unit(cfg: ArchConfig, params_r: Params, x: torch.Tensor, positions: torch.Tensor,
+              cache_r: list | None, **kw) -> tuple:
+    """One repeating unit of the body (one row of the ``cfg.pattern`` loop,
+    the reference's scan body): the hook, if one is installed, on its
+    parameters, then its blocks.  Returns (x, *the MoE layers' aux losses).
+    Where autograd records, the unit runs under ``cfg.remat``; a serving
+    call (a cache, or nothing that requires grad) runs it as it is."""
+
+    def unit(params_r, x, positions):
+        if _LAYER_PARAM_HOOK is not None:
+            params_r = _LAYER_PARAM_HOOK(params_r)
+        aux: list[torch.Tensor] = []
+        for j, kind in enumerate(cfg.pattern):
+            cj = cache_r[j] if cache_r is not None else None
+            x = apply_block(cfg, kind, params_r[f"l{j}"], x, positions, cache=cj, aux_out=aux, **kw)
+        return (x, *aux)
+
+    records = torch.is_grad_enabled() and (x.requires_grad or any(
+        t.requires_grad for t in tree_leaves(params_r)))
+    if cache_r is None and records:
+        unit = remat(unit, cfg.remat)
+    return unit(params_r, x, positions)
+
+
 def hidden_states(
     cfg: ArchConfig,
     p: Params,
@@ -178,9 +260,11 @@ def hidden_states(
         ci = cache["first"][i] if cache is not None else None
         x = apply_block(cfg, LayerKind("attn", "dense"), p["first"][i], x, positions, cache=ci, **kw)
     for r in range(cfg.n_repeats):
-        for j, kind in enumerate(cfg.pattern):
-            cj = layer_row(cache["body"][f"l{j}"], r) if cache is not None else None
-            x = apply_block(cfg, kind, layer_row(p["body"][f"l{j}"], r), x, positions, cache=cj, aux_out=aux_out, **kw)
+        params_r = {f"l{j}": layer_row(p["body"][f"l{j}"], r) for j in range(len(cfg.pattern))}
+        cache_r = [layer_row(cache["body"][f"l{j}"], r) for j in range(len(cfg.pattern))] if cache is not None else None
+        x, *aux = body_unit(cfg, params_r, x, positions, cache_r, **kw)
+        if aux_out is not None:
+            aux_out.extend(aux)
     return apply_norm(cfg, p["final_norm"], x)
 
 

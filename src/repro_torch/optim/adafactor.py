@@ -40,6 +40,12 @@ def init(params) -> AdafactorState:
                           count=torch.zeros((), dtype=torch.int32, device=dev))
 
 
+def abstract_init(params) -> AdafactorState:
+    """``init``'s state on the meta device (shapes and types, no memory):
+    the reference's ``jax.eval_shape(init, params)``."""
+    return init(tree_map(lambda p: p.to("meta"), params))
+
+
 @torch.no_grad()
 def update(grads, state: AdafactorState, params, lr, *, decay: float = 0.8, eps1: float = 1e-30,
            eps2: float = 1e-3, clip_threshold: float = 1.0, weight_decay: float = 0.0):

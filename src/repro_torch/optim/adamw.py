@@ -28,6 +28,12 @@ def init(params) -> AdamWState:
                       count=torch.zeros((), dtype=torch.int32, device=dev))
 
 
+def abstract_init(params) -> AdamWState:
+    """``init``'s state on the meta device (shapes and types, no memory):
+    the reference's ``jax.eval_shape(init, params)``."""
+    return init(tree_map(lambda p: p.to("meta"), params))
+
+
 @torch.no_grad()
 def update(grads, state: AdamWState, params, lr, *, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
            weight_decay: float = 0.1, grad_clip: float = 1.0):

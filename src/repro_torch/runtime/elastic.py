@@ -11,13 +11,14 @@ port's copy of ``repro.runtime.elastic``).
   sequential runs throughout: membership only changes WHERE units execute,
   never what rows they produce.
 
-* **Device elasticity**: ``plan_mesh`` picks the largest (data, model) grid
-  that fits a degraded device count and keeps ``model`` a divisor of the
-  previous model-axis size; ``fit_batch`` the largest batch the new data
-  axis divides.  Both are integer arithmetic.  Rebuilding a device mesh and
-  moving live state onto it (``remesh`` / ``reshard``) belong to the
-  multi-device tooling that ROADMAP Queue 1 item 6 ports; until then they
-  raise.
+* **Device elasticity**: when devices are lost (or regained), the
+  controller rebuilds the mesh over the survivors (``remesh``, a
+  ``torch.distributed`` DeviceMesh, ``launch/mesh``) and ``reshard``s live
+  parameters and optimizer state onto it: each leaf becomes a DTensor laid
+  out by the rules' placements, its values kept.  ``plan_mesh`` picks the
+  largest (data, model) grid that fits a degraded device count and keeps
+  ``model`` a divisor of the previous model-axis size; ``fit_batch`` the
+  largest batch the new data axis divides.
 """
 from __future__ import annotations
 
@@ -25,20 +26,17 @@ import logging
 import threading
 from typing import Any, Callable
 
+import torch
+
 from repro_torch.core.remote import HEARTBEAT_INTERVAL_S, fleet_view, parse_fleet
 from repro_torch.core.scheduler import FleetScheduler, Sink
+from repro_torch.optim.tree import tree_map
 
 logger = logging.getLogger(__name__)
 
 #: Consecutive all-replica poll failures before the watcher logs a warning
 #: (one warning per dark spell, not one per tick).
 DARK_POLLS_WARN = 5
-
-
-_NO_MESH = (
-    "device meshes and resharding wait for the port's multi-device tooling "
-    "(ROADMAP Queue 1 item 6)"
-)
 
 
 # -- device elasticity ---------------------------------------------------------
@@ -52,13 +50,33 @@ def plan_mesh(n_devices: int, prev_model: int = 1) -> tuple[int, int]:
 
 
 def remesh(devices: list, data: int, model: int):
-    """A (data, model) device mesh over ``devices``: not ported yet."""
-    raise NotImplementedError(_NO_MESH)
+    """A ("data", "model") DeviceMesh of shape (data, model) over the first
+    data x model of ``devices`` (``torch.device`` s of one kind, one process
+    a device in the default process group, as ``launch.mesh.make_host_mesh``
+    makes it for one)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    kinds = {torch.device(d).type for d in devices}
+    if len(kinds) != 1:
+        raise ValueError(f"a mesh is over devices of one kind, got {sorted(kinds)}")
+    kind = kinds.pop()
+    if data * model > len(devices):
+        raise ValueError(f"a ({data}, {model}) mesh needs {data * model} devices; {len(devices)} given")
+    if data * model == 1:
+        return make_host_mesh(1, 1, kind)
+    ranks = torch.arange(data * model).reshape(data, model)
+    return DeviceMesh(kind, ranks, mesh_dim_names=("data", "model"))
 
 
 def reshard(tree: Any, rules, spec_tree: Any, new_mesh) -> Any:
-    """Move live state onto a new mesh: not ported yet."""
-    raise NotImplementedError(_NO_MESH)
+    """Move live state onto ``new_mesh``: every leaf a DTensor laid out by
+    ``rules``' placements of its logical axes (``spec_tree``), values kept."""
+    from repro_torch.launch.mesh import named
+
+    shardings = named(new_mesh, rules.tree_specs(spec_tree))
+    return tree_map(lambda t, s: s.place(t), tree, shardings)
 
 
 def fit_batch(global_batch: int, n_data: int) -> int:

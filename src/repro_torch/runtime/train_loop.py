@@ -63,11 +63,13 @@ def master_params(model: Model, seed: int = 0) -> Any:
     return tree_map(lambda t: t.to(dtype), model.init(seed))
 
 
-def value_and_grad(model: Model, params: Any, batch: dict[str, torch.Tensor]) -> tuple[torch.Tensor, dict, Any]:
+def value_and_grad(model: Model, params: Any, batch: dict[str, torch.Tensor],
+                   param_hook: Callable | None = None) -> tuple[torch.Tensor, dict, Any]:
     """(loss, metrics, grads) of ``model.loss`` at ``params``; the gradient
-    tree mirrors ``params`` (zeros where a leaf is unused, as ``jax.grad``)."""
+    tree mirrors ``params`` (zeros where a leaf is unused, as ``jax.grad``).
+    ``param_hook`` maps the parameters inside the differentiated region."""
     live = tree_map(lambda p: p.detach().requires_grad_(p.is_floating_point()), params)
-    loss, metrics = model.loss(live, batch)
+    loss, metrics = model.loss(live if param_hook is None else param_hook(live), batch)
     leaves = [p for p in tree_leaves(live) if p.requires_grad]
     got = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
 
@@ -94,22 +96,25 @@ def split_microbatches(batch: dict[str, torch.Tensor], accum_steps: int) -> dict
     return out
 
 
-def make_train_step(model: Model, opt, schedule, accum_steps: int = 1) -> Callable:
+def make_train_step(model: Model, opt, schedule, accum_steps: int = 1,
+                    param_hook: Callable | None = None) -> Callable:
     """(params, opt_state, batch, step) -> (params, opt_state, metrics).
 
     With ``accum_steps > 1`` the batch's leaves are [accum, micro, ...]
     (``split_microbatches``): the gradients and the loss are summed over the
-    microbatches in order in float32 and divided by ``accum_steps``.  The
-    reference's ``param_hook`` (ZeRO-3 gathering on a mesh) is not ported."""
+    microbatches in order in float32 and divided by ``accum_steps``.
+    ``param_hook`` (optional) maps the parameters inside the differentiated
+    region, as the reference's does (its ZeRO-3 weight gathering:
+    ``launch/mesh.zero3_gather_hook``); the gradients are the parameters'."""
 
     def train_step(params, opt_state, batch, step):
         if accum_steps == 1:
-            loss, metrics, grads = value_and_grad(model, params, batch)
+            loss, metrics, grads = value_and_grad(model, params, batch, param_hook)
         else:
             grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
             loss = 0.0
             for i in range(accum_steps):
-                l, _, g = value_and_grad(model, params, {k: v[i] for k, v in batch.items()})
+                l, _, g = value_and_grad(model, params, {k: v[i] for k, v in batch.items()}, param_hook)
                 grads = tree_map(lambda a, b: a + b, grads, g)
                 loss = loss + l
             grads = tree_map(lambda g: g / accum_steps, grads)

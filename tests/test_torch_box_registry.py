@@ -93,7 +93,7 @@ def test_torch_box_equals_reference_box_but_task_names(name):
 def test_known_platforms_and_profiles_equal_reference():
     assert platform.known_platforms() == jplatform.known_platforms() == ["cpu-host", "default", "dpu-sim"]
     assert profiles.EXECUTION_PROFILES == jprofiles.EXECUTION_PROFILES
-    assert not hasattr(profiles, "apply")  # the mesh's sharding rules wait for the TPU tooling
+    assert profiles.PROFILES == jprofiles.PROFILES  # apply() against the reference's: tests/test_torch_mesh.py
 
 
 @pytest.mark.parametrize("spec", ["default", "cpu-host", "dpu-sim", {"name": "cpu-host", "numa": 1},

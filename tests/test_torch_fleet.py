@@ -730,15 +730,18 @@ def test_fleet_watcher_applies_membership_deltas():
 
 def test_elastic_mesh_helpers():
     """plan_mesh / fit_batch are the reference's integer arithmetic; the
-    mesh rebuild waits for the multi-device tooling."""
+    mesh rebuild refuses a mesh over more devices than it is given, or over
+    devices of two kinds (``tests/test_torch_mesh.py`` rebuilds one and
+    reshards onto it)."""
     from repro.runtime import elastic as jelastic
 
     for n, prev in ((8, 4), (6, 4), (7, 2), (1, 8), (16, 1)):
         assert elastic.plan_mesh(n, prev) == jelastic.plan_mesh(n, prev)
     assert [elastic.fit_batch(b, d) for b, d in ((32, 3), (7, 8), (64, 8))] == [30, 0, 64]
-    for fn, args in ((elastic.remesh, ([], 1, 1)), (elastic.reshard, ({}, None, {}, None))):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            fn(*args)
+    with pytest.raises(ValueError, match="needs 2 devices; 1 given"):
+        elastic.remesh([torch.device("cpu")], 2, 1)
+    with pytest.raises(ValueError, match="of one kind"):
+        elastic.remesh([torch.device("cpu"), torch.device("meta")], 1, 1)
     assert elastic.DARK_POLLS_WARN == jelastic.DARK_POLLS_WARN
 
 
