@@ -988,12 +988,14 @@ def server_phase(plans):
         server = QueryServer(plans, queue_depth=64, max_batch=8)
         server.warmup(names)
         trace = generate_trace(names, 0.5 * sat, 2.0, arrival="fixed", seed=0)
-        spans, step = [], server.step
+        spans, step, shared = [], server.step, set()
 
         def timed(now_fn):
             t0 = time.perf_counter()
             out = step(now_fn)
             spans.append((t0, time.perf_counter()))
+            if len(out) > 1:
+                shared.update(c.uid for c in out)
             return out
 
         server.step = timed
@@ -1010,15 +1012,15 @@ def server_phase(plans):
     check(len(report.completed) == len(trace), "server: every request completes")
     lat = sorted(report.latencies_s)
     p50, p99 = lat[len(lat) // 2], lat[min(len(lat) - 1, int(0.99 * len(lat)))]
-    batched = sum(c.batch_size > 1 for c in report.completed)
     print(f"[server] sf1 saturation {sat:.1f} qps; offered {report.offered_qps:.1f} qps; "
           f"served {report.qps:.1f} qps; p50 {1e6 * p50:.1f}us p99 {1e6 * p99:.1f}us; "
-          f"shed 0; {batched}/{len(trace)} requests in shared scans; {steps} steps; {stalls}", flush=True)
-    return trace, report, launched / max(steps, 1)
+          f"shed 0; {len(shared)}/{len(trace)} requests in shared scans; {steps} steps; {stalls}", flush=True)
+    return trace, report, shared, launched / max(steps, 1)
 
 
-def verify_server(plans, trace, report):
-    """Every result of a shared scan equals the serial run of its request."""
+def verify_server(plans, trace, report, shared):
+    """Every result of a shared scan (its uid in ``shared``) equals the serial
+    run of its request."""
     from repro_torch.engine import queries
     from repro_torch.runtime.loadgen import sample_params
     from repro_torch.runtime.requests import QueryRequest
@@ -1027,7 +1029,7 @@ def verify_server(plans, trace, report):
     params = {r.uid: r.params for r in trace}
     checked = 0
     for c in report.completed:
-        if c.batch_size > 1:
+        if c.uid in shared:
             want = queries.fused_query_serial(plans[c.query], params[c.uid])
             for k in want:
                 check(torch.equal(want[k], c.result[k]), f"server uid {c.uid} {c.query}.{k}: batch != serial")
@@ -1039,7 +1041,7 @@ def verify_server(plans, trace, report):
     for r in reqs:
         server.submit(r)
     done = server.step()
-    check(len(done) == 8 and all(c.batch_size == 8 for c in done), "batch of eight")
+    check(len(done) == 8 and server.kernel_calls == 1, "batch of eight")
     for req, c in zip(reqs, done):
         want = queries.fused_query_serial(plans["q6"], req.params)
         for k in want:
@@ -3952,7 +3954,7 @@ def main() -> int:
             dbms_phase(dev)
             fused_vs_unfused(li, od)
             serving_task_phase(dev)
-            trace, report, per_step = server_phase(plans)
+            trace, report, shared, per_step = server_phase(plans)
         elif path == "pushdown":
             pushdown_phase(pd_task, pd_ctx)
         elif path == "accel":
@@ -3997,7 +3999,7 @@ def main() -> int:
     # f32, and so is Granite's float32 long-context prefill (added below).
     launches["flash_attention_f32"] = path_counts["accel"]["flash_attention"]
 
-    verify_server(plans, trace, report)
+    verify_server(plans, trace, report, shared)
     pushdown_plans_agree(pd_ctx.scratch)
     lm_route = {arch: lm_route_phase(arch, dev) for arch in LM_LAYERS}
     lm_route.update({arch: lm_route_phase(arch, dev, moe_config(arch)) for arch in MOE_LAYERS})

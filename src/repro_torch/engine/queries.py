@@ -21,6 +21,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.core.spans import ENGINE_CONSTS, ENGINE_DEMUX, span
 from repro_torch.engine import datagen, ops
 from repro_torch.engine.table import Table
 from repro_torch.kernels import ops as kops
@@ -345,12 +346,14 @@ def fused_query_serial(
     plan: ServingPlan, params: dict[str, Any], *, use_kernel: bool = True
 ) -> dict[str, torch.Tensor]:
     """One request through the single-program kernel — the serving oracle."""
-    pred_consts, agg_consts = plan.program(params)
+    with span(ENGINE_CONSTS):
+        pred_consts, agg_consts = plan.program(params)
     out = kops.group_filter_agg(
         plan.cols, plan.keys, plan.pred_ops, pred_consts, plan.agg_ops, agg_consts,
         num_groups=plan.num_groups, use_kernel=use_kernel,
     )
-    return plan.demux(out)
+    with span(ENGINE_DEMUX):
+        return plan.demux(out)
 
 
 def fused_query_batch(
@@ -361,9 +364,10 @@ def fused_query_batch(
     Results demultiplex per request and are bit-equal to
     ``fused_query_serial`` on the same constants.
     """
-    consts = [plan.program(p) for p in param_list]
-    pred_consts = torch.stack([c[0] for c in consts])
-    agg_consts = torch.stack([c[1] for c in consts])
+    with span(ENGINE_CONSTS):
+        consts = [plan.program(p) for p in param_list]
+        pred_consts = torch.stack([c[0] for c in consts])
+        agg_consts = torch.stack([c[1] for c in consts])
     out = kops.group_filter_agg_multi(
         plan.cols, plan.keys, plan.pred_ops, pred_consts, plan.agg_ops, agg_consts,
         num_groups=plan.num_groups, use_kernel=use_kernel,
@@ -371,5 +375,6 @@ def fused_query_batch(
     # One demux for the batch, then a view per request: the same elementwise
     # values as demultiplexing each slot, at one launch per value instead of
     # one per value and request.
-    batched = {k: v.unbind(0) for k, v in plan.demux(out).items()}
-    return [{k: v[b] for k, v in batched.items()} for b in range(len(param_list))]
+    with span(ENGINE_DEMUX):
+        batched = {k: v.unbind(0) for k, v in plan.demux(out).items()}
+        return [{k: v[b] for k, v in batched.items()} for b in range(len(param_list))]

@@ -5,7 +5,9 @@ tensor goes to the plain PyTorch version (``kernels/ref.py``), a CUDA
 tensor launches the hand-written CUDA kernel or raises.  ``use_kernel=False``
 asks for the plain version on any device; it is never chosen for the
 caller.  ``LAUNCHES`` counts, per wrapper, the kernel launches it made
-(``gmm`` per kernel: ``gmm`` and ``gmm_tc``).
+(``gmm`` per kernel: ``gmm`` and ``gmm_tc``).  The wrappers of the
+benchmarked TPC-H paths (``group_filter_agg``, ``group_filter_agg_multi``,
+``block_compact``) run inside a ``kernels.<wrapper>`` span (``core.spans``).
 
 Gradients.  The reference differentiates plain jnp: none of its Pallas
 kernels has a backward kernel or a ``custom_vjp``.  So where an input of
@@ -28,6 +30,7 @@ from collections.abc import Sequence
 
 import torch
 
+from repro_torch.core import spans
 from repro_torch.kernels import alu_chain as alu
 from repro_torch.kernels import block_compact as bc
 from repro_torch.kernels import decode_attention as da
@@ -115,16 +118,17 @@ def group_filter_agg(
     ``encode_aggregates``).  Returns [num_groups, A + 1]: per-group
     aggregate sums, then the masked count.
     """
-    _refuse_grad("group_filter_agg", use_kernel, cols, pred_consts, agg_consts)
-    if not _route(cols, use_kernel):
-        return ref.group_filter_agg_ref(
-            cols, keys, pred_ops, pred_consts, agg_ops, agg_consts, num_groups
+    with spans.span(spans.KERNELS_GROUP_FILTER_AGG):
+        _refuse_grad("group_filter_agg", use_kernel, cols, pred_consts, agg_consts)
+        if not _route(cols, use_kernel):
+            return ref.group_filter_agg_ref(
+                cols, keys, pred_ops, pred_consts, agg_ops, agg_consts, num_groups
+            )
+        out = gfa.launch(
+            cols, keys, pred_ops, pred_consts[None], agg_ops, agg_consts[None], num_groups
         )
-    out = gfa.launch(
-        cols, keys, pred_ops, pred_consts[None], agg_ops, agg_consts[None], num_groups
-    )
-    LAUNCHES["group_filter_agg"] += 1
-    return out[0]
+        LAUNCHES["group_filter_agg"] += 1
+        return out[0]
 
 
 def group_filter_agg_multi(
@@ -138,14 +142,15 @@ def group_filter_agg_multi(
     ``[B, num_groups, A + 1]``; slot ``b`` is bit-equal to the
     single-program call with that program's constants.
     """
-    _refuse_grad("group_filter_agg_multi", use_kernel, cols, pred_consts, agg_consts)
-    if not _route(cols, use_kernel):
-        return ref.group_filter_agg_multi_ref(
-            cols, keys, pred_ops, pred_consts, agg_ops, agg_consts, num_groups
-        )
-    out = gfa.launch(cols, keys, pred_ops, pred_consts, agg_ops, agg_consts, num_groups)
-    LAUNCHES["group_filter_agg_multi"] += 1
-    return out
+    with spans.span(spans.KERNELS_GROUP_FILTER_AGG_MULTI):
+        _refuse_grad("group_filter_agg_multi", use_kernel, cols, pred_consts, agg_consts)
+        if not _route(cols, use_kernel):
+            return ref.group_filter_agg_multi_ref(
+                cols, keys, pred_ops, pred_consts, agg_ops, agg_consts, num_groups
+            )
+        out = gfa.launch(cols, keys, pred_ops, pred_consts, agg_ops, agg_consts, num_groups)
+        LAUNCHES["group_filter_agg_multi"] += 1
+        return out
 
 
 def block_compact(
@@ -161,17 +166,18 @@ def block_compact(
     ``count`` is the total number of qualifying rows.  The count stays on
     the device.
     """
-    seq = not isinstance(cols, torch.Tensor)
-    _refuse_grad("block_compact", use_kernel, *(cols if seq else (cols,)))
-    if seq:
-        cols = bc.columns(cols)
-    elif cols.dim() != 2:
-        raise ValueError(f"cols must be [C, N] or a sequence of 1-D columns, got shape {tuple(cols.shape)}")
-    if not _route(cols[0] if seq else cols, use_kernel):
-        return ref.block_compact_ref(torch.stack(cols) if seq else cols, mask, cap)
-    out = bc.launch(cols, mask, cap)
-    LAUNCHES["block_compact"] += 1
-    return out
+    with spans.span(spans.KERNELS_BLOCK_COMPACT):
+        seq = not isinstance(cols, torch.Tensor)
+        _refuse_grad("block_compact", use_kernel, *(cols if seq else (cols,)))
+        if seq:
+            cols = bc.columns(cols)
+        elif cols.dim() != 2:
+            raise ValueError(f"cols must be [C, N] or a sequence of 1-D columns, got shape {tuple(cols.shape)}")
+        if not _route(cols[0] if seq else cols, use_kernel):
+            return ref.block_compact_ref(torch.stack(cols) if seq else cols, mask, cap)
+        out = bc.launch(cols, mask, cap)
+        LAUNCHES["block_compact"] += 1
+        return out
 
 
 def filter_agg(cols: torch.Tensor, lo, hi, lo2, hi2, *, use_kernel: bool = True) -> torch.Tensor:

@@ -52,14 +52,12 @@ class QueryRequest:
 
 @dataclasses.dataclass
 class QueryCompletion:
-    """A finished query request with its result and latency breakdown."""
+    """A finished query request with its result and latency."""
 
     uid: int
     query: str
     result: dict[str, Any]
     latency_s: float  # arrival -> finish (includes queueing)
-    service_s: float  # kernel execution only
-    batch_size: int = 1  # how many requests shared the scan
 
 
 class RequestQueue:

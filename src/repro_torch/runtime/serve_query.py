@@ -26,6 +26,7 @@ import sys
 import time
 from typing import Any, Callable
 
+from repro_torch.core.spans import SERVE_PASS, SERVE_RETIRE, SERVE_SYNC, SERVE_TAKE, span
 from repro_torch.core.timing import block
 from repro_torch.engine import queries as queries_mod
 from repro_torch.runtime.loadgen import sample_params
@@ -117,13 +118,13 @@ class QueryServer:
         plan = self.plans[batch[0].query]
         self.kernel_calls += 1
         if len(batch) == 1:
-            result = queries_mod.fused_query_serial(plan, batch[0].params, use_kernel=self.use_kernel)
-            block(result)
-            return [result]
-        padded = [r.params for r in batch]
-        padded += [batch[0].params] * (_pow2_at_least(len(batch)) - len(batch))
-        results = queries_mod.fused_query_batch(plan, padded, use_kernel=self.use_kernel)
-        block(results)
+            results = [queries_mod.fused_query_serial(plan, batch[0].params, use_kernel=self.use_kernel)]
+        else:
+            padded = [r.params for r in batch]
+            padded += [batch[0].params] * (_pow2_at_least(len(batch)) - len(batch))
+            results = queries_mod.fused_query_batch(plan, padded, use_kernel=self.use_kernel)
+        with span(SERVE_SYNC):
+            block(results)
         return results[: len(batch)]
 
     def step(self, now_fn: Callable[[], float] = time.perf_counter) -> list[QueryCompletion]:
@@ -136,22 +137,19 @@ class QueryServer:
         head = self.queue.peek()
         if head is None:
             return []
-        batch = self.queue.take_matching(lambda r: r.query == head.query, self.max_batch)
-        t0 = now_fn()
-        results = self._execute(batch)
-        t1 = now_fn()
-        out = []
-        for req, result in zip(batch, results):
-            c = QueryCompletion(
-                uid=req.uid,
-                query=req.query,
-                result=result,
-                latency_s=t1 - min(req.arrival_s, t0),
-                service_s=t1 - t0,
-                batch_size=len(batch),
-            )
-            self.completed.append(c)
-            out.append(c)
+        with span(SERVE_PASS):
+            with span(SERVE_TAKE):
+                batch = self.queue.take_matching(lambda r: r.query == head.query, self.max_batch)
+            t0 = now_fn()
+            results = self._execute(batch)
+            t1 = now_fn()
+            with span(SERVE_RETIRE):
+                out = [
+                    QueryCompletion(uid=req.uid, query=req.query, result=result,
+                                    latency_s=t1 - min(req.arrival_s, t0))
+                    for req, result in zip(batch, results)
+                ]
+                self.completed.extend(out)
         return out
 
 

@@ -26,6 +26,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.core.metrics import Samples
+from repro_torch.core.spans import PUSHDOWN_CALL, span
 from repro_torch.core.task import Task, TaskContext
 from repro_torch.core.timing import measure
 from repro_torch.engine import datagen, ops
@@ -79,12 +80,13 @@ def make_plan(
         cap = capacity(selectivity, table.num_rows)
 
         def fn():
-            mask = ops.pred_between(scanned["l_shipdate"], lo, hi)
-            out, cnt = ops.compact(scanned, mask, cap, use_kernel=use_kernel)
-            # Slots below the true count are the qualifying rows (a value of
-            # 0 does not mark padding: a qualifying row may hold 0).
-            valid = torch.arange(cap, device=cnt.device) < cnt
-            return ops.masked_sum(out["l_extendedprice"], valid), cnt
+            with span(PUSHDOWN_CALL):
+                mask = ops.pred_between(scanned["l_shipdate"], lo, hi)
+                out, cnt = ops.compact(scanned, mask, cap, use_kernel=use_kernel)
+                # Slots below the true count are the qualifying rows (a value of
+                # 0 does not mark padding: a qualifying row may hold 0).
+                valid = torch.arange(cap, device=cnt.device) < cnt
+                return ops.masked_sum(out["l_extendedprice"], valid), cnt
         return fn
     if plan == "pushdown_kernel":
         colmat = kernel_scan_columns(table)
