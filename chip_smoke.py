@@ -311,6 +311,7 @@ def random_program(rng: random.Random, num_cols: int, num_preds: int, num_aggs: 
 
 def kernel_phase(plans, dev):
     """Every kernel against its plain version: SF 1 programs and edge shapes."""
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels.group_filter_agg import encode_predicates
     from repro_torch.runtime.loadgen import sample_params
 
@@ -328,6 +329,14 @@ def kernel_phase(plans, dev):
             torch.stack([c[0] for c in consts]), plan.agg_ops, torch.stack([c[1] for c in consts]),
             plan.num_groups, **spec[name],
         )
+        shared_before = dict(kops.SHARED_TILE)
+        kops.group_filter_agg_multi(plan.cols, plan.keys, plan.pred_ops, torch.stack([c[0] for c in consts]),
+                                    plan.agg_ops, torch.stack([c[1] for c in consts]), num_groups=plan.num_groups)
+        sharing = {k: kops.SHARED_TILE[k] - shared_before[k] for k in shared_before}
+        check(sharing["slots"] == 8, f"sf1 {name} batch: {sharing['slots']} program slots from a shared tile, not 8")
+        print(f"[k2] sf1 {name} batch: one launch answers {sharing['slots']} program slots from each staged tile, "
+              f"forms {sharing['columns_once']} value column(s) once and {sharing['columns_per_program']} per "
+              f"program", flush=True)
 
     # Edge shapes on uniform [0, 1) data: sums of positive terms stay well conditioned.
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -387,7 +396,8 @@ def k1_k2_edges(cols, keys, rng, gen, dev):
     keys20 = torch.randint(-3, 23, (n,), generator=gen, device=dev, dtype=torch.int32)
     po, pc, ao, ac = random_program(rng, 4, 2, gfa.MAX_AGGS)
     pcs, acs = torch.stack([pc + 0.01 * i for i in range(3)]), torch.stack([ac + 0.02 * i for i in range(3)])
-    compare_k2("B=3 G=20 A=127 (48 chunks of sums)", cols, keys20, po, pcs, ao, acs, 20)
+    passes = gfa.device_program(cols.device, 4, po, ao, 20, 3).passes
+    compare_k2(f"B=3 G=20 A=127 ({passes} passes over the rows)", cols, keys20, po, pcs, ao, acs, 20)
 
 
 # K3-K6 against their plain versions.
@@ -999,10 +1009,11 @@ def server_phase(plans):
             return out
 
         server.step = timed
-        before = dict(kops.LAUNCHES)
+        before, shared_before = dict(kops.LAUNCHES), dict(kops.SHARED_TILE)
         calls0 = server.kernel_calls
         report = run_open_loop(server, trace)
     launched = sum(kops.LAUNCHES[k] - before[k] for k in before)
+    sharing = {k: kops.SHARED_TILE[k] - shared_before[k] for k in shared_before}
     steps = server.kernel_calls - calls0
     longest = 1e3 * max(t1 - t0 for t0, t1 in spans)
     waits = [1e3 * (b[0] - a[1]) for a, b in zip(spans, spans[1:])]
@@ -1014,7 +1025,10 @@ def server_phase(plans):
     p50, p99 = lat[len(lat) // 2], lat[min(len(lat) - 1, int(0.99 * len(lat)))]
     print(f"[server] sf1 saturation {sat:.1f} qps; offered {report.offered_qps:.1f} qps; "
           f"served {report.qps:.1f} qps; p50 {1e6 * p50:.1f}us p99 {1e6 * p99:.1f}us; "
-          f"shed 0; {len(shared)}/{len(trace)} requests in shared scans; {steps} steps; {stalls}", flush=True)
+          f"shed 0; {len(shared)}/{len(trace)} requests in shared scans; {steps} steps; {stalls}; "
+          f"program slots from a shared tile {sharing['slots']} ({sharing['slots'] / max(steps, 1):.2f} a step), "
+          f"value columns formed once {sharing['columns_once']}, per program {sharing['columns_per_program']}",
+          flush=True)
     return trace, report, shared, launched / max(steps, 1)
 
 
@@ -3902,7 +3916,7 @@ def main() -> int:
           f"ptxas spills in K1-K8 or the resource kernels: {redesigned}")
     for src, ops in (("flash_attention", ("HGMMA", "UTMALDG")), ("gmm", ("HGMMA", "UTMALDG")),
                      ("decode_attention", ("HMMA", "LDSM")),
-                     ("ssd_intra", ("HMMA", "LDSM"))):
+                     ("ssd_intra", ("HMMA", "LDSM")), ("group_filter_agg", ("HMMA", "LDSM"))):
         sass = sass_counts(src, ops)
         print(f"[sass] {src}: {json.dumps(sass)}", flush=True)
         check(min(sass.values()) > 0, f"{src}'s library lacks its tensor-core or load instructions: {sass}")

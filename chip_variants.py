@@ -4,7 +4,7 @@
 Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_variants.py                # every section
-    python3 chip_variants.py --only k3 k4   # one or more of k1, server, k6, k5, k7, k8, k3, k4, k8f32, k7f32
+    python3 chip_variants.py --only k3 k4   # one or more of k1, k2, server, k6, k5, k7, k8, k3, k4, k8f32, k7f32
 
 Each variant is a copy of ``src/repro_torch/csrc/<source>.cu`` with a few
 constants edited; the copies are built with the port's own nvcc flags under
@@ -52,19 +52,23 @@ not in the source exactly once fails the build of the variants.
 K1/K2 (``group_filter_agg``) run at TPC-H Q1 at scale factor 1, alone
 (B = 1) and as a batch of 8 programs, beside ``k1 first design``: the
 kernel's first design, kept as ``csrc/variants/group_filter_agg_first.cu``
-with its own C interface, and ``k1 shared tile``, a copy
-(``csrc/variants/group_filter_agg_shared.cu``) in which K2's programs walk
-each staged tile in one block.  Each is held to the plain version summed in
-float64 (counts exact, sums within 1e-4, ``sum_qty`` within 1e-6), and K2
-to K1 per slot bit for bit; each is timed one call per event pair, back to
-back and as device time, with its program already on the card.  Both
-designs are also timed through their whole wrapper (the first design's
-packed its program on the host and copied it from pageable memory each
-call), which is what a caller pays, and the committed kernel is timed with
-its constants from the host by value in the launch's parameters and by a
-pinned asynchronous copy.  The variants marked "diagnostic" leave
-out the aggregates' terms, or every predicate, term and sum, to show where
-the time goes.
+with its own C interface, and ``k2 split programs``: the design before
+this one (each program in blocks of its own, per-thread sums in shared
+memory), kept as ``csrc/variants/group_filter_agg_split.cu`` with the C
+interface it had.  Each is held to the plain version summed in float64
+(counts exact, sums within 1e-4, ``sum_qty`` within 1e-6), and K2 to K1
+per slot bit for bit; each is timed one call per event pair, back to back
+and as device time, with its program already on the card.  The designs
+are also timed through their whole wrapper (the first design's packed its
+program on the host and copied it from pageable memory each call), which
+is what a caller pays, and the committed kernel is timed with its
+constants from the host by value in the launch's parameters and by a
+pinned asynchronous copy.  The variants marked "diagnostic" leave out the
+value columns, the products on the tensor cores, or every predicate,
+value and product, to show where the time goes.  Section ``k2`` times the
+split design beside the committed one, as device time a call, on the Q1,
+Q6 and Q12 serving programs at scale factor 1 and 5 and B = 1, 2, 4 and 8,
+each pair of results held together (counts equal, sums within 1e-4).
 
 K8 (``ssd_intra``, bf16, Mamba2-2.7B's 2,048-token prefill) runs the
 tensor-core kernel with 1, 2, 4 (committed) and 8 heads a block, with
@@ -231,25 +235,24 @@ K5_TC_SHAPES = [(16, 8, 4096, 28672), (16, 320, 4096, 28672), (8, 640, 6144, 655
 K7_SHAPE = (8, 4096, 32, 8, 128, 2064)  # B, S, Hq, Hkv, dh, kv_len; bf16
 K7_SPLITS = (256, 512)  # keys a split: the committed split_size at S = 4096, and twice it
 FIRST = "variants/group_filter_agg_first"
-SHARED = "variants/group_filter_agg_shared"  # K2's programs over one staged tile
+SPLIT = "variants/group_filter_agg_split"  # each program in blocks of its own
+_K1_SUMS = "if (one) {  // one group: the programs are an m16 tile's rows"  # where a tile's products start
 VARIANTS.update({
     "k1 first design": (FIRST, []),
     "k1 committed": ("group_filter_agg", []),
     "k1 3 stages": ("group_filter_agg", [("constexpr int kStages = 2;", "constexpr int kStages = 3;")]),
-    "k1 4 rows a thread": ("group_filter_agg", [("constexpr int kRowsPerThread = 8;", "constexpr int kRowsPerThread = 4;")]),
-    "k1 256 threads x 4 rows, 3 stages": ("group_filter_agg", [
-        ("constexpr int kThreads = 128;", "constexpr int kThreads = 256;"),
-        ("constexpr int kRowsPerThread = 8;", "constexpr int kRowsPerThread = 4;"),
-        ("constexpr int kStages = 2;", "constexpr int kStages = 3;")]),
-    "k1 shared tile": (SHARED, []),
+    "k1 4 rows a lane": ("group_filter_agg", [("constexpr int kRowsPerLane = 8;", "constexpr int kRowsPerLane = 4;")]),
+    "k2 split programs": (SPLIT, []),
+    "k1 no value columns (diagnostic)": ("group_filter_agg", [
+        ("for (int gi = 0; gi < s_groups[0]; ++gi) {", "for (int gi = 0; gi < 0; ++gi) {")]),
+    "k1 no products (diagnostic)": ("group_filter_agg", [(_K1_SUMS, "if (n >= 0) {} else " + _K1_SUMS)]),
     "k1 loads only (diagnostic)": ("group_filter_agg", [
         ("for (int q = 0; q < k; ++q) {", "for (int q = 0; q < 0; ++q) {"),
-        ("for (int g0 = 0; g0 < g; g0 += kGroupChunk) {", "for (int g0 = 0; g0 < 0; g0 += kGroupChunk) {")]),
-    "k1 no terms (diagnostic)": ("group_filter_agg", [("for (int t = 0; t < 3; ++t) apply_term", "for (int t = 0; t < 0; ++t) apply_term")]),
+        ("for (int gi = 0; gi < s_groups[0]; ++gi) {", "for (int gi = 0; gi < 0; ++gi) {"),
+        (_K1_SUMS, "if (n >= 0) {} else " + _K1_SUMS)]),
 })
-# Other grids (MAX_BLOCKS = 384 by default, three an SM); two blocks of
-# the 256-thread variant fit an SM.
-K1_GRIDS = {"k1 committed": (256, 768), "k1 256 threads x 4 rows, 3 stages": (256,)}
+# Another grid (MAX_BLOCKS = 264 by default, two an SM).
+K1_GRIDS = {"k1 committed": (132, 396)}
 K2_B = 8
 FIRST_K8 = "variants/ssd_intra_first"
 K8_SHAPE = (1, 2048, 80, 64, 128, 64)  # B, S, H, P, N, Q: Mamba2-2.7B's 2,048-token prefill, bf16 x/B/C
@@ -444,6 +447,15 @@ K8_FIRST_SIGNATURES = {
     "ssd_intra_error_string": ([_I32], ctypes.c_char_p),
     "ssd_intra_launch": ([_PTR] * 7 + [_I32] * 7 + [_PTR], _I32),
 }
+# The C interface of the split design (and of the committed kernel before
+# its programs shared a tile).
+SPLIT_SIGNATURES = {
+    "group_filter_agg_tile_rows": ([], _I32),
+    "group_filter_agg_param_consts": ([], _I32),
+    "group_filter_agg_error_string": ([_I32], ctypes.c_char_p),
+    "group_filter_agg_launch": (
+        [_PTR, _I64, _PTR, _I64, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _I32, _PTR, _I64, _PTR, _PTR], _I32),
+}
 FIRST_SIGNATURES = {
     "group_filter_agg_blocks": ([_I64, _I64], _I64),
     "group_filter_agg_error_string": ([_I32], ctypes.c_char_p),
@@ -464,7 +476,7 @@ def build_variants(out_dir: Path) -> dict[str, ctypes.CDLL]:
         shutil.copy(header, out_dir / header.name)
     procs = {}
     for i, (name, (src, edits)) in enumerate(VARIANTS.items()):
-        if name.split()[0] not in SECTIONS:
+        if name.split()[0] not in SECTIONS and not (name == "k1 committed" and "k2" in SECTIONS):
             continue
         text = (build.CSRC / f"{src}.cu").read_text()
         for old, new in edits:
@@ -482,15 +494,16 @@ def build_variants(out_dir: Path) -> dict[str, ctypes.CDLL]:
             raise RuntimeError(f"{name}: nvcc failed\n{log}")
         spilled = [line.strip() for line in log.splitlines() if "spill stores" in line and " 0 bytes spill" not in line]
         print(f"[build] {name}: {len(spilled)} function(s) spill: {spilled}", flush=True)
-        if name.startswith(("k1", "k3", "k4", "k5", "k8", "k6 f32", "k7f32")):
+        if name.startswith(("k1", "k2", "k3", "k4", "k5", "k8", "k6 f32", "k7f32")):
             print(f"[build] {name}: {json.dumps(ptxas_report(log))}", flush=True)
         lib = ctypes.CDLL(str(out_dir / f"libv{i}.so"))
-        signatures = {FIRST: FIRST_SIGNATURES, FIRST_K8: K8_FIRST_SIGNATURES, FIRST_K4: K4_FIRST_SIGNATURES,
+        signatures = {FIRST: FIRST_SIGNATURES, SPLIT: SPLIT_SIGNATURES, FIRST_K8: K8_FIRST_SIGNATURES,
+                      FIRST_K4: K4_FIRST_SIGNATURES,
                       FIRST_K7F32: da._SIGNATURES,
                       FIRST_K3: K3_FIRST_SIGNATURES, FIRST_K6: K6_FIRST_SIGNATURES,
                       PROBE_K6: PROBE_SIGNATURES}.get(src) or {
             "flash_attention": fa, "gmm": moe_gmm, "decode_attention": da, "group_filter_agg": gfa,
-            SHARED: gfa, "ssd_intra": ssd_scan, "filter_agg": filter_scan, "block_compact": bc}[src]._SIGNATURES
+            "ssd_intra": ssd_scan, "filter_agg": filter_scan, "block_compact": bc}[src]._SIGNATURES
         for fn, (argtypes, restype) in signatures.items():
             getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, restype
         libs[name] = lib
@@ -534,6 +547,24 @@ def first_call(lib, cols, keys, prog, k, a, b, g):
     return out
 
 
+def split_call(lib, cols, keys, prog, consts, k, a, b, g):
+    """One launch of the split design (the committed wrapper's call before
+    the programs shared a tile): grid blocks x B, the constants on the card."""
+    from repro_torch.kernels import group_filter_agg as gfa
+
+    n = cols.shape[1]
+    blocks = min(384, max(1, min(-(-n // int(lib.group_filter_agg_tile_rows())),
+                                 gfa.PARTIAL_BUDGET_BYTES // (g * (a + 1) * 4))))
+    partials = torch.empty(blocks * b * g * (a + 1), dtype=torch.float32, device=cols.device)
+    out = torch.empty((b, g, a + 1), dtype=torch.float32, device=cols.device)
+    err = lib.group_filter_agg_launch(cols.data_ptr(), cols.stride(0), keys.data_ptr(), n, prog.words.data_ptr(),
+                                      consts.data_ptr(), None, prog.used, k, a, g, b, partials.data_ptr(), blocks,
+                                      out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"split design: launch failed ({err})")
+    return out
+
+
 def with_max_blocks(blocks, fn):
     """``fn`` run with the wrapper's grid cap set to ``blocks`` (None: as committed)."""
     from repro_torch.kernels import group_filter_agg as gfa
@@ -567,13 +598,13 @@ def k1_k2_variants(libs, dev):
     k, a = po.shape[0], ao.shape[0]
     want64 = torch.stack([plain64(cols, keys, (po, pcs[i], ao, acs[i]), g) for i in range(K2_B)])
     want32 = kops.group_filter_agg_multi(cols, keys, po, pcs, ao, acs, num_groups=g, use_kernel=False)
-    ops, used = gfa.device_program(cols.device, cols.shape[0], po, ao, g)
+    progs_on_card = {bb: gfa.device_program(cols.device, cols.shape[0], po, ao, g, bb) for bb in (1, K2_B)}
     dconsts = {bb: torch.cat([pcs[:bb].reshape(-1), acs[:bb].reshape(-1)]).to(dev) for bb in (1, K2_B)}
     progs = {bb: first_prog(po, pcs[:bb], ao, acs[:bb], dev) for bb in (1, K2_B)}
     singles = {i: first_prog(po, pcs[i:i + 1], ao, acs[i:i + 1], dev) for i in range(K2_B)}
     calls = {bb: {} for bb in (1, K2_B)}
     for name, lib in libs.items():
-        if not name.startswith("k1"):
+        if not name.startswith(("k1", "k2")):
             continue
         grids = [None, *K1_GRIDS.get(name, ())]
         for blocks in grids:
@@ -582,11 +613,17 @@ def k1_k2_variants(libs, dev):
                 if name == "k1 first design":
                     run = lambda lib=lib, bb=bb: first_call(lib, cols, keys, progs[bb], k, a, bb, g)  # noqa: E731
                     one = lambda i, lib=lib: first_call(lib, cols, keys, singles[i], k, a, 1, g)  # noqa: E731
+                elif name == "k2 split programs":
+                    run = lambda lib=lib, bb=bb: split_call(  # noqa: E731
+                        lib, cols, keys, progs_on_card[bb], dconsts[bb], k, a, bb, g)
+                    one = lambda i, lib=lib: split_call(  # noqa: E731
+                        lib, cols, keys, progs_on_card[1], torch.cat([pcs[i].reshape(-1), acs[i].reshape(-1)]).to(dev),
+                        k, a, 1, g)
                 else:
                     run = with_max_blocks(blocks, lambda lib=lib, bb=bb: gfa.call(
-                        lib, cols, keys, ops, used, dconsts[bb], k, a, bb, g))
+                        lib, cols, keys, progs_on_card[bb], dconsts[bb], k, a, bb, g))
                     one = lambda i, lib=lib, blocks=blocks: with_max_blocks(blocks, lambda: gfa.call(  # noqa: E731
-                        lib, cols, keys, ops, used, torch.cat([pcs[i].reshape(-1), acs[i].reshape(-1)]).to(dev),
+                        lib, cols, keys, progs_on_card[1], torch.cat([pcs[i].reshape(-1), acs[i].reshape(-1)]).to(dev),
                         k, a, 1, g))()
                 got = run()
                 calls[bb][label] = run
@@ -605,10 +642,10 @@ def k1_k2_variants(libs, dev):
     for bb in (1, K2_B):
         p_, a_ = pcs[:bb], acs[:bb]
         calls[bb]["constants by value"] = lambda lib=lib, p_=p_, a_=a_, bb=bb: gfa.call(
-            lib, cols, keys, ops, used, None, k, a, bb, g,
+            lib, cols, keys, progs_on_card[bb], None, k, a, bb, g,
             host_consts=np.concatenate([p_.numpy().ravel(), a_.numpy().ravel()], dtype=np.float32))
         calls[bb]["constants by pinned copy"] = lambda lib=lib, p_=p_, a_=a_, bb=bb: gfa.call(
-            lib, cols, keys, ops, used, gfa._to_card(torch.cat([p_.reshape(-1), a_.reshape(-1)]), cols.device),
+            lib, cols, keys, progs_on_card[bb], gfa._to_card(torch.cat([p_.reshape(-1), a_.reshape(-1)]), cols.device),
             k, a, bb, g)
         for route in ("constants by value", "constants by pinned copy"):
             if not torch.equal(calls[bb][route](), calls[bb]["k1 committed"]()):
@@ -631,6 +668,40 @@ def k1_k2_variants(libs, dev):
         print(f"[variants] k1/k2 q1 sf1 B={bb}, [single-call ms, burst ms] x2: {json.dumps(res)}", flush=True)
         print(f"[variants] k1/k2 q1 sf1 B={bb} device ms a call (torch.profiler): "
               f"{json.dumps({name: kernel_device_ms(fn, GFA_KERNELS) for name, fn in fns.items()})}", flush=True)
+
+
+def k2_designs(libs, dev):
+    """The split design beside the committed one: device ms a call on the
+    Q1, Q6 and Q12 serving programs at scale factor 1 and 5, B = 1, 2, 4, 8."""
+    from chip_smoke import GFA_KERNELS, kernel_device_ms
+    from repro_torch.engine import datagen, queries
+    from repro_torch.kernels import group_filter_agg as gfa
+    from repro_torch.runtime.loadgen import sample_params
+
+    split, committed = libs["k2 split programs"], libs["k1 committed"]
+    for scale in (1.0, 5.0):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        plans = queries.make_serving_plans(datagen.lineitem(gen, scale=scale, device=dev),
+                                           datagen.orders(gen, scale=scale, device=dev))
+        table = {}
+        for name, plan in plans.items():
+            cols, keys, po, ao, g = plan.cols, plan.keys, plan.pred_ops, plan.agg_ops, plan.num_groups
+            k, a = po.shape[0], ao.shape[0]
+            rng = random.Random(5)
+            consts = [plan.program(sample_params(name, rng)) for _ in range(8)]
+            for bb in (1, 2, 4, 8):
+                dc = torch.cat([torch.stack([c[0] for c in consts[:bb]]).reshape(-1),
+                                torch.stack([c[1] for c in consts[:bb]]).reshape(-1)]).to(dev)
+                prog = gfa.device_program(cols.device, cols.shape[0], po, ao, g, bb)
+                runs = {"split": lambda: split_call(split, cols, keys, prog, dc, k, a, bb, g),  # noqa: E731
+                        "committed": lambda: gfa.call(committed, cols, keys, prog, dc, k, a, bb, g)}  # noqa: E731
+                want, got = runs["split"](), runs["committed"]()
+                if not (torch.equal(want[..., -1], got[..., -1]) and torch.allclose(got, want, rtol=1e-4, atol=0)):
+                    raise RuntimeError(f"k2 designs: {name} sf {scale:g} B={bb}: the two designs disagree")
+                table[f"{name} B={bb}"] = {arm: round(kernel_device_ms(fn, GFA_KERNELS), 4) for arm, fn in runs.items()}
+        print(f"[variants] k2 split vs committed, sf {scale:g}, device ms a call: {json.dumps(table)}", flush=True)
+        del plans
+        torch.cuda.empty_cache()
 
 
 def k8_variants(libs, dev):
@@ -1304,7 +1375,7 @@ def k7f32_variants(libs, dev, gen):
         timed_arms(f"k7f32 B={b} S={s} Hq={hq} Hkv={hkv} dh={dh} kv_len={kvl} f32", calls)
 
 
-SECTIONS = ("k1", "server", "k6", "k5", "k7", "k8", "k3", "k4", "k8f32", "k7f32")
+SECTIONS = ("k1", "k2", "server", "k6", "k5", "k7", "k8", "k3", "k4", "k8f32", "k7f32")
 
 
 def main() -> int:
@@ -1324,6 +1395,8 @@ def main() -> int:
     dev = "cuda"
     if "k1" in SECTIONS:
         k1_k2_variants(libs, dev)
+    if "k2" in SECTIONS:
+        k2_designs(libs, dev)
     if "server" in SECTIONS:
         server_variants(dev)
     if "k8" in SECTIONS:

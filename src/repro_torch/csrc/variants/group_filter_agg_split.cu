@@ -1,9 +1,8 @@
-// A variant of csrc/group_filter_agg.cu for chip_variants.py ("k1 shared
-// tile"): K2's B programs walk each staged tile in one block instead of
-// running in blocks of their own.  Their sums do not fit one chunk, so a
-// block reduces after every tile, and K1 does the same to stay bit-equal.
-// It was slower than the committed kernel at Q1, B = 1 and 8 (PERF.md), so
-// nothing else builds or loads it.
+// The PR 17 design of csrc/group_filter_agg.cu, kept unchanged for
+// chip_variants.py, which times it beside the current one ("k2 split
+// programs"): each of K2's B programs runs in blocks of its own and adds
+// its rows into per-thread sums in shared memory.  Nothing else builds or
+// loads it.
 //
 // Single-pass grouped filter+aggregate for Hopper (sm_90a): the DBMS hot loop.
 //
@@ -72,10 +71,8 @@
 //     same bits.
 //   * K2.  The grid is blocks x B with the program index fastest, so the
 //     B blocks of one tile range run side by side and read the tile from
-//     L2 after the first.  kShareTile = true instead walks the B programs
-//     over each staged tile in one block; that needs a reduction every
-//     tile (the sums of B programs do not fit), so K1 does the same there
-//     (chip_variants.py times both: sharing the tile was slower).
+//     L2 after the first.  Walking the B programs over each staged tile in
+//     one block was slower (csrc/variants/group_filter_agg_shared.cu).
 //   * Products and sums use __fmul_rn / __fadd_rn (and the build passes
 //     --fmad=false), so no FMA contraction can differ between launches.
 #include <cuda_runtime.h>
@@ -93,7 +90,6 @@ constexpr int kRowsPerThread = 8;
 constexpr int kTileRows = kThreads * kRowsPerThread;
 constexpr int kStride = kTileRows + 4;  // values an array takes in a stage
 constexpr int kStages = 2;               // stages of the ring
-constexpr bool kShareTile = true;        // K2: programs share one block's tile
 constexpr int kMaxArrays = 32;           // columns read, plus the keys
 constexpr int kGroupChunk = 8;
 constexpr int kAggChunk = 8;
@@ -139,15 +135,6 @@ __device__ __forceinline__ float warp_sum(float s) {
   return s;
 }
 
-// A 1-D bulk copy (TMA) of `bytes` (a multiple of 16, both addresses
-// 16-byte aligned) into shared memory, counted in bytes on `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-                   hopper::smem_addr(dst)),
-               "l"(src), "r"(bytes), "r"(hopper::smem_addr(bar))
-               : "memory");
-}
-
 // A barrier of the kThreads row threads only (the producer warp runs on).
 __device__ __forceinline__ void rows_sync() { asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory"); }
 
@@ -176,12 +163,10 @@ __device__ __forceinline__ void flush(const float* s_acc, int gc, int ac, int g0
 }
 
 // Dynamic shared memory: the ring, the per-thread sums, then the program.
-int64_t smem_bytes(int u, int k, int a, int g, int b) {
-  const int64_t np = kShareTile ? b : 1;
+int64_t smem_bytes(int u, int k, int a, int g) {
   const int64_t gc = g < kGroupChunk ? g : kGroupChunk;
   const int64_t ac = a + 1 < kAggChunk ? a + 1 : kAggChunk;
-  return 4 * (static_cast<int64_t>(kStages) * (u + 1) * kStride + gc * ac * kThreads + 3 * k + 3 * a +
-              np * (2 * k + 3 * a));
+  return 4 * (static_cast<int64_t>(kStages) * (u + 1) * kStride + gc * ac * kThreads + 5 * k + 6 * a);
 }
 
 // ops (int32 words): used [U] (column indices), pred_ops [K, 3] and
@@ -200,10 +185,9 @@ group_filter_agg_kernel(const float* __restrict__ cols, int64_t ld, const int* _
   __shared__ __align__(8) uint64_t s_empty[kStages];  // every row warp is done with stage s
   const int tid = threadIdx.x;
   const int arrays = u + 1;  // the used columns, then the keys
-  const int np = kShareTile ? b : 1;
-  const int p0 = kShareTile ? 0 : blockIdx.x % b;
-  const int64_t blk = kShareTile ? blockIdx.x : blockIdx.x / b;
-  const int64_t nblk = kShareTile ? gridDim.x : gridDim.x / b;
+  const int p0 = blockIdx.x % b;  // the program; the tile stride follows
+  const int64_t blk = blockIdx.x / b;
+  const int64_t nblk = gridDim.x / b;
   const int gc = g < kGroupChunk ? g : kGroupChunk;  // the chunk of sums: gc groups x ac aggregates
   const int ac = a + 1 < kAggChunk ? a + 1 : kAggChunk;
 
@@ -211,8 +195,8 @@ group_filter_agg_kernel(const float* __restrict__ cols, int64_t ld, const int* _
   float* s_acc = s_tiles + kStages * arrays * kStride;  // [gc * ac, kThreads]
   int* s_pk = reinterpret_cast<int*>(s_acc + gc * ac * kThreads);          // [K, 3]
   int* s_ak = s_pk + 3 * k;                                                 // [A, 3]
-  float* s_pc = reinterpret_cast<float*>(s_ak + 3 * a);                     // [np, K, 2]
-  float* s_ac = s_pc + 2 * np * k;                                          // [np, A, 3]
+  float* s_pc = reinterpret_cast<float*>(s_ak + 3 * a);                     // [K, 2] of program p0
+  float* s_ac = s_pc + 2 * k;                                               // [A, 3] of program p0
 
   if (tid < arrays) {
     const float* base = tid < u ? cols + ops[tid] * ld : reinterpret_cast<const float*>(keys);
@@ -252,7 +236,7 @@ group_filter_agg_kernel(const float* __restrict__ cols, int64_t ld, const int* _
       hopper::mbar_arrive_expect_tx(&s_full[i % kStages], total);
       for (int arr = 0; arr < arrays; ++arr) {
         const int2 w = window(arr);
-        bulk_load(st + arr * kStride, s_base[arr] + row0 - w.x, w.y, &s_full[i % kStages]);
+        hopper::bulk_load(st + arr * kStride, s_base[arr] + row0 - w.x, w.y, &s_full[i % kStages]);
       }
     }
     return;
@@ -265,15 +249,15 @@ group_filter_agg_kernel(const float* __restrict__ cols, int64_t ld, const int* _
     s_ak[i] = s_off[term[1]] << 3 | term[0];
   }
   const float* cs = consts != nullptr ? consts : by_value.v;
-  for (int i = tid; i < 2 * np * k; i += kThreads) s_pc[i] = cs[2 * p0 * k + i];
-  for (int i = tid; i < 3 * np * a; i += kThreads) s_ac[i] = cs[2 * b * k + 3 * p0 * a + i];
+  for (int i = tid; i < 2 * k; i += kThreads) s_pc[i] = cs[2 * p0 * k + i];
+  for (int i = tid; i < 3 * a; i += kThreads) s_ac[i] = cs[2 * b * k + 3 * p0 * a + i];
   const int slots = g * (a + 1);
   float* my_partial = partials + (blk * b + p0) * slots;
-  for (int i = tid; i < np * slots; i += kThreads) my_partial[i] = 0.0f;
+  for (int i = tid; i < slots; i += kThreads) my_partial[i] = 0.0f;
   const int key_off = s_off[u];
   // A thread adds only into its own column of s_acc, so zeroing it needs no barrier.
   float* my_acc = s_acc + tid;
-  const bool carry = !kShareTile && g <= kGroupChunk && a + 1 <= kAggChunk;  // one chunk, kept over all tiles
+  const bool carry = g <= kGroupChunk && a + 1 <= kAggChunk;  // one chunk, kept over all tiles
   for (int i = 0; i < gc * ac; ++i) my_acc[i * kThreads] = 0.0f;
   rows_sync();
 
@@ -289,54 +273,47 @@ group_filter_agg_kernel(const float* __restrict__ cols, int64_t ld, const int* _
       const int kv = __float_as_int(st[key_off + local]);
       key[r] = row0 + local < n && kv >= 0 && kv < g ? kv : -1;
     }
-    for (int pi = 0; pi < np; ++pi) {
-      const float* pc = s_pc + 2 * pi * k;
-      const float* pa = s_ac + 3 * pi * a;
-      int kp[kRowsPerThread];
+    for (int q = 0; q < k; ++q) {
+      const int kind = s_pk[3 * q];
+      const float* xa = st + s_pk[3 * q + 1] + tid;
+      const float* xb = st + s_pk[3 * q + 2] + tid;
+      const float lo = s_pc[2 * q], hi = s_pc[2 * q + 1];
 #pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) kp[r] = key[r];
-      for (int q = 0; q < k; ++q) {
-        const int kind = s_pk[3 * q];
-        const float* xa = st + s_pk[3 * q + 1] + tid;
-        const float* xb = st + s_pk[3 * q + 2] + tid;
-        const float lo = pc[2 * q], hi = pc[2 * q + 1];
-#pragma unroll
-        for (int r = 0; r < kRowsPerThread; ++r) {
-          const float x = xa[r * kThreads];
-          const bool ok = kind == 0 ? (x >= lo && x < hi) : x < xb[r * kThreads];
-          if (!ok) kp[r] = -1;
-        }
+      for (int r = 0; r < kRowsPerThread; ++r) {
+        const float x = xa[r * kThreads];
+        const bool ok = kind == 0 ? (x >= lo && x < hi) : x < xb[r * kThreads];
+        if (!ok) key[r] = -1;
       }
-      for (int g0 = 0; g0 < g; g0 += kGroupChunk) {
-        // Each row's sums in this chunk: its group's run of ac slots.
-        float* row_acc[kRowsPerThread];
-        bool in[kRowsPerThread];
+    }
+    for (int g0 = 0; g0 < g; g0 += kGroupChunk) {
+      // Each row's sums in this chunk: its group's run of ac slots.
+      float* row_acc[kRowsPerThread];
+      bool in[kRowsPerThread];
 #pragma unroll
-        for (int r = 0; r < kRowsPerThread; ++r) {
-          in[r] = kp[r] >= g0 && kp[r] < g0 + kGroupChunk;
-          row_acc[r] = my_acc + (in[r] ? (kp[r] - g0) * ac * kThreads : 0);
-        }
-        for (int a0 = 0; a0 <= a; a0 += kAggChunk) {
-          if (!carry)
-            for (int s = 0; s < gc * ac; ++s) my_acc[s * kThreads] = 0.0f;
+      for (int r = 0; r < kRowsPerThread; ++r) {
+        in[r] = key[r] >= g0 && key[r] < g0 + kGroupChunk;
+        row_acc[r] = my_acc + (in[r] ? (key[r] - g0) * ac * kThreads : 0);
+      }
+      for (int a0 = 0; a0 <= a; a0 += kAggChunk) {
+        if (!carry)
+          for (int s = 0; s < gc * ac; ++s) my_acc[s * kThreads] = 0.0f;
 #pragma unroll
-          for (int j = 0; j < kAggChunk; ++j) {
-            const int agg = a0 + j;
-            if (agg <= a) {
-              float v[kRowsPerThread];
+        for (int j = 0; j < kAggChunk; ++j) {
+          const int agg = a0 + j;
+          if (agg <= a) {
+            float v[kRowsPerThread];
 #pragma unroll
-              for (int r = 0; r < kRowsPerThread; ++r) v[r] = 1.0f;  // agg == a is the count column
-              if (agg < a) {
+            for (int r = 0; r < kRowsPerThread; ++r) v[r] = 1.0f;  // agg == a is the count column
+            if (agg < a) {
 #pragma unroll
-                for (int t = 0; t < 3; ++t) apply_term(s_ak[3 * agg + t], v, st, pa + 3 * agg + t);
-              }
-#pragma unroll
-              for (int r = 0; r < kRowsPerThread; ++r)
-                if (in[r]) row_acc[r][j * kThreads] = __fadd_rn(row_acc[r][j * kThreads], v[r]);
+              for (int t = 0; t < 3; ++t) apply_term(s_ak[3 * agg + t], v, st, s_ac + 3 * agg + t);
             }
+#pragma unroll
+            for (int r = 0; r < kRowsPerThread; ++r)
+              if (in[r]) row_acc[r][j * kThreads] = __fadd_rn(row_acc[r][j * kThreads], v[r]);
           }
-          if (!carry) flush(s_acc, gc, ac, g0, a0, g, a, my_partial + pi * slots);
         }
+        if (!carry) flush(s_acc, gc, ac, g0, a0, g, a, my_partial);
       }
     }
     __syncwarp();
@@ -391,7 +368,7 @@ int group_filter_agg_launch(const float* cols, int64_t ld, const int* keys, int6
     memcpy(by_value.v, host_consts, sizeof(float) * count);
     consts = nullptr;
   }
-  const int64_t smem = smem_bytes(u, k, a, g, b);
+  const int64_t smem = smem_bytes(u, k, a, g);
   if (u < 1 || u + 1 > kMaxArrays || smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   // The shared-memory ceiling is raised once for each device.
   static bool raised[64] = {};
@@ -403,8 +380,7 @@ int group_filter_agg_launch(const float* cols, int64_t ld, const int* keys, int6
     if (err != cudaSuccess) return static_cast<int>(err);
     if (dev < 64) raised[dev] = true;
   }
-  const int64_t grid = kShareTile ? blocks : blocks * b;
-  group_filter_agg_kernel<<<static_cast<unsigned>(grid), kBlockThreads, static_cast<size_t>(smem), s>>>(
+  group_filter_agg_kernel<<<static_cast<unsigned>(blocks * b), kBlockThreads, static_cast<size_t>(smem), s>>>(
       cols, ld, keys, n, ops, consts, by_value, u, k, a, g, b, partials);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -17,10 +17,18 @@ single-program result on program b.
 
 The opcodes and encoders match the JAX package's
 ``kernels/group_filter_agg.py`` exactly, so both build the same tables.
+
+The kernel answers all B programs from each staged tile of rows and sums
+them on the tensor cores.  The host lays a program out once per structure
+and B (:func:`device_program`): which value columns are formed once for
+every program and which once per program (:func:`value_columns`, from
+``agg_ops`` alone), and the passes over the rows that cover them
+(:func:`pass_plan`, :func:`plan_words`).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -117,10 +125,24 @@ def encode_aggregates(aggs) -> tuple[torch.Tensor, torch.Tensor]:
 #: Columns one program may read: the kernel stages each of them and the keys
 #: in shared memory (two stages of 1,028 values an array) beside its sums.
 MAX_COLS_READ = 16
-#: The scan's blocks (tile strides): at most this many, and the partial sums
-#: of one program at most this many bytes.
-MAX_BLOCKS = 384
+#: The scan's blocks (tile strides): at most this many (two an SM of an
+#: H100's 132, as many as its shared memory holds for a serving program),
+#: and the partial sums of one program at most this many bytes.
+MAX_BLOCKS = 264
 PARTIAL_BUDGET_BYTES = 16 << 20
+#: One pass of the kernel answers at most this many programs (the bits of a
+#: row's membership byte) and groups (its bytes); it forms at most
+#: PASS_PIECES bf16 piece columns, and a program slot's sums cover at most
+#: PASS_COLUMNS of them (the shared ones and its program's own: the n8 tiles
+#: of sums kept in registers).  A wider program takes more passes, each a
+#: scan of the block's rows again.
+PASS_PROGRAMS = 8
+PASS_GROUPS = 8
+PASS_PIECES = 24
+PASS_COLUMNS = 16
+#: bf16 pieces a value takes on the tensor cores: a float's 24 significant
+#: bits in three of 8; a column of 0s and 1s in one.
+PIECES = 3
 
 _I64, _I32, _PTR = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
 _SIGNATURES = {
@@ -128,7 +150,8 @@ _SIGNATURES = {
     "group_filter_agg_param_consts": ([], _I32),
     "group_filter_agg_error_string": ([_I32], ctypes.c_char_p),
     "group_filter_agg_launch": (
-        [_PTR, _I64, _PTR, _I64, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _I32, _PTR, _I64, _PTR, _PTR], _I32
+        [_PTR, _I64, _PTR, _I64, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _PTR, _I64,
+         _PTR, _PTR], _I32
     ),
 }
 
@@ -157,6 +180,124 @@ def program_words(pred_ops: torch.Tensor, agg_ops: torch.Tensor) -> torch.Tensor
     ]
     words = used + [f for p in preds for f in p] + [f for row in aggs for f in row]
     return torch.tensor(words, dtype=torch.int32)
+
+
+def value_columns(agg_ops: torch.Tensor) -> tuple[tuple[int, bool], ...]:
+    """How the kernel forms each aggregate's per-row values, then the
+    count's, from ``agg_ops`` alone: (bf16 pieces, once per program).
+
+    A term that reads a constant (``c <= k``, ``c > k``) makes the column
+    one per program, since programs differ only in their constants; any
+    other column is formed once for all of them.  A column whose terms are
+    all such indicators (or unused) holds only 0 and 1, exact in one bf16
+    piece; any other takes :data:`PIECES`.  The count is 1 on every row."""
+    out = []
+    for row in agg_ops.tolist():
+        modes = {row[2 * t] for t in range(MAX_TERMS)}
+        per_program = bool(modes & {TERM_LE, TERM_GT})
+        out.append((1 if modes <= {TERM_NONE, TERM_LE, TERM_GT} else PIECES, per_program))
+    out.append((1, False))
+    return tuple(out)
+
+
+def pass_plan(columns, num_groups: int, num_programs: int) -> list[tuple[int, int, list[tuple[int, int, int]]]]:
+    """The kernel's passes: (group octet, program octet, instances), each
+    instance (column j, program within the octet or -1 for all, pieces).
+    A pass covers one octet of groups and one of programs, forms at most
+    :data:`PASS_PIECES` piece columns, and gives each m16 tile of the
+    kernel's sums (programs 2t and 2t + 1) at most :data:`PASS_COLUMNS`: the
+    shared ones and those of its two programs.  No column is split across
+    passes."""
+    passes = []
+    for q in range(-(-num_groups // PASS_GROUPS)):
+        for o in range(-(-num_programs // PASS_PROGRAMS)):
+            nb = min(PASS_PROGRAMS, num_programs - o * PASS_PROGRAMS)
+            insts = [(j, bl, pieces) for j, (pieces, per_program) in enumerate(columns)
+                     for bl in (range(nb) if per_program else (-1,))]
+            chunk, own = [], [0] * (PASS_PROGRAMS + 1)  # own[-1]: the shared pieces
+            for j, bl, pieces in insts:
+                grown = own.copy()
+                grown[bl] += pieces
+                width = grown[-1] + max(grown[2 * t] + grown[2 * t + 1] for t in range(PASS_PROGRAMS // 2))
+                if chunk and (width > PASS_COLUMNS or sum(grown) > PASS_PIECES):
+                    passes.append((q, o, chunk))
+                    chunk, grown = [], [0] * (PASS_PROGRAMS + 1)
+                    grown[bl] += pieces
+                chunk.append((j, bl, pieces))
+                own = grown
+            passes.append((q, o, chunk))
+    return passes
+
+
+def plan_words(passes, num_aggs: int, num_groups: int) -> tuple[list[int], int]:
+    """The int32 words of a :func:`pass_plan` the kernel reads, and the n8
+    tiles of piece columns the widest pass forms.
+
+    For each pass 8 words: group octet, program octet, where its instance
+    words start and how many, (n8 tiles of a slot's columns | 16 if some
+    column is one program's | 32 where one group and shared columns alone
+    let an m16 tile's rows be the programs), where its list of aggregates
+    starts and how many, where its column rows start.  An instance word
+    holds its column j (``num_aggs``: the count), program + 1 (0: every
+    program), pieces, first piece column, the first of its columns among a
+    slot's, and, at an aggregate's first column, how many columns the
+    aggregate has (one a program of the pass, or one).  The list of aggregates gives the
+    instance where each starts (not the count's).  The column rows give,
+    for each m16 tile (programs 2t and 2t + 1) and each of its
+    :data:`PASS_COLUMNS` columns, the piece column it reads: the shared
+    ones, then program 2t's, then program 2t + 1's (one byte each)."""
+    heads, insts_w, groups_w, rows_w, tiles = [], [], [], [], 1
+    for q, o, insts in passes:
+        shared, own = 0, [0] * PASS_PROGRAMS
+        for _, bl, pieces in insts:
+            if bl < 0:
+                shared += pieces
+            else:
+                own[bl] += pieces
+        pairs = PASS_PROGRAMS // 2
+        width = max([shared] + [shared + own[2 * t] + own[2 * t + 1] for t in range(pairs)])
+        rows = [0] * (pairs * PASS_COLUMNS)
+        shape = -(-width // 8) | (16 if width > shared else 0) | (32 if num_groups == 1 and width == shared else 0)
+        heads.append([q, o, len(insts_w), len(insts), shape, len(groups_w), 0, len(rows_w)])
+        at_shared, at, col = 0, [0] * PASS_PROGRAMS, 0
+        for i, (j, bl, pieces) in enumerate(insts):
+            if bl < 0:
+                vc0, at_shared = at_shared, at_shared + pieces
+            else:
+                vc0 = shared + (own[bl - 1] if bl & 1 else 0) + at[bl]
+                at[bl] += pieces
+            length = 0
+            if i == 0 or insts[i - 1][0] != j:
+                while i + length < len(insts) and insts[i + length][0] == j:
+                    length += 1
+                if j != num_aggs:
+                    groups_w.append(i)
+            insts_w.append(j | (bl + 1) << 8 | pieces << 12 | col << 16 | vc0 << 21 | length << 26)
+            for x in range(pieces):
+                for t in range(pairs):
+                    if bl < 0 or t == bl // 2:
+                        rows[t * PASS_COLUMNS + vc0 + x] = col + x
+            col += pieces
+        heads[-1][6] = len(groups_w) - heads[-1][5]
+        rows_w += [int.from_bytes(bytes(rows[i:i + 4]), "little") for i in range(0, len(rows), 4)]
+        tiles = max(tiles, -(-col // 8))
+    at_insts = 8 * len(heads)
+    at_groups = at_insts + len(insts_w)
+    at_rows = at_groups + len(groups_w)
+    for h in heads:
+        h[2] += at_insts
+        h[5] += at_groups
+        h[7] += at_rows
+    return [w for h in heads for w in h] + insts_w + groups_w + rows_w, tiles
+
+
+def sharing(columns, num_programs: int) -> dict[str, int]:
+    """What one launch adds to ``kernels.ops.SHARED_TILE``: the program
+    slots answered from each staged tile, and the value columns formed once
+    for all of them against those formed for each program."""
+    once = sum(1 for _, per_program in columns if not per_program)
+    return {"slots": num_programs, "columns_once": once,
+            "columns_per_program": (len(columns) - once) * num_programs}
 
 
 def grid_blocks(n: int, num_groups: int, num_aggs: int, tile_rows: int) -> int:
@@ -224,25 +365,45 @@ def _to_card(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     return t if t.device == device else t.pin_memory().to(device, non_blocking=True)
 
 
-# The checked, rewritten program on each device, by the ops' contents (a
-# serving plan reuses its ops for every request).
-_PROGRAMS: dict[tuple, tuple[torch.Tensor, int]] = {}
+class Program(NamedTuple):
+    """A checked program on a device, for B programs of its structure."""
+
+    words: torch.Tensor  # program_words, on the device
+    used: int  # columns read
+    plan: torch.Tensor  # plan_words of its passes, on the device
+    passes: int
+    col_tiles: int  # n8 tiles of piece columns of the widest pass
+    shared: dict[str, int]  # what a launch adds to kernels.ops.SHARED_TILE
+
+
+# The checked, rewritten program on each device, by the ops' contents and
+# the number of programs (a serving plan reuses its ops for every request).
+_PROGRAMS: dict[tuple, Program] = {}
 _MAX_PROGRAMS = 1024
 
 
-def device_program(device, num_cols: int, pred_ops: torch.Tensor, agg_ops: torch.Tensor, num_groups: int):
-    """(:func:`program_words` on ``device``, the number of columns read);
-    checked and copied once per program and device."""
+def device_program(device, num_cols: int, pred_ops: torch.Tensor, agg_ops: torch.Tensor, num_groups: int,
+                   num_programs: int = 1) -> Program:
+    """The :class:`Program` of ``num_programs`` constant sets on ``pred_ops``
+    and ``agg_ops``: checked, laid out (:func:`value_columns`,
+    :func:`pass_plan`) and copied once per program structure, number of
+    programs and device."""
     po = pred_ops.cpu().to(torch.int32).contiguous()
     ao = agg_ops.cpu().to(torch.int32).contiguous()
-    key = (str(device), num_cols, num_groups, tuple(po.shape), tuple(ao.shape), po.numpy().tobytes(),
-           ao.numpy().tobytes())
+    key = (str(device), num_cols, num_groups, num_programs, tuple(po.shape), tuple(ao.shape),
+           po.numpy().tobytes(), ao.numpy().tobytes())
     hit = _PROGRAMS.get(key)
     if hit is None:
         _check_ops(num_cols, po, ao, num_groups)
         if len(_PROGRAMS) >= _MAX_PROGRAMS:
             _PROGRAMS.clear()
-        hit = _PROGRAMS[key] = (_to_card(program_words(po, ao), device), len(used_columns(po, ao)))
+        columns = value_columns(ao)
+        passes = pass_plan(columns, num_groups, num_programs)
+        words, col_tiles = plan_words(passes, ao.shape[0], num_groups)
+        hit = _PROGRAMS[key] = Program(
+            _to_card(program_words(po, ao), device), len(used_columns(po, ao)),
+            _to_card(torch.tensor(words, dtype=torch.int32), device), len(passes), col_tiles,
+            sharing(columns, num_programs))
     return hit
 
 
@@ -254,8 +415,10 @@ def launch(
     agg_ops: torch.Tensor,  # [A, 6] i32 (host)
     agg_consts: torch.Tensor,  # [B, A, 3] f32 (host or cols' device)
     num_groups: int,
+    shared: dict[str, int] | None = None,
 ) -> torch.Tensor:
-    """Run the CUDA kernel; returns ``[B, num_groups, A + 1]`` f32 on cols' device."""
+    """Run the CUDA kernel; returns ``[B, num_groups, A + 1]`` f32 on cols'
+    device.  ``shared``, where given, gets :func:`sharing`'s amounts added."""
     if cols.device.type != "cuda":
         raise ValueError(f"the kernel runs on a CUDA tensor, got {cols.device}")
     if cols.dtype != torch.float32 or cols.dim() != 2:
@@ -266,16 +429,21 @@ def launch(
         raise ValueError("keys must be int32 with one entry per row, on cols' device")
     if cols.stride(1) != 1 or (c > 1 and cols.stride(0) < n):
         cols = cols.contiguous()  # the kernel takes any row stride, not a column stride
-    ops, used = device_program(cols.device, c, pred_ops, agg_ops, num_groups)
+    k, a, b = pred_ops.shape[0], agg_ops.shape[0], pred_consts.shape[0]
+    prog = device_program(cols.device, c, pred_ops, agg_ops, num_groups, b)
     _check_consts(pred_ops, pred_consts, agg_ops, agg_consts)
     lib = build.bind("group_filter_agg", _SIGNATURES)
-    k, a, b = pred_ops.shape[0], agg_ops.shape[0], pred_consts.shape[0]
     if pred_consts.device.type == agg_consts.device.type == "cpu" and b * (2 * k + 3 * a) <= _limits(lib)[1]:
         # Few host constants: they travel in the launch's parameters.
         host = np.concatenate([pred_consts.numpy().ravel(), agg_consts.numpy().ravel()], dtype=np.float32)
-        return call(lib, cols, keys.contiguous(), ops, used, None, k, a, b, num_groups, host_consts=host)
-    consts = torch.cat([pred_consts.reshape(-1), agg_consts.reshape(-1)]).to(torch.float32)
-    return call(lib, cols, keys.contiguous(), ops, used, _to_card(consts, cols.device), k, a, b, num_groups)
+        out = call(lib, cols, keys.contiguous(), prog, None, k, a, b, num_groups, host_consts=host)
+    else:
+        consts = torch.cat([pred_consts.reshape(-1), agg_consts.reshape(-1)]).to(torch.float32)
+        out = call(lib, cols, keys.contiguous(), prog, _to_card(consts, cols.device), k, a, b, num_groups)
+    if shared is not None:
+        for name, amount in prog.shared.items():
+            shared[name] += amount
+    return out
 
 
 def _limits(lib) -> tuple[int, int]:
@@ -285,10 +453,12 @@ def _limits(lib) -> tuple[int, int]:
     return lib._gfa_limits
 
 
-def call(lib, cols, keys, ops, used, consts, k, a, b, num_groups, host_consts=None) -> torch.Tensor:
+def call(lib, cols, keys, prog: Program, consts, k, a, b, num_groups, host_consts=None) -> torch.Tensor:
     """One launch of ``lib``'s ``group_filter_agg_launch`` on inputs
-    :func:`launch` has checked and put on the card, the constants either in
-    ``consts`` (on the card) or in ``host_consts`` (a float32 numpy array)."""
+    :func:`launch` has checked and put on the card (``prog`` laid out for
+    ``b`` programs), the constants either in ``consts`` (on the card) or in
+    ``host_consts`` (a float32 numpy array).  The grid is
+    :func:`grid_blocks`: the B programs share its blocks."""
     n = cols.shape[1]
     blocks = grid_blocks(n, num_groups, a, _limits(lib)[0])
     slots = num_groups * (a + 1)
@@ -296,9 +466,10 @@ def call(lib, cols, keys, ops, used, consts, k, a, b, num_groups, host_consts=No
     out = torch.empty((b, num_groups, a + 1), dtype=torch.float32, device=cols.device)
     stream = torch.cuda.current_stream(cols.device).cuda_stream
     err = lib.group_filter_agg_launch(
-        cols.data_ptr(), cols.stride(0), keys.data_ptr(), n, ops.data_ptr(),
+        cols.data_ptr(), cols.stride(0), keys.data_ptr(), n, prog.words.data_ptr(), prog.plan.data_ptr(),
         None if consts is None else consts.data_ptr(), None if host_consts is None else host_consts.ctypes.data,
-        used, k, a, num_groups, b, partials.data_ptr(), blocks, out.data_ptr(), stream,
+        prog.used, k, a, num_groups, b, prog.passes, prog.col_tiles, partials.data_ptr(), blocks, out.data_ptr(),
+        stream,
     )
     build.check_launch(lib, "group_filter_agg", err)
     return out

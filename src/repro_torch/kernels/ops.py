@@ -5,7 +5,10 @@ tensor goes to the plain PyTorch version (``kernels/ref.py``), a CUDA
 tensor launches the hand-written CUDA kernel or raises.  ``use_kernel=False``
 asks for the plain version on any device; it is never chosen for the
 caller.  ``LAUNCHES`` counts, per wrapper, the kernel launches it made
-(``gmm`` per kernel: ``gmm`` and ``gmm_tc``).  The wrappers of the
+(``gmm`` per kernel: ``gmm`` and ``gmm_tc``), and ``SHARED_TILE`` what
+K1/K2's launches shared: the program slots answered from one staged tile,
+and the value columns formed once for all of a launch's programs against
+those formed for each program.  The wrappers of the
 benchmarked TPC-H paths (``group_filter_agg``, ``group_filter_agg_multi``,
 ``block_compact``) run inside a ``kernels.<wrapper>`` span (``core.spans``).
 
@@ -46,11 +49,13 @@ LAUNCHES: dict[str, int] = {
     "decode_attention": 0, "ssd_intra": 0,
     "alu_chain": 0, "int_matmul": 0, "quantize": 0, "dequantize": 0,
 }
+SHARED_TILE: dict[str, int] = {"slots": 0, "columns_once": 0, "columns_per_program": 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, SHARED_TILE):
+        for name in counts:
+            counts[name] = 0
 
 
 def _grad_wanted(*inputs) -> bool:
@@ -125,7 +130,7 @@ def group_filter_agg(
                 cols, keys, pred_ops, pred_consts, agg_ops, agg_consts, num_groups
             )
         out = gfa.launch(
-            cols, keys, pred_ops, pred_consts[None], agg_ops, agg_consts[None], num_groups
+            cols, keys, pred_ops, pred_consts[None], agg_ops, agg_consts[None], num_groups, SHARED_TILE
         )
         LAUNCHES["group_filter_agg"] += 1
         return out[0]
@@ -148,7 +153,7 @@ def group_filter_agg_multi(
             return ref.group_filter_agg_multi_ref(
                 cols, keys, pred_ops, pred_consts, agg_ops, agg_consts, num_groups
             )
-        out = gfa.launch(cols, keys, pred_ops, pred_consts, agg_ops, agg_consts, num_groups)
+        out = gfa.launch(cols, keys, pred_ops, pred_consts, agg_ops, agg_consts, num_groups, SHARED_TILE)
         LAUNCHES["group_filter_agg_multi"] += 1
         return out
 

@@ -7,8 +7,10 @@ to the JAX package's plain version and its Pallas kernel in interpret
 mode."""
 from __future__ import annotations
 
+import collections
 import inspect
 import random
+import re
 
 import pytest
 
@@ -93,7 +95,7 @@ def test_program_words_rewrite_each_column_read_as_its_slot(seed):
 
 # -- the grid ----------------------------------------------------------------------
 @pytest.mark.parametrize("n, g, a, want", [
-    (6_001_215, 6, 5, gfa.MAX_BLOCKS),  # Q1 at SF 1: 5,861 tiles over 384 blocks
+    (6_001_215, 6, 5, gfa.MAX_BLOCKS),  # Q1 at SF 1: 5,861 tiles over 264 blocks
     (1, 1, 1, 1),
     (TILE_ROWS, 6, 5, 1),
     (TILE_ROWS + 1, 6, 5, 2),
@@ -210,3 +212,161 @@ def test_misaligned_strided_view_gives_the_contiguous_result(shift):
     one = kops.group_filter_agg(view, kview, po, pcs[1], ao, acs[1], num_groups=g)
     assert torch.equal(one, got[1])
     hold_to_reference(got, cols, keys, po, pcs, ao, acs, g)
+
+
+# -- one staged tile for all B programs: the host's layout -------------------------
+def cu_source() -> str:
+    return (build.CSRC / "group_filter_agg.cu").read_text()
+
+
+def cu_constant(name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);", cu_source()).group(1))
+
+
+def test_pass_limits_are_the_kernels():
+    """A pass's programs, groups and piece columns, and the tile's rows, as
+    csrc/group_filter_agg.cu sizes them."""
+    assert gfa.PASS_PROGRAMS == cu_constant("kProgs") == 8
+    assert gfa.PASS_GROUPS == cu_constant("kGroups") == 8
+    assert gfa.PASS_COLUMNS == 8 * cu_constant("kColTiles") and gfa.PASS_PIECES == cu_constant("kMaxPieces")
+    assert cu_constant("kWarps") * 32 * cu_constant("kRowsPerLane") == TILE_ROWS
+
+
+def test_the_grid_is_not_multiplied_by_b(monkeypatch):
+    """The launch's grid is grid_blocks() whatever B is (the B programs
+    share its blocks), and the partials hold B programs a block."""
+    seen = []
+
+    class FakeLib:
+        def group_filter_agg_tile_rows(self):
+            return TILE_ROWS
+
+        def group_filter_agg_param_consts(self):
+            return 768
+
+        def group_filter_agg_launch(self, *args):
+            seen.append(args)
+            return 0
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: Stream())
+    n, g = 40 * TILE_ROWS + 5, 6
+    po, pcs, ao, acs = queries.q1_program()
+    cols = torch.zeros((5, n))
+    for b in (1, 8):
+        lib = FakeLib()
+        prog = gfa.device_program(torch.device("cpu"), 5, po, ao, g, b)
+        out = gfa.call(lib, cols, torch.zeros(n, dtype=torch.int32), prog, None, 1, 5, b, g,
+                       host_consts=np.zeros(b * 17, dtype=np.float32))
+        args = seen[-1]
+        blocks = gfa.grid_blocks(n, g, 5, TILE_ROWS)
+        assert blocks == 41 and args[16] == blocks and out.shape == (b, g, 6)
+        assert args[12:15] == (b, prog.passes, prog.col_tiles) == (b, 1, 2)
+    assert "group_filter_agg_kernel<<<static_cast<unsigned>(blocks), kBlockThreads" in cu_source()
+
+
+@pytest.mark.parametrize("name, want", [
+    ("q1", ((3, False),) * 5 + ((1, False),)),
+    ("q6", ((3, False), (1, False))),
+    ("q12", ((1, True), (1, True), (1, False))),  # the two priority indicators, one per program
+])
+def test_value_columns_of_the_serving_programs(name, want):
+    """Shared where no term reads a constant (Q1, Q6); once per program for
+    Q12's two priority aggregates (c <= k, c > k), which hold 0 or 1 and so
+    take one bf16 piece, as the count does."""
+    _, _, ao, _ = getattr(queries, f"{name}_program")()
+    assert gfa.value_columns(ao) == want
+
+
+def test_value_columns_read_agg_ops_alone():
+    """Two programs of one structure and other constants get one layout."""
+    ao, _ = gfa.encode_aggregates([[("col", 0), ("le", 1, 0.5)], [("one_plus", 2)], [("gt", 1, 3.0)]])
+    again, _ = gfa.encode_aggregates([[("col", 0), ("le", 1, -7.0)], [("one_plus", 2)], [("gt", 1, 9.0)]])
+    assert gfa.value_columns(ao) == gfa.value_columns(again) == ((3, True), (3, False), (1, True), (1, False))
+
+
+def test_layout_is_decided_once_per_program(monkeypatch):
+    """device_program lays a program out once for each B and serves later
+    launches from its cache, never from the constants."""
+    calls = []
+    real = gfa.value_columns
+    monkeypatch.setattr(gfa, "value_columns", lambda ao: calls.append(1) or real(ao))
+    po, _, ao, _ = queries.q12_program()
+    first = gfa.device_program(torch.device("cpu"), 4, po, ao, 7, 8)
+    for _ in range(3):
+        assert gfa.device_program(torch.device("cpu"), 4, po.clone(), ao.clone(), 7, 8) is first
+    assert len(calls) == 1
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("name, g, once, per_agg", [("q1", 6, 6, 0), ("q6", 1, 2, 0), ("q12", 7, 1, 2)])
+def test_shared_tile_amounts_of_the_serving_programs(name, g, once, per_agg, b):
+    """What a launch adds to kernels.ops.SHARED_TILE: B slots from one
+    staged tile; Q1's and Q6's columns (and the count) formed once, Q12's
+    count once and its two priority aggregates once per program."""
+    po, _, ao, _ = getattr(queries, f"{name}_program")()
+    prog = gfa.device_program(torch.device("cpu"), 5, po, ao, g, b)
+    assert prog.shared == {"slots": b, "columns_once": once, "columns_per_program": per_agg * b}
+    assert prog.passes == 1  # every program of the main path takes one pass
+
+
+def test_shared_tile_counters_start_at_zero():
+    kops.SHARED_TILE["slots"] += 3
+    kops.reset_launches()
+    assert kops.SHARED_TILE == {"slots": 0, "columns_once": 0, "columns_per_program": 0}
+
+
+@pytest.mark.parametrize("g, b, a", [(6, 8, 5), (7, 8, 2), (20, 3, gfa.MAX_AGGS), (9, 17, 4), (1, 1, 1)])
+def test_pass_plan_covers_each_output_once(g, b, a):
+    """Every (program, group, column) falls in exactly one pass, no column's
+    pieces are split, and no pass is wider than the kernel's sums."""
+    rng = random.Random(g * b)
+    kinds = ([("col", 0)], [("le", 1, 0.5)], [("col", 0), ("gt", 1, 0.5)], [("one_minus", 2)])
+    ao, _ = gfa.encode_aggregates([rng.choice(kinds) for _ in range(a)])
+    columns = gfa.value_columns(ao)
+    passes = gfa.pass_plan(columns, g, b)
+    seen = collections.Counter()
+    for q, o, insts in passes:
+        nb = min(gfa.PASS_PROGRAMS, b - o * gfa.PASS_PROGRAMS)
+        assert 0 < sum(p for _, _, p in insts) <= gfa.PASS_PIECES
+        shared = sum(p for _, bl, p in insts if bl < 0)
+        for pair in range(gfa.PASS_PROGRAMS // 2):  # each m16 tile's columns: the shared ones and its programs'
+            assert shared + sum(p for _, bl, p in insts if bl // 2 == pair and bl >= 0) <= gfa.PASS_COLUMNS
+        for j, bl, pieces in insts:
+            assert pieces == columns[j][0] and (bl >= 0) == columns[j][1]
+            for prog in ([bl] if bl >= 0 else range(nb)):
+                for grp in range(q * gfa.PASS_GROUPS, min(g, (q + 1) * gfa.PASS_GROUPS)):
+                    seen[o * gfa.PASS_PROGRAMS + prog, grp, j] += 1
+    assert seen == collections.Counter({(p, grp, j): 1 for p in range(b) for grp in range(g) for j in range(a + 1)})
+    words, tiles = gfa.plan_words(passes, a, g)
+    aggregates = sum(len({j for j, _, _ in insts if j != a}) for _, _, insts in passes)
+    assert len(words) == 24 * len(passes) + sum(len(i) for _, _, i in passes) + aggregates
+    assert 1 <= tiles <= gfa.PASS_PIECES // 8
+
+
+def pass_rows(words, p=0):
+    """Pass p's column rows from plan_words: [m16 tile][slot column] -> piece column."""
+    at = words[8 * p + 7]
+    raw = [(words[at + i // 4] >> 8 * (i % 4)) & 0xFF for i in range(gfa.PASS_PROGRAMS // 2 * gfa.PASS_COLUMNS)]
+    return [raw[t * gfa.PASS_COLUMNS:(t + 1) * gfa.PASS_COLUMNS] for t in range(gfa.PASS_PROGRAMS // 2)]
+
+
+@pytest.mark.parametrize("name, g, shape, rows", [
+    # Q1: 16 shared piece columns (five aggregates in three pieces, the count in one), two n8 tiles.
+    ("q1", 6, 2, [list(range(16))] * 4),
+    # Q6: one group, shared columns alone: the eight programs are one m16 tile's rows.
+    ("q6", 1, 1 | 32, [[0, 1, 2, 3] + [0] * 12] * 4),
+    # Q12: the count (column 16) shared, each priority indicator one column a program
+    # (0-7 and 8-15): m16 tile t reads the count, then programs 2t's and 2t + 1's own.
+    ("q12", 7, 1 | 16, [[16, 2 * t, 8 + 2 * t, 2 * t + 1, 9 + 2 * t] + [0] * 11 for t in range(4)]),
+])
+def test_plan_words_of_the_serving_programs_at_b8(name, g, shape, rows):
+    """The one pass of each serving program at B = 8 as the kernel reads it:
+    its shape word and, for each m16 tile, the piece columns it reads."""
+    _, _, ao, _ = getattr(queries, f"{name}_program")()
+    passes = gfa.pass_plan(gfa.value_columns(ao), g, 8)
+    words, _ = gfa.plan_words(passes, ao.shape[0], g)
+    assert len(passes) == 1 and words[4] == shape
+    assert pass_rows(words) == rows
