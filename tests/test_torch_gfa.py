@@ -107,8 +107,12 @@ def test_grid_blocks_follow_rows_and_width(n, g, a, want):
 
 
 def test_grid_blocks_take_no_program_count():
-    """K1 and K2 split the rows alike because the grid never sees B."""
-    assert list(inspect.signature(gfa.grid_blocks).parameters) == ["n", "num_groups", "num_aggs", "tile_rows"]
+    """K1 and K2 split the rows alike because the grid never sees B: only
+    the rows, the width and the blocks an SM runs, which the program's
+    structure decides (blocks_per_sm)."""
+    assert list(inspect.signature(gfa.grid_blocks).parameters) == [
+        "n", "num_groups", "num_aggs", "tile_rows", "per_sm"]
+    assert list(inspect.signature(gfa.blocks_per_sm).parameters) == ["one_tile", "used", "num_preds", "col_tiles"]
 
 
 # -- checks before anything is built -------------------------------------------------
@@ -262,9 +266,9 @@ def test_the_grid_is_not_multiplied_by_b(monkeypatch):
                        host_consts=np.zeros(b * 17, dtype=np.float32))
         args = seen[-1]
         blocks = gfa.grid_blocks(n, g, 5, TILE_ROWS)
-        assert blocks == 41 and args[16] == blocks and out.shape == (b, g, 6)
-        assert args[12:15] == (b, prog.passes, prog.col_tiles) == (b, 1, 2)
-    assert "group_filter_agg_kernel<<<static_cast<unsigned>(blocks), kBlockThreads" in cu_source()
+        assert blocks == 41 and args[17] == blocks and out.shape == (b, g, 6)
+        assert args[12:16] == (b, prog.passes, prog.col_tiles, prog.slot_tiles) == (b, 1, 2, 1 if b == 1 else 4)
+    assert "  kernel<<<static_cast<unsigned>(blocks), kBlockThreads" in cu_source()
 
 
 @pytest.mark.parametrize("name, want", [
@@ -370,3 +374,67 @@ def test_plan_words_of_the_serving_programs_at_b8(name, g, shape, rows):
     words, _ = gfa.plan_words(passes, ao.shape[0], g)
     assert len(passes) == 1 and words[4] == shape
     assert pass_rows(words) == rows
+
+
+@pytest.mark.parametrize("name, g, n_shared, n_groups", [("q1", 6, 5, 5), ("q6", 1, 1, 1), ("q12", 7, 0, 2)])
+@pytest.mark.parametrize("b", [1, 8])
+def test_plan_words_list_the_shared_aggregates_first(name, g, n_shared, n_groups, b):
+    """Header word 6 holds the aggregates a pass forms and, above bit 16,
+    how many of them (listed first) are formed once for every program."""
+    _, _, ao, _ = getattr(queries, f"{name}_program")()
+    passes = gfa.pass_plan(gfa.value_columns(ao), g, b)
+    words, _ = gfa.plan_words(passes, ao.shape[0], g)
+    assert words[6] == n_groups | n_shared << 16
+    listed = [passes[0][2][i][1] for i in words[words[5]:words[5] + n_groups]]  # the program of each one's first column
+    assert listed == sorted(listed) and sum(bl < 0 for bl in listed) == n_shared
+
+
+def test_plan_words_order_a_mixed_program_and_leave_out_the_ones():
+    """Per-program aggregates after the shared ones, whatever the order of
+    agg_ops; an aggregate of no term (1 on every row) is not listed."""
+    ao, _ = gfa.encode_aggregates([[("le", 1, 0.5)], [("col", 0)], [("gt", 1, 0.5), ("col", 2)], [("one_plus", 2)]])
+    ao = torch.cat([ao, torch.zeros((1, 2 * gfa.MAX_TERMS), dtype=torch.int32)])  # aggregate 4: no term
+    columns = gfa.value_columns(ao)
+    assert columns[4] == (1, False)
+    passes = gfa.pass_plan(columns, 3, 4)
+    words, _ = gfa.plan_words(passes, ao.shape[0], 3)
+    insts = passes[0][2]
+    listed = [insts[i][0] for i in words[words[5]:words[5] + (words[6] & 0xFFFF)]]
+    assert listed == [1, 3, 0, 2] and words[6] >> 16 == 2
+
+
+@pytest.mark.parametrize("name, g, want", [
+    ("q1", 6, {1: 1, 2: 1, 3: 2, 4: 2, 5: 4, 8: 4, 11: 4}),
+    ("q6", 1, {1: 1, 2: 1, 3: 1, 4: 1, 5: 1, 8: 1, 11: 1}),  # one group: the programs are one tile's rows
+    ("q12", 7, {1: 1, 2: 1, 3: 2, 4: 2, 5: 4, 8: 4, 11: 4}),
+])
+def test_slot_tiles_hold_the_widest_pass(name, g, want):
+    """The kernel's instantiation: the fewest m16 tiles of two programs
+    that hold every pass (1, 2 or 4), from the number of programs alone."""
+    po, _, ao, _ = getattr(queries, f"{name}_program")()
+    for b, tiles in want.items():
+        assert gfa.device_program(torch.device("cpu"), 5, po, ao, g, b).slot_tiles == tiles
+
+
+@pytest.mark.parametrize("name, g, per_sm", [("q1", 6, 2), ("q6", 1, 3), ("q12", 7, 2)])
+def test_blocks_an_sm_follow_the_structure_not_b(name, g, per_sm):
+    """Three blocks an SM only for a program that runs the one-tile
+    instantiation at every B (one group, no column of one program's) and
+    fits; the grid is then the same for K1 and K2."""
+    po, _, ao, _ = getattr(queries, f"{name}_program")()
+    progs = [gfa.device_program(torch.device("cpu"), 5, po, ao, g, b) for b in (1, 2, 3, 8, 11)]
+    assert {p.per_sm for p in progs} == {per_sm}
+    n = 6_001_215
+    assert {gfa.grid_blocks(n, g, ao.shape[0], TILE_ROWS, p.per_sm) for p in progs} == {gfa.MAX_BLOCKS * per_sm // 2}
+
+
+def test_shared_memory_mirror_is_the_kernels():
+    """smem_bytes() on the host mirrors the kernel's layout constants, and a
+    serving program of one group fits three blocks an SM."""
+    src = cu_source()
+    assert cu_constant("kStages") * (TILE_ROWS + 4) == gfa._STAGE_WORDS
+    assert "constexpr int kStride = kTileRows + 4;" in src and "constexpr int kPairStride = kPairs + 4;" in src
+    assert gfa._PIECE_WORDS == TILE_ROWS // cu_constant("kWarps") // 2 + 4
+    assert gfa._MEMBER_WORDS == 4 * (TILE_ROWS // cu_constant("kWarps") // 2)
+    assert "4 * k + kProgs * 2 * k" in src
+    assert gfa.smem_bytes(4, 3, 1) <= gfa.THREE_AN_SM_BYTES < gfa.smem_bytes(5, 1, 2)

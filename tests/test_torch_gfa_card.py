@@ -5,7 +5,8 @@ For the three serving programs on dbgen-like rows, B constant sets in one
 launch of the scan against K1 on each: slot b must be K1's bits, a repeat
 the same bits, the counts exact, and the launch must move the wrapper's
 launch count by one and ``kernels.ops.SHARED_TILE`` by what the host's
-layout says it shares."""
+layout says it shares.  Q1's sums of full-precision values must hold
+float64 within 1e-6 relative, which a sum of two bf16 pieces would not."""
 from __future__ import annotations
 
 import random
@@ -61,3 +62,41 @@ def test_k2_answers_every_program_from_one_tile_as_k1_does(card, name, b, n):
     want = kops.group_filter_agg_multi(*args, pcs, plan.agg_ops, acs, num_groups=g, use_kernel=False)
     assert torch.equal(got[..., -1], want[..., -1])
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6 * float(want.abs().max()))
+
+
+def _top16(v: torch.Tensor) -> torch.Tensor:
+    """v's top 16 bits, the rest zero (the kernel's hi and mid pieces)."""
+    return (v.view(torch.int32) & -65536).view(torch.float32)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("b", [1, 8])
+def test_sums_of_full_precision_values_hold_float64(card, b):
+    """Q1's sums (l_extendedprice and its products: every significant bit
+    in use) against the same f32 row values summed in float64, within 1e-6
+    relative: the three bf16 pieces carry each value exactly, and the f32
+    accumulation adds ~1.5e-7 at most.  The control sums the values as two
+    pieces only (hi + mid, lo dropped, as a kernel that lost or misread it
+    would) and must miss by more than the same limit, so the limit sees the
+    third piece."""
+    from repro_torch.kernels import ref
+
+    plan = plans(100_000)["q1"]
+    rng = random.Random(7 + b)
+    consts = [plan.program(sample_params("q1", rng)) for _ in range(b)]
+    pcs, acs = torch.stack([c[0] for c in consts]), torch.stack([c[1] for c in consts])
+    got = kops.group_filter_agg_multi(plan.cols, plan.keys, plan.pred_ops, pcs, plan.agg_ops, acs,
+                                      num_groups=plan.num_groups).double()
+    seg = plan.keys.reshape(-1).long()
+    for i in range(b):
+        w = ref._program_mask(plan.cols, plan.pred_ops, pcs[i].to(plan.cols.device))
+        vals = ref._program_values(plan.cols, plan.agg_ops, acs[i].to(plan.cols.device))
+        pieces2 = _top16(vals) + _top16(vals - _top16(vals))  # each exact in f32
+        for j in range(vals.shape[0]):
+            want = torch.zeros(plan.num_groups, dtype=torch.float64, device="cuda").index_add_(
+                0, seg[w], vals[j][w].double())
+            two = torch.zeros_like(want).index_add_(0, seg[w], pieces2[j][w].double())
+            rel = ((got[i, :, j] - want).abs() / want.abs().clamp_min(1.0)).max().item()
+            assert rel <= 1e-6, (i, j, rel)
+            if bool((vals[j][w] != pieces2[j][w]).any()):  # a column with a third piece
+                assert ((two - want).abs() / want.abs().clamp_min(1.0)).max().item() > 1e-6, (i, j)
