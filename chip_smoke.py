@@ -2328,6 +2328,138 @@ def per_query_times(plans):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Q3: K9 against its plain version, the served plan, K9's time a pass.
+K9_KERNELS = ("group_topk_agg_kernel", "group_topk_merge_kernel")  # K9's two CUDA launches a call
+
+
+def q3_consts(b: int, seed: int) -> list[tuple[int, float, float]]:
+    from repro_torch.engine import queries
+    from repro_torch.runtime.loadgen import sample_params
+
+    rng = random.Random(seed)
+    return [queries.q3_program(**sample_params("q3", rng)) for _ in range(b)]
+
+
+def q3_phase(li, od, dev):
+    """[q3] at SF 1 on engine/datagen's tables (lineitem not clustered by
+    order): K9 bit-equal to its plain version on the card at B = 1, 2, 3
+    and 8, slot b bit-equal to the single call, a repeat the same bits, one
+    launch a call; then 40 requests served by a QueryServer, each equal to
+    its serial call.  Returns the plan."""
+    from repro_torch.engine import datagen, queries
+    from repro_torch.kernels import ops as kops
+    from repro_torch.runtime.loadgen import sample_params
+    from repro_torch.runtime.requests import QueryRequest
+    from repro_torch.runtime.serve_query import QueryServer
+
+    t0 = time.perf_counter()
+    cu = datagen.customer(torch.Generator(device=dev).manual_seed(3), scale=1.0, device=dev)
+    plan = queries.make_serving_plans(li, od, cu, queries=["q3"])["q3"]
+    torch.cuda.synchronize()
+    lay = plan.layout
+    print(f"[q3] sf1 layout: {lay.num_rows} lines, {lay.num_groups} orders, {lay.tile_groups} orders a tile, "
+          f"{lay.num_tiles} tiles; {time.perf_counter() - t0:.2f}s", flush=True)
+    for b in (1, 2, 3, 8):
+        consts = q3_consts(b, 100 + b)
+        stacked = tuple(zip(*consts))
+        kops.reset_launches()
+        got = kops.group_topk_agg_multi(lay, *stacked)
+        check(kops.LAUNCHES["group_topk_agg_multi"] == 1, f"[q3] B={b}: one launch a call")
+        want = kops.group_topk_agg_multi(lay, *stacked, use_kernel=False)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)), f"[q3] B={b}: K9 must equal its plain version")
+        again = kops.group_topk_agg_multi(lay, *stacked)
+        check(all(torch.equal(g, w) for g, w in zip(got, again)), f"[q3] B={b}: a repeat must give the same bits")
+        for i, c in enumerate(consts):
+            one = kops.group_topk_agg(lay, *c)
+            check(all(torch.equal(x[i], y) for x, y in zip(got, one)), f"[q3] B={b}: slot {i} must be B = 1's bits")
+        check(int((got[2] >= 0).sum()) == 10 * b, f"[q3] B={b}: ten orders a program")
+        print(f"[q3] sf1 B={b}: K9 == its plain version bit for bit, each slot == its single call, a repeat the "
+              f"same; first revenues {got[0][:, 0].tolist()}", flush=True)
+    server = QueryServer({"q3": plan}, max_batch=8)
+    server.warmup(["q3"])
+    rng = random.Random(9)
+    reqs = [QueryRequest(uid=i, query="q3", params=sample_params("q3", rng)) for i in range(40)]
+    kops.reset_launches()
+    for r in reqs:
+        server.submit(r)
+    done = []
+    while len(server.queue):
+        done += server.step()
+    check(sorted(c.uid for c in done) == list(range(40)), "[q3] every request served")
+    check(kops.LAUNCHES["group_topk_agg_multi"] == server.kernel_calls == 5, "[q3] 40 requests in 5 passes of 8")
+    for c in done:
+        serial = queries.fused_query_serial(plan, reqs[c.uid].params)
+        check(all(torch.equal(c.result[k], serial[k]) for k in serial), f"[q3] request {c.uid} != its serial call")
+    print(f"[q3] served 40 requests in {server.kernel_calls} passes, each equal to its serial call", flush=True)
+    return plan
+
+
+def q3_times(plan_sf1, name, dev) -> dict:
+    """K9's device ms a call at B = 1, 2, 4, 8 at SF 1 (engine/datagen) and
+    SF 30 (the benchmark's dbgen-like tables, ``portbench/harness``), beside
+    two bytes bounds at HBM bandwidth: the layout's (12 bytes a line, 16 an
+    order) and the base tables' Q3 columns (``harness/q3.pass_bytes``); and
+    the plain version's at SF 1.  Before the SF 30 times, K9 is held bit for
+    bit to its plain version there at B = 1 and 8, each slot to its single
+    call."""
+    from portbench.harness import datagen as bench_datagen
+    from portbench.harness import q3 as bench_q3
+    from repro_torch.engine import queries
+    from repro_torch.engine.table import Table
+    from repro_torch.kernels import ops as kops
+
+    bw = peaks(name)[0]
+    out = {}
+
+    def timed(label, lay, base_bytes):
+        layout_ms = (12 * lay.num_rows + 16 * lay.num_groups) / bw * 1e3
+        base_ms = base_bytes / bw * 1e3
+        for b in (1, 2, 4, 8):
+            stacked = tuple(zip(*q3_consts(b, 7)))
+            ms = kernel_device_ms(lambda: kops.group_topk_agg_multi(lay, *stacked), K9_KERNELS)
+            scan = kernel_device_ms(lambda: kops.group_topk_agg_multi(lay, *stacked), K9_KERNELS[:1])
+            out[f"{label} B={b}"] = {"device_ms": ms, "scan_ms": scan, "layout_bound_ms": layout_ms,
+                                     "base_bound_ms": base_ms, "base_share_pct": 100 * base_ms / ms}
+            print(f"[times] q3 {label} B={b}: {json.dumps(out[f'{label} B={b}'])}", flush=True)
+
+    lay = plan_sf1.layout
+    timed("sf1", lay, 16 * lay.num_rows + 8 * 1_500_000 + 4 * 150_000)
+    one = q3_consts(1, 7)[0]
+    out["sf1 plain B=1 ms"] = time_ms(lambda: kops.group_topk_agg(lay, *one, use_kernel=False), reps=5, warmup=1)
+    free_card()
+    t0 = time.perf_counter()
+    tables = bench_datagen.tables(2**31 + 30, 30, dev)
+    tables["customer"] = bench_q3.customer(2**31 + 30, 30, dev, tables["orders"])
+    li, od, cu = (Table(tables[n]) for n in ("lineitem", "orders", "customer"))
+    plan = queries.make_serving_plans(li, od, cu, queries=["q3"])["q3"]
+    torch.cuda.synchronize()
+    print(f"[q3] sf30 tables and layout in {time.perf_counter() - t0:.2f}s: {li.num_rows} lines, "
+          f"{plan.layout.num_groups} orders, peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    base = bench_q3.pass_bytes(li.num_rows, od.num_rows, cu.num_rows)
+    del tables, li, od, cu
+    lay = plan.layout
+    for b in (1, 8):
+        consts = q3_consts(b, 30 + b)
+        stacked = tuple(zip(*consts))
+        got = kops.group_topk_agg_multi(lay, *stacked)
+        want = kops.group_topk_agg_multi(lay, *stacked, use_kernel=False)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)), f"[q3] sf30 B={b}: K9 must equal its plain version")
+        for i, c in enumerate(consts):
+            one = kops.group_topk_agg(lay, *c)
+            check(all(torch.equal(x[i], y) for x, y in zip(got, one)),
+                  f"[q3] sf30 B={b}: slot {i} must be B = 1's bits")
+        check(int((got[2] >= 0).sum()) == 10 * b, f"[q3] sf30 B={b}: ten orders a program")
+        print(f"[q3] sf30 B={b}: K9 == its plain version bit for bit, each slot == its single call; "
+              f"first revenues {got[0][:, 0].tolist()}", flush=True)
+        del got, want
+    free_card()
+    timed("sf30", lay, base)
+    del plan
+    free_card()
+    return out
+
+
 def kernel_entry(kname, source, replaces, launches, run, run_plain, bytes_ms, ops_ms, err, library, shape):
     """One entry of the kernels line: times by CUDA events, the bound from
     the bytes and operations the call needs."""
@@ -3896,7 +4028,8 @@ def main() -> int:
                   "group_filter_agg": ("group_filter_agg_kernel",),
                   "ssd_intra": ("ssd_intra_mma_kernel", "ssd_intra_f32_kernel"), "block_compact": ("block_compact_kernel",),
                   "filter_agg": ("filter_agg_kernel",), "alu_chain": ("alu_chain_kernel",),
-                  "int_matmul": ("int_matmul_kernel",), "quantize": ("quantize_kernel",)}
+                  "int_matmul": ("int_matmul_kernel",), "quantize": ("quantize_kernel",),
+                  "group_topk_agg": ("group_topk_agg_kernel", "group_topk_merge_kernel")}
     redesigned = {fn: info for src, kerns in tc_kernels.items() for fn, info in ptxas_report(logs[src]).items()
                   if any(kern in fn for kern in kerns)}
     # dh 64 / 128 (tensor cores) and f32 dh 16 / 32 / 64 / 128 and bf16 dh 16 / 32 (CUDA cores); f32 / bf16;
@@ -3905,11 +4038,12 @@ def main() -> int:
     # quantize and dequantize; K5 f32 / bf16 on the CUDA cores and bf16 on the tensor cores at C <= 64 / above;
     # K1/K2 with 1, 2 and 4 m16 tiles of programs
     want = {"flash_attention": 8, "gmm": 4, "decode_attention": 3 + 20, "group_filter_agg": 3, "ssd_intra": 4,
-            "block_compact": 1, "filter_agg": 1, "alu_chain": 16, "int_matmul": 2, "quantize": 2}
+            "block_compact": 1, "filter_agg": 1, "alu_chain": 16, "int_matmul": 2, "quantize": 2,
+            "group_topk_agg": 4 + 1}
     for fn, info in redesigned.items():
         if any(k in fn for k in ("decode_mma_kernel", "group_filter_agg_kernel", "ssd_intra_mma_kernel", "gmm_tc_kernel",
                                  "block_compact_kernel", "filter_agg_kernel", "flash_attention_kernel",
-                                 "decode_f32_kernel", "ssd_intra_f32_kernel")):
+                                 "decode_f32_kernel", "ssd_intra_f32_kernel", "group_topk_agg_kernel")):
             print(f"[build] {fn}: {json.dumps(info)}", flush=True)
     check(len(redesigned) == sum(n for src, n in want.items() if logs[src])
           and not any(info["spill_bytes"] for info in redesigned.values()),
@@ -3948,6 +4082,7 @@ def main() -> int:
     # The main paths, each with every launch counter at 0 just before it.
     path_kernels = {
         "query": ("group_filter_agg", "group_filter_agg_multi"),
+        "q3": ("group_topk_agg", "group_topk_agg_multi"),
         "pushdown": ("block_compact", "filter_agg"),
         "accel": ("filter_agg", "gmm", "flash_attention"),
         "runner": ("group_filter_agg", "group_filter_agg_multi", "block_compact", "filter_agg"),
@@ -3969,6 +4104,8 @@ def main() -> int:
             fused_vs_unfused(li, od)
             serving_task_phase(dev)
             trace, report, shared, per_step = server_phase(plans)
+        elif path == "q3":
+            q3_plan = q3_phase(li, od, dev)
         elif path == "pushdown":
             pushdown_phase(pd_task, pd_ctx)
         elif path == "accel":
@@ -4065,6 +4202,8 @@ def main() -> int:
     entries += resource_kernel_entries(name, launches, errs, chains)
     f32_route_times(name)
     print(f"[times] per query at sf1 (ms): {json.dumps(per_query_times(plans))}", flush=True)
+    print(f"[times] q3 (ms): {json.dumps(q3_times(q3_plan, name, dev))}", flush=True)
+    del q3_plan
     print(f"[lm] summary: {json.dumps({'paths': lm, 'moe': moe_out, 'lm5': lm5_out, 'route_rel_l2': lm_route})}",
           flush=True)
     print(f"[resources] seconds a task: {json.dumps(resources)}", flush=True)

@@ -38,12 +38,15 @@ SPANS = (
     "engine.demux",  # the kernel's output back into each request's results
     "kernels.group_filter_agg",  # the wrappers' host path: checks, binding, the launch
     "kernels.group_filter_agg_multi",
+    "kernels.group_topk_agg",
+    "kernels.group_topk_agg_multi",
     "kernels.block_compact",
     "pushdown.call",  # one call of the pushdown plan: mask, compaction, masked sum
     "gc",  # a garbage collection
 )
 (SERVE_PASS, SERVE_TAKE, SERVE_SYNC, SERVE_RETIRE, ENGINE_CONSTS, ENGINE_DEMUX, KERNELS_GROUP_FILTER_AGG,
- KERNELS_GROUP_FILTER_AGG_MULTI, KERNELS_BLOCK_COMPACT, PUSHDOWN_CALL, GC) = SPANS
+ KERNELS_GROUP_FILTER_AGG_MULTI, KERNELS_GROUP_TOPK_AGG, KERNELS_GROUP_TOPK_AGG_MULTI, KERNELS_BLOCK_COMPACT,
+ PUSHDOWN_CALL, GC) = SPANS
 
 _profiling = torch._C._autograd._profiler_enabled
 _OFF = contextlib.nullcontext()

@@ -1,4 +1,4 @@
-"""Deterministic TPC-H-like synthetic data (lineitem / orders), made on the device.
+"""Deterministic TPC-H-like synthetic data (lineitem / orders / customer), made on the device.
 
 Scale factor 1 ~= 6M lineitem rows, matching TPC-H row-count scaling.  The
 columns, dtypes, ranges and dictionaries are those of the JAX package's
@@ -9,18 +9,22 @@ threefry stream).
 """
 from __future__ import annotations
 
+import datetime
+
 import torch
 
 from repro_torch.engine.table import Table
 
 LINEITEM_ROWS_PER_SF = 6_001_215
 ORDERS_ROWS_PER_SF = 1_500_000
+CUSTOMER_ROWS_PER_SF = 150_000
 
 # dictionary-encoded categoricals
 RETURNFLAG = ("A", "N", "R")
 LINESTATUS = ("F", "O")
 SHIPMODE = ("AIR", "FOB", "MAIL", "RAIL", "REG AIR", "SHIP", "TRUCK")
 ORDERPRIORITY = ("1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW")
+MKTSEGMENT = ("AUTOMOBILE", "BUILDING", "FURNITURE", "HOUSEHOLD", "MACHINERY")
 
 DATE_EPOCH_DAYS = 8035  # 1992-01-01 in days-since-1970
 DATE_RANGE_DAYS = 2526  # through 1998-12-01
@@ -113,6 +117,34 @@ def orders(
     )
 
 
+def customer(
+    seed: int | torch.Generator = 0,
+    scale: float = 0.01,
+    rows: int | None = None,
+    *,
+    device: str | torch.device = "cuda",
+) -> Table:
+    """TPC-H customer columns used by Q3: ``c_custkey`` dense from 1 (as
+    dbgen numbers customers) and ``c_mktsegment`` uniform over
+    ``MKTSEGMENT``.  ``orders`` draws ``o_custkey`` from ``[0, rows)``, so its
+    key 0 names no customer and drops out of an inner join."""
+    n = rows if rows is not None else max(int(CUSTOMER_ROWS_PER_SF * scale), 16)
+    g = _generator(seed, device)
+    return Table(
+        {
+            "c_custkey": torch.arange(1, n + 1, dtype=torch.int32, device=device),
+            "c_mktsegment": _randint(g, 0, len(MKTSEGMENT), n, device),
+        }
+    )
+
+
 def date(year: int, month: int = 1, day: int = 1) -> float:
     """Approximate days-since-1970 for predicate constants (spec-grade)."""
     return float((year - 1970) * 365.2425 + (month - 1) * 30.44 + (day - 1))
+
+
+def calendar_day(year: int, month: int, day: int) -> float:
+    """Days since 1970 of a calendar day, exactly: the whole day numbers the
+    date columns hold, so a strict compare with it is the SQL compare of
+    two dates."""
+    return float((datetime.date(year, month, day) - datetime.date(1970, 1, 1)).days)

@@ -115,12 +115,26 @@ def group_aggregate(
 # ---------------------------------------------------------------------------
 # Joins.
 def fk_index_join(
-    fact: Table, fk_col: str, dim: Table, pk_col: str, carry: tuple[str, ...]
+    fact: Table, fk_col: str, dim: Table, pk_col: str, carry: tuple[str, ...], *,
+    first_key: int = 0, missing: int | float | None = None,
 ) -> Table:
-    """Foreign-key join where dim[pk_col] == arange(len(dim)) (dense keys):
-    a pure gather."""
-    idx = fact[fk_col].long()
-    return fact.with_columns(**{n: dim[n].index_select(0, idx) for n in carry})
+    """Foreign-key join where dim[pk_col] == first_key + arange(len(dim))
+    (dense keys): a pure gather.
+
+    With ``missing=None`` every foreign key must name a row of ``dim``.
+    Otherwise a fact row whose key names none gets ``missing`` in each
+    carried column, so that a predicate on a carried column which
+    ``missing`` never meets drops it, as the inner join does."""
+    idx = fact[fk_col].long() - first_key
+    if missing is None:
+        return fact.with_columns(**{n: dim[n].index_select(0, idx) for n in carry})
+    found = (idx >= 0) & (idx < dim.num_rows)
+    safe = torch.where(found, idx, 0)
+    return fact.with_columns(**{
+        n: torch.where(found, dim[n].index_select(0, safe), torch.full((), missing, dtype=dim[n].dtype,
+                                                                        device=safe.device))
+        for n in carry
+    })
 
 
 def sort_merge_join(

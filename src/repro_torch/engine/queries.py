@@ -2,7 +2,8 @@
 
 Q1  — scan-heavy group-by aggregate over lineitem;
 Q6  — the predicate-pushdown filter+aggregate;
-Q12 — join lineitem x orders + grouped conditional counts.
+Q12 — join lineitem x orders + grouped conditional counts;
+Q3  — join customer x orders x lineitem, grouped by order, top 10 by revenue.
 
 Each query is a Table -> dict[str, Tensor] function.  The ``*_fused``
 variants (FUSED_QUERIES) run the same queries as ONE ``group_filter_agg``
@@ -11,12 +12,13 @@ registers, derived columns (Q1's disc_price/charge) are term products
 computed in flight, and the grouped sums/counts accumulate on chip —
 instead of the unfused graph's one-pass-per-aggregate plan.  Counts and
 integer-valued aggregates match the unfused results exactly; float sums
-agree to accumulation-order tolerance.
+agree to accumulation-order tolerance.  ``q3_fused`` is one
+``group_topk_agg`` (K9) pass over a layout of orders and their lines.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Iterable
 
 import numpy as np
 import torch
@@ -24,7 +26,9 @@ import torch
 from repro_torch.core.spans import ENGINE_CONSTS, ENGINE_DEMUX, span
 from repro_torch.engine import datagen, ops
 from repro_torch.engine.table import Table
+from repro_torch.kernels import group_topk_agg as gta
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 from repro_torch.kernels.group_filter_agg import encode_aggregates, encode_predicates
 
 
@@ -276,24 +280,118 @@ def q12_fused(lineitem: Table, orders: Table, year: int = 1994, use_kernel: bool
     return _q12_demux(out)
 
 
+def q3(lineitem: Table, orders: Table, customer: Table, segment: int = 1, day: int = 15):
+    """Shipping priority (TPC-H Q3): the ten orders of customers in market
+    segment ``segment`` (an index of ``datagen.MKTSEGMENT``) placed before
+    1995-03-``day`` with the most revenue in lines shipped after it.
+
+    ``{"orderkey" [10] int32, "revenue" [10] f32, "orderdate" [10] f32}``,
+    ranked by revenue descending, then order date, then order key; past the
+    orders that qualify, (-1, 0, 0).  ``o_shippriority`` is 0 for every
+    order dbgen makes and is not carried.  The plain operators: both joins
+    for every line, ``ops.group_aggregate`` over every order (its partials
+    take 4 KiB an order, so this route is for small scales), then the
+    ranking of K9's plain version (``kernels.ref.ranked_top_k``)."""
+    _, d, _ = q3_program(segment, day)
+    joined = ops.fk_index_join(lineitem, "l_orderkey", orders, "o_orderkey", ("o_orderdate", "o_custkey"))
+    joined = ops.fk_index_join(joined, "o_custkey", customer, "c_custkey", ("c_mktsegment",), first_key=1,
+                               missing=-1)
+    mask = ops.filter_mask(
+        joined,
+        lambda t: t["c_mktsegment"] == segment,
+        lambda t: t["o_orderdate"] < d,
+        lambda t: t["l_shipdate"] > d,
+    )
+    revenue = joined["l_extendedprice"] * (1.0 - joined["l_discount"])
+    out = ops.group_aggregate(joined["l_orderkey"], {"revenue": revenue}, mask, orders.num_rows)
+    return _q3_demux(kref.ranked_top_k(out["revenue"], orders["o_orderdate"], orders["o_orderkey"],
+                                       out["count"] > 0, gta.TOPK))
+
+
+def q3_program(segment: int = 1, day: int = 15) -> tuple[int, float, float]:
+    """Q3's constants for K9: (segment, DATE, DATE): an order passes in
+    the segment before DATE, a line of it shipped after DATE.  DATE is the
+    calendar's 1995-03-``day`` as a whole day number, as the date columns
+    hold them, so both strict compares are clause 2.4.3's."""
+    d = datagen.calendar_day(1995, 3, day)
+    return int(segment), d, d
+
+
+def _q3_layout(lineitem: Table, orders: Table, customer: Table) -> gta.Layout:
+    """Everything Q3 does not take from its constants, once: the lines by
+    order key (stably, so an order's lines keep their order; no copy where
+    lineitem is clustered by order, as dbgen writes it), each order's date
+    and, through ``o_custkey``, its customer's segment (-1 where no
+    customer has that key)."""
+    okey = lineitem["l_orderkey"]
+    clustered = bool((okey[1:] >= okey[:-1]).all()) if okey.numel() > 1 else True
+    order = None if clustered else torch.argsort(okey, stable=True)
+    keys, counts = torch.unique_consecutive(okey if order is None else okey[order], return_counts=True)
+    starts = torch.zeros(keys.numel() + 1, dtype=torch.int64, device=okey.device)
+    torch.cumsum(counts, 0, out=starts[1:])
+    groups = ops.fk_index_join(Table({"o_orderkey": keys}), "o_orderkey", orders, "o_orderkey",
+                               ("o_orderdate", "o_custkey"))
+    groups = ops.fk_index_join(groups, "o_custkey", customer, "c_custkey", ("c_mktsegment",), first_key=1,
+                               missing=-1)
+    return gta.make_layout(lineitem["l_shipdate"], lineitem["l_extendedprice"], lineitem["l_discount"], starts,
+                           keys, groups["o_orderdate"], groups["c_mktsegment"], order=order)
+
+
+def _q3_demux(out: tuple[torch.Tensor, torch.Tensor, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Q3's result dict from K9's (sums, dates, keys), one program's or a batch's."""
+    revenue, orderdate, orderkey = out
+    return {"orderkey": orderkey, "revenue": revenue, "orderdate": orderdate}
+
+
+def q3_fused(lineitem: Table, orders: Table, customer: Table, segment: int = 1, day: int = 15,
+             use_kernel: bool = True):
+    """Q3 as one K9 pass over its layout; the same ranks and order dates as
+    ``q3``, the revenues to accumulation-order tolerance."""
+    return _q3_demux(kops.group_topk_agg(_q3_layout(lineitem, orders, customer), *q3_program(segment, day),
+                                         use_kernel=use_kernel))
+
+
 QUERIES = {"q1": q1, "q6": q6, "q12": q12}
 FUSED_QUERIES = {"q1": q1_fused, "q6": q6_fused, "q12": q12_fused}
 
 
 # ---------------------------------------------------------------------------
 # Serving plans: the query-shape contract behind scan-sharing micro-batches.
-@dataclasses.dataclass(frozen=True)
 class ServingPlan:
     """One query shape, ready to serve requests whose constants arrive at
-    run time.
+    run time, over a layout worked out once (for Q12 and Q3 including the
+    joins).
 
-    ``cols``/``keys`` are the parameter-independent column layout (for Q12
-    including the join, computed once); ``pred_ops``/``agg_ops`` the shared
-    opcode structure; ``program(params)`` builds one request's constant
-    tables; ``demux(out)`` turns one ``[G, A + 1]`` kernel output slot back
-    into the query's result dict, or a ``[B, G, A + 1]`` batch of slots into
-    a dict of batched values.
-    """
+    ``program(params)`` is one request's constants; ``stack(consts)`` those
+    of a batch; ``launch(consts)`` the single-program kernel wrapper's pass
+    on one request's, ``launch_batch(stacked)`` the batched wrapper's on a
+    batch's; ``demux(out)`` turns one output back into the query's result
+    dict, or a batch's into a dict of batched values."""
+
+    name: str
+
+    def program(self, params: dict[str, Any]) -> Any:
+        raise NotImplementedError
+
+    def stack(self, consts: list[Any]) -> Any:
+        raise NotImplementedError
+
+    def launch(self, consts: Any, *, use_kernel: bool = True) -> Any:
+        raise NotImplementedError
+
+    def launch_batch(self, stacked: Any, *, use_kernel: bool = True) -> Any:
+        raise NotImplementedError
+
+    def demux(self, out: Any) -> dict[str, torch.Tensor]:
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupAggPlan(ServingPlan):
+    """A K1/K2 shape: ``cols``/``keys`` the column layout; ``pred_ops`` /
+    ``agg_ops`` the shared opcode structure; ``program_fn(**params)`` the
+    query's ``*_program``; ``demux_fn`` turns one ``[G, A + 1]`` kernel
+    output slot (or a ``[B, G, A + 1]`` batch) into the result dict."""
 
     name: str
     cols: torch.Tensor
@@ -301,44 +399,78 @@ class ServingPlan:
     pred_ops: torch.Tensor
     agg_ops: torch.Tensor
     num_groups: int
-    program: Callable[[dict[str, Any]], tuple[torch.Tensor, torch.Tensor]]
-    demux: Callable[[torch.Tensor], dict[str, torch.Tensor]]
+    program_fn: Callable[..., tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]]
+    demux_fn: Callable[[torch.Tensor], dict[str, torch.Tensor]]
 
-
-def _plan_program(program_fn) -> Callable[[dict[str, Any]], tuple[torch.Tensor, torch.Tensor]]:
-    def consts(params: dict[str, Any]) -> tuple[torch.Tensor, torch.Tensor]:
-        _, pred_consts, _, agg_consts = program_fn(**params)
+    def program(self, params: dict[str, Any]) -> tuple[torch.Tensor, torch.Tensor]:
+        _, pred_consts, _, agg_consts = self.program_fn(**params)
         return pred_consts, agg_consts
 
-    return consts
+    def stack(self, consts):
+        return torch.stack([c[0] for c in consts]), torch.stack([c[1] for c in consts])
+
+    def launch(self, consts, *, use_kernel: bool = True) -> torch.Tensor:
+        return kops.group_filter_agg(self.cols, self.keys, self.pred_ops, consts[0], self.agg_ops, consts[1],
+                                     num_groups=self.num_groups, use_kernel=use_kernel)
+
+    def launch_batch(self, stacked, *, use_kernel: bool = True) -> torch.Tensor:
+        return kops.group_filter_agg_multi(self.cols, self.keys, self.pred_ops, stacked[0], self.agg_ops,
+                                           stacked[1], num_groups=self.num_groups, use_kernel=use_kernel)
+
+    def demux(self, out: torch.Tensor) -> dict[str, torch.Tensor]:
+        return self.demux_fn(out)
 
 
-def make_serving_plans(lineitem: Table, orders: Table | None = None) -> dict[str, ServingPlan]:
-    """Serving plans for every fused query servable over these tables.
+@dataclasses.dataclass(frozen=True)
+class TopKPlan(ServingPlan):
+    """Q3's shape: K9 over ``layout`` (``_q3_layout``), a request's
+    constants ``q3_program``'s (segment, DATE, DATE)."""
 
-    Q12 needs ``orders`` for its join; without it only Q1/Q6 are planned.
+    name: str
+    layout: gta.Layout
+
+    def program(self, params: dict[str, Any]) -> tuple[int, float, float]:
+        return q3_program(**params)
+
+    def stack(self, consts):
+        return tuple(zip(*consts))
+
+    def launch(self, consts, *, use_kernel: bool = True):
+        return kops.group_topk_agg(self.layout, *consts, use_kernel=use_kernel)
+
+    def launch_batch(self, stacked, *, use_kernel: bool = True):
+        return kops.group_topk_agg_multi(self.layout, *stacked, use_kernel=use_kernel)
+
+    def demux(self, out) -> dict[str, torch.Tensor]:
+        return _q3_demux(out)
+
+
+def make_serving_plans(lineitem: Table, orders: Table | None = None, customer: Table | None = None, *,
+                       queries: Iterable[str] | None = None) -> dict[str, ServingPlan]:
+    """Serving plans for every fused query servable over these tables, or
+    for ``queries`` alone (each must be servable: only its layout is built).
+
+    Q12 needs ``orders`` for its join, Q3 ``orders`` and ``customer``;
+    without them only Q1/Q6 (and Q12) are planned.
     """
-    specs: list[tuple[str, tuple[torch.Tensor, torch.Tensor], Any, int, Any]] = [
-        ("q1", _q1_layout(lineitem), q1_program, 6, _q1_demux),
-        ("q6", _q6_layout(lineitem), q6_program, 1, _q6_demux),
-    ]
-    if orders is not None:
-        specs.append(
-            ("q12", _q12_layout(lineitem, orders), q12_program, len(datagen.SHIPMODE), _q12_demux)
-        )
+    servable = ["q1", "q6"] + (["q12"] if orders is not None else []) \
+        + (["q3"] if orders is not None and customer is not None else [])
+    wanted = servable if queries is None else list(queries)
+    if not set(wanted) <= set(servable):
+        raise ValueError(f"cannot plan {sorted(set(wanted) - set(servable))} over these tables")
     plans: dict[str, ServingPlan] = {}
-    for name, (cols, keys), program_fn, num_groups, demux in specs:
+    for name in wanted:
+        if name == "q3":
+            plans[name] = TopKPlan(name, _q3_layout(lineitem, orders, customer))
+            continue
+        layout, program_fn, num_groups, demux = {
+            "q1": (_q1_layout, q1_program, 6, _q1_demux),
+            "q6": (_q6_layout, q6_program, 1, _q6_demux),
+            "q12": (_q12_layout, q12_program, len(datagen.SHIPMODE), _q12_demux),
+        }[name]
+        cols, keys = layout(lineitem, orders) if name == "q12" else layout(lineitem)
         pred_ops, _, agg_ops, _ = program_fn()
-        plans[name] = ServingPlan(
-            name=name,
-            cols=cols,
-            keys=keys,
-            pred_ops=pred_ops,
-            agg_ops=agg_ops,
-            num_groups=num_groups,
-            program=_plan_program(program_fn),
-            demux=demux,
-        )
+        plans[name] = GroupAggPlan(name, cols, keys, pred_ops, agg_ops, num_groups, program_fn, demux)
     return plans
 
 
@@ -347,11 +479,8 @@ def fused_query_serial(
 ) -> dict[str, torch.Tensor]:
     """One request through the single-program kernel — the serving oracle."""
     with span(ENGINE_CONSTS):
-        pred_consts, agg_consts = plan.program(params)
-    out = kops.group_filter_agg(
-        plan.cols, plan.keys, plan.pred_ops, pred_consts, plan.agg_ops, agg_consts,
-        num_groups=plan.num_groups, use_kernel=use_kernel,
-    )
+        consts = plan.program(params)
+    out = plan.launch(consts, use_kernel=use_kernel)
     with span(ENGINE_DEMUX):
         return plan.demux(out)
 
@@ -365,13 +494,8 @@ def fused_query_batch(
     ``fused_query_serial`` on the same constants.
     """
     with span(ENGINE_CONSTS):
-        consts = [plan.program(p) for p in param_list]
-        pred_consts = torch.stack([c[0] for c in consts])
-        agg_consts = torch.stack([c[1] for c in consts])
-    out = kops.group_filter_agg_multi(
-        plan.cols, plan.keys, plan.pred_ops, pred_consts, plan.agg_ops, agg_consts,
-        num_groups=plan.num_groups, use_kernel=use_kernel,
-    )
+        stacked = plan.stack([plan.program(p) for p in param_list])
+    out = plan.launch_batch(stacked, use_kernel=use_kernel)
     # One demux for the batch, then a view per request: the same elementwise
     # values as demultiplexing each slot, at one launch per value instead of
     # one per value and request.

@@ -11,7 +11,8 @@ K1/K2's launches shared by the layout the host gave each program
 tile, and the value columns formed once for all of a launch's programs
 against those formed for each program.  The wrappers of the
 benchmarked TPC-H paths (``group_filter_agg``, ``group_filter_agg_multi``,
-``block_compact``) run inside a ``kernels.<wrapper>`` span (``core.spans``).
+``group_topk_agg``, ``group_topk_agg_multi``, ``block_compact``) run
+inside a ``kernels.<wrapper>`` span (``core.spans``).
 
 Gradients.  The reference differentiates plain jnp: none of its Pallas
 kernels has a backward kernel or a ``custom_vjp``.  So where an input of
@@ -41,11 +42,12 @@ from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import filter_scan, moe_gmm, ref, ssd_scan
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import group_filter_agg as gfa
+from repro_torch.kernels import group_topk_agg as gta
 from repro_torch.kernels import int_matmul as imm
 from repro_torch.kernels import quantize as qz
 
 LAUNCHES: dict[str, int] = {
-    "group_filter_agg": 0, "group_filter_agg_multi": 0,
+    "group_filter_agg": 0, "group_filter_agg_multi": 0, "group_topk_agg": 0, "group_topk_agg_multi": 0,
     "block_compact": 0, "filter_agg": 0, "gmm": 0, "gmm_tc": 0, "flash_attention": 0,
     "decode_attention": 0, "ssd_intra": 0,
     "alu_chain": 0, "int_matmul": 0, "quantize": 0, "dequantize": 0,
@@ -163,6 +165,45 @@ def group_filter_agg_multi(
         LAUNCHES["group_filter_agg_multi"] += 1
         _count_shared(prog)
         return out
+
+
+def _topk_out(out: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(sums, dates, keys) views of K9's ``[..., 3, TOPK]`` output."""
+    return out[..., 0, :], out[..., 1, :], out[..., 2, :].view(torch.int32)
+
+
+def group_topk_agg(layout: gta.Layout, code: int, group_hi: float, row_lo: float, *, use_kernel: bool = True
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One program's grouped filtered sum ranked to its top ``gta.TOPK``
+    (K9) over a :class:`~repro_torch.kernels.group_topk_agg.Layout`: groups
+    whose code is ``code`` and date lies below ``group_hi``, rows of them
+    whose test column lies above ``row_lo``, each group's sum of
+    ``value * (1 - discount)``.  Returns (sums [TOPK] f32, dates [TOPK] f32,
+    keys [TOPK] int32), ranked by sum descending, then date, then key;
+    (0, 0, -1) past the groups that passed."""
+    with spans.span(spans.KERNELS_GROUP_TOPK_AGG):
+        if not _route(layout.rows, use_kernel):
+            return ref.group_topk_agg_ref(layout.rows, layout.keys, layout.dates, layout.codes, layout.starts,
+                                          layout.num_groups, code, group_hi, row_lo, gta.TOPK)
+        out = gta.launch(layout, [code], [group_hi], [row_lo])
+        LAUNCHES["group_topk_agg"] += 1
+        return _topk_out(out[0])
+
+
+def group_topk_agg_multi(layout: gta.Layout, codes: Sequence[int], group_his: Sequence[float],
+                         row_los: Sequence[float], *, use_kernel: bool = True
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Scan-shared batch of ``group_topk_agg``: B <= 8 programs, one pass.
+    Returns ([B, TOPK], [B, TOPK], [B, TOPK]); slot b is bit-equal to the
+    single-program call with program b's constants."""
+    with spans.span(spans.KERNELS_GROUP_TOPK_AGG_MULTI):
+        gta.check_programs(codes, group_his, row_los)
+        if not _route(layout.rows, use_kernel):
+            return ref.group_topk_agg_multi_ref(layout.rows, layout.keys, layout.dates, layout.codes, layout.starts,
+                                                layout.num_groups, codes, group_his, row_los, gta.TOPK)
+        out = gta.launch(layout, codes, group_his, row_los)
+        LAUNCHES["group_topk_agg_multi"] += 1
+        return _topk_out(out)
 
 
 def block_compact(

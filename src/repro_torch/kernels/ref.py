@@ -88,6 +88,68 @@ def group_filter_agg_multi_ref(
     ])
 
 
+def ranked_top_k(
+    sums: torch.Tensor, dates: torch.Tensor, keys: torch.Tensor, hit: torch.Tensor, k: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The ``k`` entries ``hit`` marks, by ``sums`` descending, then ``dates``
+    ascending, then ``keys`` ascending (a total order where keys are
+    unique): (sums [k], dates [k], keys [k] int32), padded with (0, 0, -1)
+    past the entries there are."""
+    idx = hit.nonzero().reshape(-1)
+    for col, desc in ((keys, False), (dates, False), (sums, True)):  # stable sorts, last key first
+        idx = idx[torch.sort(col[idx], descending=desc, stable=True).indices]
+    idx = idx[:k]
+    out = (torch.zeros(k, dtype=sums.dtype, device=sums.device), torch.zeros(k, dtype=dates.dtype, device=sums.device),
+           torch.full((k,), -1, dtype=torch.int32, device=sums.device))
+    for o, col in zip(out, (sums, dates, keys)):
+        o[: idx.numel()] = col[idx].to(o.dtype)
+    return out
+
+
+def group_topk_agg_ref(
+    rows: torch.Tensor,  # [3, >= N] f32: test column, value, discount
+    keys: torch.Tensor,  # [>= G] i32 group keys
+    dates: torch.Tensor,  # [>= G] f32
+    codes: torch.Tensor,  # [>= G] i32
+    starts: torch.Tensor,  # [>= G + 1] i32: group g holds rows [starts[g], starts[g + 1])
+    num_groups: int,
+    code: int,
+    group_hi: float,
+    row_lo: float,
+    k: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K9's function for one program: a group passes where its code is
+    ``code`` and its date lies below ``group_hi``; a row of a passing group
+    where its test column lies above ``row_lo``; a group's sum is its
+    passing rows' ``value * (1 - discount)`` in float32, added from 0 in
+    row order; the groups with a passing row are ranked as
+    :func:`ranked_top_k` ranks them.  The bounds compare in float32."""
+    g = num_groups
+    starts = starts[: g + 1].long()
+    n = int(starts[-1]) if g else 0
+    counts = starts[1:] - starts[:-1]
+    test, value = rows[0, :n], rows[1, :n] * (1.0 - rows[2, :n])
+    keys, dates, codes = keys[:g], dates[:g], codes[:g]
+    group_of = torch.repeat_interleave(torch.arange(g, device=rows.device), counts)
+    passing = ((codes == code) & (dates < group_hi))[group_of] & (test > row_lo)
+    at = torch.arange(n, device=rows.device) - starts[:-1][group_of]  # each row's place in its group
+    sums = torch.zeros(g, dtype=torch.float32, device=rows.device)
+    hit = torch.zeros(g, dtype=torch.bool, device=rows.device)
+    for j in range(int(counts.max()) if g else 0):
+        sel = passing & (at == j)  # at most one row a group: one rounding a group, in row order
+        grp = group_of[sel]
+        sums[grp] = sums[grp] + value[sel]
+        hit[grp] = True
+    return ranked_top_k(sums, dates, keys, hit, k)
+
+
+def group_topk_agg_multi_ref(rows, keys, dates, codes, starts, num_groups, prog_codes, group_his, row_los, k):
+    """Per program, exactly the single-program version: ([B, k], [B, k], [B, k])."""
+    outs = [group_topk_agg_ref(rows, keys, dates, codes, starts, num_groups, c, hi, lo, k)
+            for c, hi, lo in zip(prog_codes, group_his, row_los)]
+    return tuple(torch.stack(t) for t in zip(*outs))
+
+
 def block_compact_ref(
     cols: torch.Tensor,  # [C, N] f32
     mask: torch.Tensor,  # [1, N] or [N]; nonzero selects the row

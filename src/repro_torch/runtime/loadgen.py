@@ -43,7 +43,8 @@ def arrival_times(
 def sample_params(query: str, rng: random.Random) -> dict[str, Any]:
     """Draw one request's constants for ``query``, uniform over the ranges
     the TPC-H spec randomizes (Q1 delta, Q6 year/discount/quantity, Q12
-    year).  Every draw stays within the fused kernels' encodable domain."""
+    year; Q3 segment, an index of ``engine.datagen.MKTSEGMENT``, and day).
+    Every draw stays within the fused kernels' encodable domain."""
     if query == "q1":
         return {"delta_days": float(rng.randint(60, 120))}
     if query == "q6":
@@ -54,6 +55,9 @@ def sample_params(query: str, rng: random.Random) -> dict[str, Any]:
         }
     if query == "q12":
         return {"year": rng.randint(1993, 1997)}
+    if query == "q3":
+        # TPC-H 2.4.3.3: SEGMENT one of the five, DATE a day of 1995-03-01 .. 1995-03-31
+        return {"segment": rng.randrange(5), "day": rng.randint(1, 31)}
     raise ValueError(f"unknown query {query!r}")
 
 

@@ -3,10 +3,11 @@ scan-sharing micro-batches over the fused query kernel.
 
 The scheduler tick drains the admission queue, executes one batched device
 step and retires completions.  N pending requests of one query shape with
-different predicate constants coalesce into one program batch
-(``kernels.ops.group_filter_agg_multi``) over a single pass through the
-column data; per-request results come back de-multiplexed, bit-equal to
-serial execution.
+different predicate constants coalesce into one program batch (the plan's
+batched kernel: ``kernels.ops.group_filter_agg_multi`` for Q1/Q6/Q12,
+``group_topk_agg_multi`` for Q3) over a single pass through the column
+data; per-request results come back de-multiplexed, bit-equal to serial
+execution.
 
 Latency is measured from each request's *scheduled* open-loop arrival time
 — queueing delay included — so an overloaded server shows up as tail

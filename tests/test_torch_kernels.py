@@ -19,6 +19,7 @@ from repro_torch.kernels import block_compact as bc  # noqa: E402
 from repro_torch.kernels import build, filter_scan, moe_gmm, ssd_scan  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import group_topk_agg as gta  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import quantize as qk  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
@@ -349,7 +350,7 @@ def test_flash_attention_rejects_what_the_kernel_cannot_take(q, k, causal):
 
 NEW_SOURCES = {"block_compact": bc, "filter_agg": filter_scan, "gmm": moe_gmm, "flash_attention": fa,
                "decode_attention": da, "ssd_intra": ssd_scan, "alu_chain": alu_chain,
-               "int_matmul": int_matmul, "quantize": qk}
+               "int_matmul": int_matmul, "quantize": qk, "group_topk_agg": gta}
 
 
 @pytest.mark.parametrize("name,module", list(NEW_SOURCES.items()))

@@ -260,7 +260,7 @@ def test_build_targets_hopper_and_hashes_the_source(monkeypatch):
     assert path == build.library_path("group_filter_agg")  # stable for one source
     assert sorted(p.stem for p in build.CSRC.glob("*.cu")) == [
         "alu_chain", "block_compact", "decode_attention", "filter_agg", "flash_attention", "gmm",
-        "group_filter_agg", "int_matmul", "quantize", "ssd_intra",
+        "group_filter_agg", "group_topk_agg", "int_matmul", "quantize", "ssd_intra",
     ]
 
 
