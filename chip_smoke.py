@@ -107,6 +107,7 @@ import json
 import math
 import random
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -984,9 +985,41 @@ def collector_off():
             gc.enable()
 
 
+def consts_times(plans, passes: int = 1000, b: int = 8) -> dict[str, dict[str, float]]:
+    """The host's ms for one pass's constants of ``b`` requests, median over
+    ``passes`` passes a query, untraced: each request's program as tensors,
+    stacked and joined as K2 reads them (the route before the plans packed
+    their constants) against the plan's ``pack``; each pass's two must be
+    the same bits."""
+    from repro_torch.runtime.loadgen import sample_params
+
+    out = {}
+    rng = random.Random(35)
+    with collector_off():
+        for name in ("q1", "q6", "q12"):
+            plan, old, new = plans[name], [], []
+            for _ in range(passes):
+                params = [sample_params(name, rng) for _ in range(b)]
+                t0 = time.perf_counter()
+                consts = [plan.program(p) for p in params]
+                pcs, acs = torch.stack([c[0] for c in consts]), torch.stack([c[1] for c in consts])
+                host = np.concatenate([pcs.numpy().ravel(), acs.numpy().ravel()], dtype=np.float32)
+                t1 = time.perf_counter()
+                packed = plan.pack(params)
+                t2 = time.perf_counter()
+                check(np.array_equal(host.view(np.int32), packed.view(np.int32)), f"{name}: packed != stacked")
+                old.append(t1 - t0)
+                new.append(t2 - t1)
+            out[name] = {"stacked_ms": 1e3 * statistics.median(old), "packed_ms": 1e3 * statistics.median(new)}
+    return out
+
+
 def server_phase(plans):
     """A QueryServer over SF 1 plans, open loop at half its saturation,
-    with its longest step and the longest wait between two steps."""
+    with its longest step and the longest wait between two steps, and the
+    program rows its constants took: every request of a shared scan packed
+    (each padding slot too), every request served alone encoded."""
+    from repro_torch.engine import queries
     from repro_torch.kernels import ops as kops
     from repro_torch.runtime.loadgen import generate_trace
     from repro_torch.runtime.serve_query import QueryServer, measure_saturation, run_open_loop
@@ -997,7 +1030,7 @@ def server_phase(plans):
         server = QueryServer(plans, queue_depth=64, max_batch=8)
         server.warmup(names)
         trace = generate_trace(names, 0.5 * sat, 2.0, arrival="fixed", seed=0)
-        spans, step, shared = [], server.step, set()
+        spans, step, shared, slots = [], server.step, set(), {"packed": 0, "encoded": 0}
 
         def timed(now_fn):
             t0 = time.perf_counter()
@@ -1005,14 +1038,20 @@ def server_phase(plans):
             spans.append((t0, time.perf_counter()))
             if len(out) > 1:
                 shared.update(c.uid for c in out)
+                slots["packed"] += 1 << (len(out) - 1).bit_length()  # padded to a power of two
+            elif out:
+                slots["encoded"] += 1
             return out
 
         server.step = timed
         before, shared_before = dict(kops.LAUNCHES), dict(kops.SHARED_TILE)
+        rows_before = dict(queries.CONST_ROWS)
         calls0 = server.kernel_calls
         report = run_open_loop(server, trace)
     launched = sum(kops.LAUNCHES[k] - before[k] for k in before)
     sharing = {k: kops.SHARED_TILE[k] - shared_before[k] for k in shared_before}
+    rows = {k: queries.CONST_ROWS[k] - rows_before[k] for k in rows_before}
+    check(rows == slots, f"server: program rows {rows}, served slots {slots}")
     steps = server.kernel_calls - calls0
     longest = 1e3 * max(t1 - t0 for t0, t1 in spans)
     waits = [1e3 * (b[0] - a[1]) for a, b in zip(spans, spans[1:])]
@@ -1027,6 +1066,9 @@ def server_phase(plans):
           f"shed 0; {len(shared)}/{len(trace)} requests in shared scans; {steps} steps; {stalls}; "
           f"program slots from a shared tile {sharing['slots']} ({sharing['slots'] / max(steps, 1):.2f} a step), "
           f"value columns formed once {sharing['columns_once']}, per program {sharing['columns_per_program']}",
+          flush=True)
+    print(f"[server] program rows (CONST_ROWS) {json.dumps(rows)}: every slot of a shared scan packed", flush=True)
+    print(f"[server] constants of a pass of 8, host ms (median of 1000): {json.dumps(consts_times(plans))}",
           flush=True)
     return trace, report, shared, launched / max(steps, 1)
 

@@ -26,10 +26,16 @@ import torch
 from repro_torch.core.spans import ENGINE_CONSTS, ENGINE_DEMUX, span
 from repro_torch.engine import datagen, ops
 from repro_torch.engine.table import Table
+from repro_torch.kernels import group_filter_agg as gfa
 from repro_torch.kernels import group_topk_agg as gta
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
-from repro_torch.kernels.group_filter_agg import encode_aggregates, encode_predicates
+from repro_torch.kernels.group_filter_agg import MAX_TERMS, encode_aggregates, encode_predicates
+
+#: K1/K2 program rows of served requests: ``packed`` written from a plan's
+#: ``q*_consts`` into a batch's packed constants (``GroupAggPlan.pack``),
+#: ``encoded`` built as tensors through ``q*_program`` (``GroupAggPlan.program``).
+CONST_ROWS: dict[str, int] = {"packed": 0, "encoded": 0}
 
 
 def _le_bound(cutoff: float) -> float:
@@ -109,24 +115,44 @@ def q12(lineitem: Table, orders: Table, year: int = 1994):
 
 
 # ---------------------------------------------------------------------------
-# Fused variants: each query as one group_filter_agg pass.  The kernel
-# programs are built by per-query ``*_program`` functions so that constants
-# can also be stacked into batch inputs for the scan-sharing serving path
-# (``fused_query_batch``).
+# Fused variants: each query as one group_filter_agg pass.  A request's
+# constants come from the query's ``*_consts`` alone, one flat tuple in the
+# encoders' layout (``pred_consts`` [K, 2], then ``agg_consts``
+# [A, MAX_TERMS], row-major): ``*_program`` puts it in its tables, and the
+# scan-sharing serving path (``fused_query_batch``) packs a batch's tuples
+# into the kernel's constants (``GroupAggPlan.pack``), so both carry the
+# same float32 values.  The predicate and aggregate lists give the opcodes;
+# ``*_consts`` replaces their constants.
+def _program(preds, aggs, consts: tuple[float, ...]):
+    """(pred_ops, pred_consts, agg_ops, agg_consts): the encoders' opcodes
+    of ``preds`` and ``aggs``, the tables of ``consts``."""
+    pred_ops, _ = encode_predicates(preds)
+    agg_ops, _ = encode_aggregates(aggs)
+    k = pred_ops.shape[0]
+    return (pred_ops, torch.tensor(consts[:2 * k], dtype=torch.float32).reshape(k, 2), agg_ops,
+            torch.tensor(consts[2 * k:], dtype=torch.float32).reshape(agg_ops.shape[0], MAX_TERMS))
+
+
+_Q1_PREDS = [("range", 0, None, None)]  # shipdate <= cutoff
+_Q1_AGGS = [
+    [("col", 1)],  # sum_qty
+    [("col", 2)],  # sum_base_price
+    [("col", 2), ("one_minus", 3)],  # sum_disc_price
+    [("col", 2), ("one_minus", 3), ("one_plus", 4)],  # sum_charge
+    [("col", 3)],  # sum_disc
+]
+
+
+def q1_consts(delta_days: float = 90.0) -> tuple[float, ...]:
+    """Q1's constants of one request: shipdate below the bound of
+    ``<= cutoff``; no aggregate reads a constant."""
+    cutoff = datagen.date(1998, 12, 1) - delta_days
+    return (gfa.FLOAT_MIN, _le_bound(cutoff)) + (0.0,) * (MAX_TERMS * len(_Q1_AGGS))
+
+
 def q1_program(delta_days: float = 90.0):
     """Q1's kernel program: (pred_ops, pred_consts, agg_ops, agg_consts)."""
-    cutoff = datagen.date(1998, 12, 1) - delta_days
-    pred = encode_predicates([("range", 0, None, _le_bound(cutoff))])  # shipdate <= cutoff
-    agg = encode_aggregates(
-        [
-            [("col", 1)],  # sum_qty
-            [("col", 2)],  # sum_base_price
-            [("col", 2), ("one_minus", 3)],  # sum_disc_price
-            [("col", 2), ("one_minus", 3), ("one_plus", 4)],  # sum_charge
-            [("col", 3)],  # sum_disc
-        ]
-    )
-    return (*pred, *agg)
+    return _program(_Q1_PREDS, _Q1_AGGS, q1_consts(delta_days))
 
 
 def _q1_layout(lineitem: Table) -> tuple[torch.Tensor, torch.Tensor]:
@@ -169,19 +195,25 @@ def q1_fused(lineitem: Table, delta_days: float = 90.0, use_kernel: bool = True)
     return _q1_demux(out)
 
 
-def q6_program(year: int = 1994, discount: float = 0.06, qty: float = 24.0):
-    """Q6's kernel program: three range predicates + one product-sum."""
+_Q6_PREDS = [
+    ("range", 0, None, None),  # shipdate in the year
+    ("range", 1, None, None),  # discount within 0.011 of the request's
+    ("range", 2, None, None),  # quantity < qty
+]
+_Q6_AGGS = [[("col", 3), ("col", 1)]]  # extendedprice * discount
+
+
+def q6_consts(year: int = 1994, discount: float = 0.06, qty: float = 24.0) -> tuple[float, ...]:
+    """Q6's constants of one request: the three ranges' bounds."""
     lo = datagen.date(year)
     hi = datagen.date(year + 1)
-    pred = encode_predicates(
-        [
-            ("range", 0, lo, hi),
-            ("range", 1, discount - 0.011, discount + 0.011),
-            ("range", 2, None, qty),  # quantity < qty
-        ]
-    )
-    agg = encode_aggregates([[("col", 3), ("col", 1)]])
-    return (*pred, *agg)
+    return (float(lo), float(hi), float(discount - 0.011), float(discount + 0.011), gfa.FLOAT_MIN,
+            float(qty)) + (0.0,) * (MAX_TERMS * len(_Q6_AGGS))
+
+
+def q6_program(year: int = 1994, discount: float = 0.06, qty: float = 24.0):
+    """Q6's kernel program: three range predicates + one product-sum."""
+    return _program(_Q6_PREDS, _Q6_AGGS, q6_consts(year, discount, qty))
 
 
 def _q6_layout(lineitem: Table) -> tuple[torch.Tensor, torch.Tensor]:
@@ -219,24 +251,32 @@ def q6_fused(
     return _q6_demux(out)
 
 
-def q12_program(year: int = 1994):
-    """Q12's kernel program over the joined layout."""
+#: Q12's split of o_orderpriority (the index of 1-URGENT, 2-HIGH, ...):
+#: high at or below it, low above.
+Q12_HIGH_PRIORITY = 1.0
+_Q12_PREDS = [
+    ("lt", 0, 1),  # commitdate < receiptdate
+    ("lt", 2, 0),  # shipdate < commitdate
+    ("range", 1, None, None),  # receiptdate in the year window
+]
+_Q12_AGGS = [
+    [("le", 3, Q12_HIGH_PRIORITY)],  # high priority: 1-URGENT, 2-HIGH
+    [("gt", 3, Q12_HIGH_PRIORITY)],  # low priority
+]
+
+
+def q12_consts(year: int = 1994) -> tuple[float, ...]:
+    """Q12's constants of one request: the compares' unused pair, the
+    year window, each aggregate's priority split."""
     lo = datagen.date(year)
     hi = datagen.date(year + 1)
-    pred = encode_predicates(
-        [
-            ("lt", 0, 1),  # commitdate < receiptdate
-            ("lt", 2, 0),  # shipdate < commitdate
-            ("range", 1, lo, hi),  # receiptdate in the year window
-        ]
-    )
-    agg = encode_aggregates(
-        [
-            [("le", 3, 1.0)],  # high priority: 1-URGENT, 2-HIGH
-            [("gt", 3, 1.0)],  # low priority
-        ]
-    )
-    return (*pred, *agg)
+    split = (Q12_HIGH_PRIORITY,) + (0.0,) * (MAX_TERMS - 1)
+    return (0.0, 0.0, 0.0, 0.0, float(lo), float(hi)) + split * len(_Q12_AGGS)
+
+
+def q12_program(year: int = 1994):
+    """Q12's kernel program over the joined layout."""
+    return _program(_Q12_PREDS, _Q12_AGGS, q12_consts(year))
 
 
 def _q12_layout(lineitem: Table, orders: Table) -> tuple[torch.Tensor, torch.Tensor]:
@@ -362,11 +402,12 @@ class ServingPlan:
     run time, over a layout worked out once (for Q12 and Q3 including the
     joins).
 
-    ``program(params)`` is one request's constants; ``stack(consts)`` those
-    of a batch; ``launch(consts)`` the single-program kernel wrapper's pass
-    on one request's, ``launch_batch(stacked)`` the batched wrapper's on a
-    batch's; ``demux(out)`` turns one output back into the query's result
-    dict, or a batch's into a dict of batched values."""
+    ``program(params)`` is one request's constants; ``pack(param_list)``
+    those of a batch (by default ``stack`` of each request's ``program``);
+    ``launch(consts)`` the single-program kernel wrapper's pass on one
+    request's, ``launch_batch(packed)`` the batched wrapper's on a batch's;
+    ``demux(out)`` turns one output back into the query's result dict, or a
+    batch's into a dict of batched values."""
 
     name: str
 
@@ -376,10 +417,13 @@ class ServingPlan:
     def stack(self, consts: list[Any]) -> Any:
         raise NotImplementedError
 
+    def pack(self, param_list: list[dict[str, Any]]) -> Any:
+        return self.stack([self.program(p) for p in param_list])
+
     def launch(self, consts: Any, *, use_kernel: bool = True) -> Any:
         raise NotImplementedError
 
-    def launch_batch(self, stacked: Any, *, use_kernel: bool = True) -> Any:
+    def launch_batch(self, packed: Any, *, use_kernel: bool = True) -> Any:
         raise NotImplementedError
 
     def demux(self, out: Any) -> dict[str, torch.Tensor]:
@@ -390,8 +434,9 @@ class ServingPlan:
 class GroupAggPlan(ServingPlan):
     """A K1/K2 shape: ``cols``/``keys`` the column layout; ``pred_ops`` /
     ``agg_ops`` the shared opcode structure; ``program_fn(**params)`` the
-    query's ``*_program``; ``demux_fn`` turns one ``[G, A + 1]`` kernel
-    output slot (or a ``[B, G, A + 1]`` batch) into the result dict."""
+    query's ``*_program``, ``consts_fn(**params)`` its ``*_consts``;
+    ``demux_fn`` turns one ``[G, A + 1]`` kernel output slot (or a
+    ``[B, G, A + 1]`` batch) into the result dict."""
 
     name: str
     cols: torch.Tensor
@@ -400,22 +445,27 @@ class GroupAggPlan(ServingPlan):
     agg_ops: torch.Tensor
     num_groups: int
     program_fn: Callable[..., tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]]
+    consts_fn: Callable[..., tuple[float, ...]]
     demux_fn: Callable[[torch.Tensor], dict[str, torch.Tensor]]
 
     def program(self, params: dict[str, Any]) -> tuple[torch.Tensor, torch.Tensor]:
+        CONST_ROWS["encoded"] += 1
         _, pred_consts, _, agg_consts = self.program_fn(**params)
         return pred_consts, agg_consts
 
-    def stack(self, consts):
-        return torch.stack([c[0] for c in consts]), torch.stack([c[1] for c in consts])
+    def pack(self, param_list: list[dict[str, Any]]) -> np.ndarray:
+        """The batch's constants as K2 reads them (``gfa.pack_rows``), each
+        request's row its ``consts_fn`` tuple: no tensor a request."""
+        CONST_ROWS["packed"] += len(param_list)
+        return gfa.pack_rows([self.consts_fn(**p) for p in param_list], self.pred_ops.shape[0])
 
     def launch(self, consts, *, use_kernel: bool = True) -> torch.Tensor:
         return kops.group_filter_agg(self.cols, self.keys, self.pred_ops, consts[0], self.agg_ops, consts[1],
                                      num_groups=self.num_groups, use_kernel=use_kernel)
 
-    def launch_batch(self, stacked, *, use_kernel: bool = True) -> torch.Tensor:
-        return kops.group_filter_agg_multi(self.cols, self.keys, self.pred_ops, stacked[0], self.agg_ops,
-                                           stacked[1], num_groups=self.num_groups, use_kernel=use_kernel)
+    def launch_batch(self, packed: np.ndarray, *, use_kernel: bool = True) -> torch.Tensor:
+        return kops.group_filter_agg_multi(self.cols, self.keys, self.pred_ops, packed, self.agg_ops, None,
+                                           num_groups=self.num_groups, use_kernel=use_kernel)
 
     def demux(self, out: torch.Tensor) -> dict[str, torch.Tensor]:
         return self.demux_fn(out)
@@ -463,14 +513,14 @@ def make_serving_plans(lineitem: Table, orders: Table | None = None, customer: T
         if name == "q3":
             plans[name] = TopKPlan(name, _q3_layout(lineitem, orders, customer))
             continue
-        layout, program_fn, num_groups, demux = {
-            "q1": (_q1_layout, q1_program, 6, _q1_demux),
-            "q6": (_q6_layout, q6_program, 1, _q6_demux),
-            "q12": (_q12_layout, q12_program, len(datagen.SHIPMODE), _q12_demux),
+        layout, program_fn, consts_fn, num_groups, demux = {
+            "q1": (_q1_layout, q1_program, q1_consts, 6, _q1_demux),
+            "q6": (_q6_layout, q6_program, q6_consts, 1, _q6_demux),
+            "q12": (_q12_layout, q12_program, q12_consts, len(datagen.SHIPMODE), _q12_demux),
         }[name]
         cols, keys = layout(lineitem, orders) if name == "q12" else layout(lineitem)
         pred_ops, _, agg_ops, _ = program_fn()
-        plans[name] = GroupAggPlan(name, cols, keys, pred_ops, agg_ops, num_groups, program_fn, demux)
+        plans[name] = GroupAggPlan(name, cols, keys, pred_ops, agg_ops, num_groups, program_fn, consts_fn, demux)
     return plans
 
 
@@ -494,8 +544,8 @@ def fused_query_batch(
     ``fused_query_serial`` on the same constants.
     """
     with span(ENGINE_CONSTS):
-        stacked = plan.stack([plan.program(p) for p in param_list])
-    out = plan.launch_batch(stacked, use_kernel=use_kernel)
+        packed = plan.pack(param_list)
+    out = plan.launch_batch(packed, use_kernel=use_kernel)
     # One demux for the batch, then a view per request: the same elementwise
     # values as demultiplexing each slot, at one launch per value instead of
     # one per value and request.

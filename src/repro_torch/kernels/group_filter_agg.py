@@ -53,8 +53,9 @@ TERM_GT = 5  # cols[i] > const   (0/1 indicator)
 MAX_TERMS = 3
 MAX_AGGS = 127
 
-_FLOAT_MIN = float(torch.finfo(torch.float32).min)
-_FLOAT_MAX = float(torch.finfo(torch.float32).max)
+# The open bounds of a range predicate: below and above.
+FLOAT_MIN = float(torch.finfo(torch.float32).min)
+FLOAT_MAX = float(torch.finfo(torch.float32).max)
 
 
 # ---------------------------------------------------------------------------
@@ -73,8 +74,8 @@ def encode_predicates(preds) -> tuple[torch.Tensor, torch.Tensor]:
             _, col, lo, hi = p
             ops.append((PRED_RANGE, int(col), 0))
             consts.append((
-                _FLOAT_MIN if lo is None else float(lo),
-                _FLOAT_MAX if hi is None else float(hi),
+                FLOAT_MIN if lo is None else float(lo),
+                FLOAT_MAX if hi is None else float(hi),
             ))
         elif kind == "lt":
             _, a, b = p
@@ -84,7 +85,7 @@ def encode_predicates(preds) -> tuple[torch.Tensor, torch.Tensor]:
             raise ValueError(f"unknown predicate kind {kind!r}")
     if not ops:
         ops.append((PRED_RANGE, 0, 0))
-        consts.append((_FLOAT_MIN, _FLOAT_MAX))
+        consts.append((FLOAT_MIN, FLOAT_MAX))
     return torch.tensor(ops, dtype=torch.int32), torch.tensor(consts, dtype=torch.float32)
 
 
@@ -460,17 +461,50 @@ def device_program(device, num_cols: int, pred_ops: torch.Tensor, agg_ops: torch
     return hit
 
 
+def pack_rows(rows, num_preds: int) -> np.ndarray:
+    """B programs' constants as the kernel reads them, from one flat row a
+    program (its ``pred_consts`` [K, 2], then its ``agg_consts``
+    [A, MAX_TERMS], each row-major): one C-contiguous float32 array,
+    ``pred_consts`` [B, K, 2] ravelled and then ``agg_consts``
+    [B, A, MAX_TERMS] ravelled."""
+    s = 2 * num_preds
+    return np.array([c for r in rows for c in r[:s]] + [c for r in rows for c in r[s:]], dtype=np.float32)
+
+
+def packed_programs(packed: np.ndarray, num_preds: int, num_aggs: int) -> int:
+    """The programs whose constants ``packed`` holds (:func:`pack_rows`'s
+    layout); raises unless it is a C-contiguous float32 numpy array of
+    whole programs, at least one."""
+    width = 2 * num_preds + MAX_TERMS * num_aggs
+    if (not isinstance(packed, np.ndarray) or packed.dtype != np.float32 or packed.ndim != 1
+            or not packed.flags.c_contiguous or packed.size < width or packed.size % width):
+        raise ValueError(f"packed constants must be a C-contiguous float32 array of B * {width} values, B >= 1")
+    return packed.size // width
+
+
+def unpack(packed: np.ndarray, num_preds: int, num_aggs: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``pred_consts`` [B, K, 2] and ``agg_consts`` [B, A, MAX_TERMS] of
+    packed constants (:func:`pack_rows`), as tensors that share its memory."""
+    b = packed_programs(packed, num_preds, num_aggs)
+    flat = torch.from_numpy(packed)
+    split = 2 * num_preds * b
+    return flat[:split].view(b, num_preds, 2), flat[split:].view(b, num_aggs, MAX_TERMS)
+
+
 def launch(
     cols: torch.Tensor,  # [C, N] f32 on a CUDA device, rows contiguous
     keys: torch.Tensor,  # [N] or [1, N] i32
     pred_ops: torch.Tensor,  # [K, 3] i32 (host)
-    pred_consts: torch.Tensor,  # [B, K, 2] f32 (host or cols' device)
+    pred_consts,  # [B, K, 2] f32 (host or cols' device), or packed host constants (pack_rows)
     agg_ops: torch.Tensor,  # [A, 6] i32 (host)
-    agg_consts: torch.Tensor,  # [B, A, 3] f32 (host or cols' device)
+    agg_consts: torch.Tensor | None,  # [B, A, 3] f32 (host or cols' device); None with packed constants
     num_groups: int,
 ) -> tuple[torch.Tensor, Program]:
     """Run the CUDA kernel; returns ``[B, num_groups, A + 1]`` f32 on cols'
-    device, and the :class:`Program` it ran."""
+    device, and the :class:`Program` it ran.  Host constants travel in the
+    launch's parameters where they fit, packed as :func:`pack_rows` lays
+    them out (a serving plan's are packed already), else by one pinned copy
+    to the card."""
     if cols.device.type != "cuda":
         raise ValueError(f"the kernel runs on a CUDA tensor, got {cols.device}")
     if cols.dtype != torch.float32 or cols.dim() != 2:
@@ -481,18 +515,23 @@ def launch(
         raise ValueError("keys must be int32 with one entry per row, on cols' device")
     if cols.stride(1) != 1 or (c > 1 and cols.stride(0) < n):
         cols = cols.contiguous()  # the kernel takes any row stride, not a column stride
-    k, a, b = pred_ops.shape[0], agg_ops.shape[0], pred_consts.shape[0]
-    prog = device_program(cols.device, c, pred_ops, agg_ops, num_groups, b)
-    _check_consts(pred_ops, pred_consts, agg_ops, agg_consts)
-    lib = build.bind("group_filter_agg", _SIGNATURES)
-    if pred_consts.device.type == agg_consts.device.type == "cpu" and b * (2 * k + 3 * a) <= _limits(lib)[1]:
-        # Few host constants: they travel in the launch's parameters.
-        host = np.concatenate([pred_consts.numpy().ravel(), agg_consts.numpy().ravel()], dtype=np.float32)
-        out = call(lib, cols, keys.contiguous(), prog, None, k, a, b, num_groups, host_consts=host)
+    k, a = pred_ops.shape[0], agg_ops.shape[0]
+    if agg_consts is None:
+        consts, b = pred_consts, packed_programs(pred_consts, k, a)
     else:
-        consts = torch.cat([pred_consts.reshape(-1), agg_consts.reshape(-1)]).to(torch.float32)
-        out = call(lib, cols, keys.contiguous(), prog, _to_card(consts, cols.device), k, a, b, num_groups)
-    return out, prog
+        _check_consts(pred_ops, pred_consts, agg_ops, agg_consts)
+        b = pred_consts.shape[0]
+        if pred_consts.device.type == agg_consts.device.type == "cpu":
+            consts = np.concatenate([pred_consts.numpy().ravel(), agg_consts.numpy().ravel()], dtype=np.float32)
+        else:
+            consts = torch.cat([pred_consts.reshape(-1), agg_consts.reshape(-1)]).to(torch.float32)
+    prog = device_program(cols.device, c, pred_ops, agg_ops, num_groups, b)
+    lib = build.bind("group_filter_agg", _SIGNATURES)
+    if isinstance(consts, np.ndarray):
+        if consts.size <= _limits(lib)[1]:
+            return call(lib, cols, keys.contiguous(), prog, None, k, a, b, num_groups, host_consts=consts), prog
+        consts = torch.from_numpy(consts)
+    return call(lib, cols, keys.contiguous(), prog, _to_card(consts, cols.device), k, a, b, num_groups), prog
 
 
 def _limits(lib) -> tuple[int, int]:

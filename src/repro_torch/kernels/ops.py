@@ -151,13 +151,17 @@ def group_filter_agg_multi(
     """Scan-shared batch of ``group_filter_agg``: B constant sets, one pass.
 
     ``pred_consts``/``agg_consts`` carry a leading program dimension
-    (``[B, K, 2]`` / ``[B, A, MAX_TERMS]``).  Returns
+    (``[B, K, 2]`` / ``[B, A, MAX_TERMS]``), or ``pred_consts`` holds the B
+    programs' constants packed on the host (``gfa.pack_rows``: a serving
+    plan's ``pack``) and ``agg_consts`` is None.  Returns
     ``[B, num_groups, A + 1]``; slot ``b`` is bit-equal to the
     single-program call with that program's constants.
     """
     with spans.span(spans.KERNELS_GROUP_FILTER_AGG_MULTI):
         _refuse_grad("group_filter_agg_multi", use_kernel, cols, pred_consts, agg_consts)
         if not _route(cols, use_kernel):
+            if agg_consts is None:
+                pred_consts, agg_consts = gfa.unpack(pred_consts, pred_ops.shape[0], agg_ops.shape[0])
             return ref.group_filter_agg_multi_ref(
                 cols, keys, pred_ops, pred_consts, agg_ops, agg_consts, num_groups
             )

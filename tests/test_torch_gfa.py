@@ -128,6 +128,33 @@ def test_launch_raises_on_a_cpu_tensor_before_building(monkeypatch):
         gfa.launch(torch.from_numpy(cols), torch.from_numpy(keys), po, pcs, ao, acs, 5)
 
 
+@pytest.mark.parametrize("b", [1, 3, 8])
+def test_packed_rows_are_the_stacked_programs_joined_and_unpack_to_views(b):
+    """``pack_rows`` lays B flat rows out as K2 reads them (every program's
+    ``pred_consts``, then every program's ``agg_consts``); ``unpack`` gives
+    the stacked tables back as views of the packed array."""
+    _, pcs, _, acs = program(5, c=4, num_preds=2, num_aggs=3, b=b)
+    rows = [tuple(pcs[i].reshape(-1).tolist()) + tuple(acs[i].reshape(-1).tolist()) for i in range(b)]
+    packed = gfa.pack_rows(rows, 2)
+    np.testing.assert_array_equal(packed, np.concatenate([pcs.numpy().ravel(), acs.numpy().ravel()]))
+    pc, ac = gfa.unpack(packed, 2, 3)
+    assert torch.equal(pc, pcs) and torch.equal(ac, acs)
+    packed[-1] += 1.0
+    assert ac.reshape(-1)[-1].item() == packed[-1]
+
+
+@pytest.mark.parametrize("case", ["float64", "two-dimensional", "strided", "part of a program", "none", "tensor"])
+def test_packed_constants_must_be_whole_programs_in_one_float32_array(case):
+    _, pcs, _, acs = program(3, c=4, num_preds=2, num_aggs=3, b=2)
+    packed = np.concatenate([pcs.numpy().ravel(), acs.numpy().ravel()])  # two programs of 2 * 2 + 3 * 3
+    bad = {"float64": packed.astype(np.float64), "two-dimensional": packed.reshape(2, -1),
+           "strided": np.repeat(packed, 2)[::2], "part of a program": packed[:-1], "none": packed[:0],
+           "tensor": torch.from_numpy(packed)}[case]
+    assert gfa.packed_programs(packed, 2, 3) == 2
+    with pytest.raises(ValueError, match="packed constants"):
+        gfa.packed_programs(bad, 2, 3)
+
+
 @pytest.mark.parametrize("case", ["column", "negative column", "opcode", "mode", "too many columns"])
 def test_device_program_rejects_what_the_kernel_cannot_take(case):
     c = 20

@@ -6,7 +6,9 @@ launch of the scan against K1 on each: slot b must be K1's bits, a repeat
 the same bits, the counts exact, and the launch must move the wrapper's
 launch count by one and ``kernels.ops.SHARED_TILE`` by what the host's
 layout says it shares.  Q1's sums of full-precision values must hold
-float64 within 1e-6 relative, which a sum of two bf16 pieces would not."""
+float64 within 1e-6 relative, which a sum of two bf16 pieces would not.
+A serving plan's packed constants must launch K2 to the bits of its
+requests' programs stacked as tensors."""
 from __future__ import annotations
 
 import random
@@ -62,6 +64,30 @@ def test_k2_answers_every_program_from_one_tile_as_k1_does(card, name, b, n):
     want = kops.group_filter_agg_multi(*args, pcs, plan.agg_ops, acs, num_groups=g, use_kernel=False)
     assert torch.equal(got[..., -1], want[..., -1])
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("b", [1, 3, 8, 100])  # 100: more constants than a launch's parameters hold
+@pytest.mark.parametrize("name", ["q1", "q6", "q12"])
+def test_k2_from_a_plan_s_packed_constants_is_k2_from_stacked_tensors(card, name, b):
+    """At SF 1, one launch from a serving plan's packed constants (by value,
+    or past the launch's parameters by one copy to the card) gives the bits
+    of the launch from the requests' programs stacked as tensors."""
+    from repro_torch.kernels import build
+
+    plan = plans(6_001_215)[name]
+    params = [sample_params(name, random.Random(31 * b + i)) for i in range(b)]
+    consts = [plan.program(p) for p in params]
+    pcs, acs = torch.stack([c[0] for c in consts]), torch.stack([c[1] for c in consts])
+    want = kops.group_filter_agg_multi(plan.cols, plan.keys, plan.pred_ops, pcs, plan.agg_ops, acs,
+                                       num_groups=plan.num_groups)
+    packed = plan.pack(params)
+    lib = build.bind("group_filter_agg", gfa._SIGNATURES)
+    assert (packed.size <= lib.group_filter_agg_param_consts()) == (b < 100)
+    kops.reset_launches()
+    got = plan.launch_batch(packed)
+    assert kops.LAUNCHES["group_filter_agg_multi"] == 1
+    assert torch.equal(got, want)
 
 
 def _top16(v: torch.Tensor) -> torch.Tensor:

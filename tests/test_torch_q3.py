@@ -118,6 +118,16 @@ def test_cpu_routes_count_no_launch():
     assert set(kops.LAUNCHES.values()) == {0}
 
 
+def test_q3_batch_keeps_its_constants_path():
+    """Q3's batch packs through its plan's ``stack`` of each request's
+    ``program``, and writes no K1/K2 program row."""
+    _, _, plan = data("clustered")
+    rows = dict(queries.CONST_ROWS)
+    assert plan.pack(PARAMS[:4]) == plan.stack([queries.q3_program(**p) for p in PARAMS[:4]])
+    queries.fused_query_batch(plan, PARAMS[:4])
+    assert queries.CONST_ROWS == rows
+
+
 # -- K9's decomposition, emulated ----------------------------------------------
 def before(a: tuple, b: tuple) -> bool:
     """a ranks before b: (sum, date, key)."""

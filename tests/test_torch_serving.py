@@ -90,6 +90,64 @@ def test_serving_plans_equal_reference(plans_j, plans, name):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+# Every parameter set ``loadgen.sample_params`` draws (Q1's 61 deltas, Q6's
+# 5 years x 8 discounts x 2 quantities, Q12's 5 years), then each query's
+# defaults and the edge values of ``test_torch_queries.py``.
+CONST_GRID = (
+    [("q1", {"delta_days": float(d)}) for d in range(60, 121)]
+    + [("q6", {"year": y, "discount": round(d / 100, 2), "qty": float(q)})
+       for y in range(1993, 1998) for d in range(2, 10) for q in (24, 25)]
+    + [("q12", {"year": y}) for y in range(1993, 1998)]
+    + [("q1", {}), ("q6", {}), ("q12", {}), ("q1", {"delta_days": -10_000.0}),
+       ("q6", {"year": 1996, "discount": 0.03, "qty": 25.0})]
+)
+
+
+def _bits(a) -> np.ndarray:
+    return np.asarray(a, dtype=np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("query", ["q1", "q6", "q12"])
+def test_the_constant_grid_holds_every_draw_of_sample_params(query):
+    grid = [params for name, params in CONST_GRID if name == query]
+    rng = random.Random(23)
+    assert all(loadgen.sample_params(query, rng) in grid for _ in range(2000))
+
+
+@pytest.mark.parametrize("name,params", CONST_GRID, ids=[f"{n}-{'-'.join(map(str, p.values()))}" for n, p in CONST_GRID])
+def test_a_request_s_constants_are_its_program_s_bit_for_bit(plans, name, params):
+    """``q*_consts`` (a plan's packed row) against ``q*_program``'s tables,
+    ravelled and joined: the same float32 bits."""
+    _, pc, _, ac = getattr(queries, f"{name}_program")(**params)
+    want = _bits(np.concatenate([pc.numpy().ravel(), ac.numpy().ravel()]))
+    np.testing.assert_array_equal(_bits(getattr(queries, f"{name}_consts")(**params)), want)
+    np.testing.assert_array_equal(_bits(plans[name].pack([params])), want)
+
+
+@pytest.mark.parametrize("b", range(1, 9))
+@pytest.mark.parametrize("name", ["q1", "q6", "q12"])
+def test_a_packed_batch_is_served_as_its_serial_requests(plans, name, b):
+    """A batch's packed constants are the stacked programs' as K2 reads
+    them (``pred_consts`` of every program, then ``agg_consts``); each
+    packs a row, none encodes one; on the plain route each slot equals its
+    request served alone."""
+    plan = plans[name]
+    param_list = [loadgen.sample_params(name, random.Random(100 * b + i)) for i in range(b)]
+    consts = [plan.program(p) for p in param_list]
+    pcs, acs = torch.stack([c[0] for c in consts]), torch.stack([c[1] for c in consts])
+    packed = plan.pack(param_list)
+    assert packed.dtype == np.float32 and packed.flags.c_contiguous
+    np.testing.assert_array_equal(_bits(packed), _bits(np.concatenate([pcs.numpy().ravel(), acs.numpy().ravel()])))
+    rows = dict(queries.CONST_ROWS)
+    batched = queries.fused_query_batch(plan, param_list, use_kernel=False)
+    assert queries.CONST_ROWS == {"packed": rows["packed"] + b, "encoded": rows["encoded"]}
+    for params, got in zip(param_list, batched, strict=True):
+        want = queries.fused_query_serial(plan, params, use_kernel=False)
+        assert set(want) == set(got)
+        for k in want:
+            assert torch.equal(want[k], got[k]), (name, b, k)
+
+
 def test_plans_without_orders_skip_q12(tables_j):
     assert sorted(queries.make_serving_plans(to_port(tables_j[0]))) == ["q1", "q6"]
 
