@@ -268,13 +268,14 @@ def compare_k1(label, cols, keys, program, num_groups, exact_cols=(), tight=None
 
 def compare_k2(label, cols, keys, pred_ops, pred_consts, agg_ops, agg_consts, num_groups, **tol):
     """K2 against K1 per program (bit-equal), against its plain version, and repeated."""
+    from repro_torch.kernels import group_filter_agg as gfa
     from repro_torch.kernels import ops as kops
 
-    got = kops.group_filter_agg_multi(cols, keys, pred_ops, pred_consts, agg_ops, agg_consts, num_groups=num_groups)
-    want32 = kops.group_filter_agg_multi(
-        cols, keys, pred_ops, pred_consts, agg_ops, agg_consts, num_groups=num_groups, use_kernel=False
-    )
-    again = kops.group_filter_agg_multi(cols, keys, pred_ops, pred_consts, agg_ops, agg_consts, num_groups=num_groups)
+    packed = gfa.pack(pred_ops, pred_consts, agg_ops, agg_consts)
+    got = kops.group_filter_agg_multi(cols, keys, pred_ops, agg_ops, packed, num_groups=num_groups)
+    want32 = kops.group_filter_agg_multi(cols, keys, pred_ops, agg_ops, packed, num_groups=num_groups,
+                                         use_kernel=False)
+    again = kops.group_filter_agg_multi(cols, keys, pred_ops, agg_ops, packed, num_groups=num_groups)
     check(torch.equal(got, again), f"{label}: a repeated launch must give the same bits")
     want64 = torch.stack([
         plain64(cols, keys, (pred_ops, pred_consts[b], agg_ops, agg_consts[b]), num_groups)
@@ -312,6 +313,7 @@ def random_program(rng: random.Random, num_cols: int, num_preds: int, num_aggs: 
 
 def kernel_phase(plans, dev):
     """Every kernel against its plain version: SF 1 programs and edge shapes."""
+    from repro_torch.kernels import group_filter_agg as gfa
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.group_filter_agg import encode_predicates
     from repro_torch.runtime.loadgen import sample_params
@@ -331,8 +333,10 @@ def kernel_phase(plans, dev):
             plan.num_groups, **spec[name],
         )
         shared_before = dict(kops.SHARED_TILE)
-        kops.group_filter_agg_multi(plan.cols, plan.keys, plan.pred_ops, torch.stack([c[0] for c in consts]),
-                                    plan.agg_ops, torch.stack([c[1] for c in consts]), num_groups=plan.num_groups)
+        packed = gfa.pack(plan.pred_ops, torch.stack([c[0] for c in consts]), plan.agg_ops,
+                          torch.stack([c[1] for c in consts]))
+        kops.group_filter_agg_multi(plan.cols, plan.keys, plan.pred_ops, plan.agg_ops, packed,
+                                    num_groups=plan.num_groups)
         sharing = {k: kops.SHARED_TILE[k] - shared_before[k] for k in shared_before}
         print(f"[k2] sf1 {name} batch: one launch answers {sharing['slots']} program slots from each staged tile, "
               f"forms {sharing['columns_once']} value column(s) once and {sharing['columns_per_program']} per "
@@ -985,41 +989,30 @@ def collector_off():
             gc.enable()
 
 
-def consts_times(plans, passes: int = 1000, b: int = 8) -> dict[str, dict[str, float]]:
-    """The host's ms for one pass's constants of ``b`` requests, median over
-    ``passes`` passes a query, untraced: each request's program as tensors,
-    stacked and joined as K2 reads them (the route before the plans packed
-    their constants) against the plan's ``pack``; each pass's two must be
-    the same bits."""
+def pack_times(plans, passes: int = 1000) -> dict[str, dict[str, float]]:
+    """The host's ms for one pass's constants (the plan's ``pack``) of 1
+    and of 8 requests, median over ``passes`` passes a query, untraced."""
     from repro_torch.runtime.loadgen import sample_params
 
     out = {}
     rng = random.Random(35)
     with collector_off():
         for name in ("q1", "q6", "q12"):
-            plan, old, new = plans[name], [], []
-            for _ in range(passes):
-                params = [sample_params(name, rng) for _ in range(b)]
-                t0 = time.perf_counter()
-                consts = [plan.program(p) for p in params]
-                pcs, acs = torch.stack([c[0] for c in consts]), torch.stack([c[1] for c in consts])
-                host = np.concatenate([pcs.numpy().ravel(), acs.numpy().ravel()], dtype=np.float32)
-                t1 = time.perf_counter()
-                packed = plan.pack(params)
-                t2 = time.perf_counter()
-                check(np.array_equal(host.view(np.int32), packed.view(np.int32)), f"{name}: packed != stacked")
-                old.append(t1 - t0)
-                new.append(t2 - t1)
-            out[name] = {"stacked_ms": 1e3 * statistics.median(old), "packed_ms": 1e3 * statistics.median(new)}
+            plan, out[name] = plans[name], {}
+            for b in (1, 8):
+                times = []
+                for _ in range(passes):
+                    params = [sample_params(name, rng) for _ in range(b)]
+                    t0 = time.perf_counter()
+                    plan.pack(params)
+                    times.append(time.perf_counter() - t0)
+                out[name][f"B={b}"] = 1e3 * statistics.median(times)
     return out
 
 
 def server_phase(plans):
     """A QueryServer over SF 1 plans, open loop at half its saturation,
-    with its longest step and the longest wait between two steps, and the
-    program rows its constants took: every request of a shared scan packed
-    (each padding slot too), every request served alone encoded."""
-    from repro_torch.engine import queries
+    with its longest step and the longest wait between two steps."""
     from repro_torch.kernels import ops as kops
     from repro_torch.runtime.loadgen import generate_trace
     from repro_torch.runtime.serve_query import QueryServer, measure_saturation, run_open_loop
@@ -1030,7 +1023,7 @@ def server_phase(plans):
         server = QueryServer(plans, queue_depth=64, max_batch=8)
         server.warmup(names)
         trace = generate_trace(names, 0.5 * sat, 2.0, arrival="fixed", seed=0)
-        spans, step, shared, slots = [], server.step, set(), {"packed": 0, "encoded": 0}
+        spans, step, shared = [], server.step, set()
 
         def timed(now_fn):
             t0 = time.perf_counter()
@@ -1038,20 +1031,14 @@ def server_phase(plans):
             spans.append((t0, time.perf_counter()))
             if len(out) > 1:
                 shared.update(c.uid for c in out)
-                slots["packed"] += 1 << (len(out) - 1).bit_length()  # padded to a power of two
-            elif out:
-                slots["encoded"] += 1
             return out
 
         server.step = timed
         before, shared_before = dict(kops.LAUNCHES), dict(kops.SHARED_TILE)
-        rows_before = dict(queries.CONST_ROWS)
         calls0 = server.kernel_calls
         report = run_open_loop(server, trace)
     launched = sum(kops.LAUNCHES[k] - before[k] for k in before)
     sharing = {k: kops.SHARED_TILE[k] - shared_before[k] for k in shared_before}
-    rows = {k: queries.CONST_ROWS[k] - rows_before[k] for k in rows_before}
-    check(rows == slots, f"server: program rows {rows}, served slots {slots}")
     steps = server.kernel_calls - calls0
     longest = 1e3 * max(t1 - t0 for t0, t1 in spans)
     waits = [1e3 * (b[0] - a[1]) for a, b in zip(spans, spans[1:])]
@@ -1067,8 +1054,7 @@ def server_phase(plans):
           f"program slots from a shared tile {sharing['slots']} ({sharing['slots'] / max(steps, 1):.2f} a step), "
           f"value columns formed once {sharing['columns_once']}, per program {sharing['columns_per_program']}",
           flush=True)
-    print(f"[server] program rows (CONST_ROWS) {json.dumps(rows)}: every slot of a shared scan packed", flush=True)
-    print(f"[server] constants of a pass of 8, host ms (median of 1000): {json.dumps(consts_times(plans))}",
+    print(f"[server] constants of a pass (plan.pack), host ms (median of 1000): {json.dumps(pack_times(plans))}",
           flush=True)
     return trace, report, shared, launched / max(steps, 1)
 
@@ -2301,6 +2287,7 @@ def kernel_device_ms(fn, names=("",), calls=20) -> float:
 
 
 def kernel_entries(plans, name, launches, per_query, per_step, errs):
+    from repro_torch.kernels import group_filter_agg as gfa
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.group_filter_agg import used_columns
     from repro_torch.runtime.loadgen import sample_params
@@ -2312,7 +2299,7 @@ def kernel_entries(plans, name, launches, per_query, per_step, errs):
     pc, ac = plan.program({})
     rng = random.Random(3)
     consts = [plan.program(sample_params("q1", rng)) for _ in range(8)]
-    pcs, acs = torch.stack([c[0] for c in consts]), torch.stack([c[1] for c in consts])
+    packed = gfa.pack(po, torch.stack([c[0] for c in consts]), ao, torch.stack([c[1] for c in consts]))
     g, a = plan.num_groups, ao.shape[0]
 
     def entry(kname, source_line, b, run, run_plain, out, err):
@@ -2341,8 +2328,8 @@ def kernel_entries(plans, name, launches, per_query, per_step, errs):
 
     k1 = lambda: kops.group_filter_agg(cols, keys, po, pc, ao, ac, num_groups=g)  # noqa: E731
     k1p = lambda: kops.group_filter_agg(cols, keys, po, pc, ao, ac, num_groups=g, use_kernel=False)  # noqa: E731
-    k2 = lambda: kops.group_filter_agg_multi(cols, keys, po, pcs, ao, acs, num_groups=g)  # noqa: E731
-    k2p = lambda: kops.group_filter_agg_multi(cols, keys, po, pcs, ao, acs, num_groups=g, use_kernel=False)  # noqa: E731
+    k2 = lambda: kops.group_filter_agg_multi(cols, keys, po, ao, packed, num_groups=g)  # noqa: E731
+    k2p = lambda: kops.group_filter_agg_multi(cols, keys, po, ao, packed, num_groups=g, use_kernel=False)  # noqa: E731
     out1, out2 = k1(), k2()
     return [
         entry("group_filter_agg", "src/repro/kernels/group_filter_agg.py:225", 1, k1, k1p, out1, errs["k1_q1"]),
@@ -2353,6 +2340,7 @@ def kernel_entries(plans, name, launches, per_query, per_step, errs):
 def per_query_times(plans):
     """K1's time on each query's SF 1 program and K2's at B = 8, one call per
     event pair and on the device alone (for PERF.md)."""
+    from repro_torch.kernels import group_filter_agg as gfa
     from repro_torch.kernels import ops as kops
     from repro_torch.runtime.loadgen import sample_params
 
@@ -2361,10 +2349,11 @@ def per_query_times(plans):
         pc, ac = plan.program({})
         rng = random.Random(3)
         consts = [plan.program(sample_params(name, rng)) for _ in range(8)]
-        pcs, acs = torch.stack([c[0] for c in consts]), torch.stack([c[1] for c in consts])
+        packed = gfa.pack(plan.pred_ops, torch.stack([c[0] for c in consts]), plan.agg_ops,
+                          torch.stack([c[1] for c in consts]))
         args = (plan.cols, plan.keys, plan.pred_ops)
         k1 = lambda: kops.group_filter_agg(*args, pc, plan.agg_ops, ac, num_groups=plan.num_groups)  # noqa: E731
-        k2 = lambda: kops.group_filter_agg_multi(*args, pcs, plan.agg_ops, acs, num_groups=plan.num_groups)  # noqa: E731
+        k2 = lambda: kops.group_filter_agg_multi(*args, plan.agg_ops, packed, num_groups=plan.num_groups)  # noqa: E731
         out[name] = {"k1_ms": time_ms(k1), "k1_device_ms": kernel_device_ms(k1, GFA_KERNELS),
                      "k2_b8_ms": time_ms(k2), "k2_b8_device_ms": kernel_device_ms(k2, GFA_KERNELS)}
     return out

@@ -4,10 +4,11 @@
 Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_variants.py                # every section
-    python3 chip_variants.py --only k3 k4   # one or more of k1, k2, server, k6, k5, k7, k8, k3, k4, k8f32, k7f32
+    python3 chip_variants.py --only k3 k4   # one or more of k1, server, k6, k5, k7, k8, k3, k4, k8f32, k7f32
 
 Each variant is a copy of ``src/repro_torch/csrc/<source>.cu`` with a few
-constants edited; the copies are built with the port's own nvcc flags under
+constants edited (an edit whose text is not in the source exactly once
+fails the build); the copies are built with the port's own nvcc flags under
 ``build/variants/`` and loaded through the same C interface as the kernel.
 Every variant is held to the plain version, then all are timed in turns in
 one process (CUDA events: one call per event pair, as ``chip_smoke.py``
@@ -24,18 +25,15 @@ cache rearranged to [B * Hkv, S, 1, dh], so that each head's keys are
 contiguous, to show what the cache layout costs.
 
 K6's CUDA-core kernel (f32) runs at accel_torch large and Granite-3-8B's
-2,048-token prefill beside its first design
-(``csrc/variants/flash_attention_f32_first.cu``, the first C interface),
-SDPA with ``enable_gqa`` and with K/V expanded to Hq heads (each with its
-backend), a block a query tile (balance off), other ring depths, three
-blocks an SM, the score steps and P V keys unrolled further, and exp2f or
-expf for ex2.approx.  The arms marked "diagnostic" leave out the products
-(loads only), one of them, the loads (products only) or the cut rows'
-partials and merges.  Every other arm is held to the plain version (2e-4)
-with a repeat bit-equal and the tickets back at 0, and each is timed one
-call per event pair, back to back and on the card.  accel_torch's attention
-workload then runs through the committed kernel and through the first
-design behind the first design's wrapper, in turns (ops/s and latency).
+2,048-token prefill beside SDPA with ``enable_gqa`` and with K/V expanded
+to Hq heads (each with its backend), a block a query tile (balance off),
+other ring depths, three blocks an SM, the score steps and P V keys
+unrolled further, and exp2f or expf for ex2.approx.  The arms marked
+"diagnostic" leave out the products (loads only), one of them, the loads
+(products only) or the cut rows' partials and merges.  Every other arm is
+held to the plain version (2e-4) with a repeat bit-equal and the tickets
+back at 0, and each is timed one call per event pair, back to back and on
+the card; at accel_torch large the host's time of a call too.
 
 K5 (``gmm``) runs its CUDA-core kernel in f32 at accel_torch large (128 x
 128 tiles, 4 stages, 32-deep tiles) and its tensor-core kernel in bf16 at
@@ -46,84 +44,66 @@ warpgroup whose rows all lie past C; each arm held to the plain version and
 timed beside ``torch.bmm`` and the shape's bound.  Its arms marked
 "diagnostic" leave out the products (loads only) or the loads (products
 on whatever the ring holds) to show where the time goes; their output is
-wrong and is not checked.  An edit whose text is
-not in the source exactly once fails the build of the variants.
+wrong and is not checked.
 
-K1/K2 (``group_filter_agg``) run at TPC-H Q1 at scale factor 1, alone
-(B = 1) and as a batch of 8 programs, beside ``k1 first design``: the
-kernel's first design, kept as ``csrc/variants/group_filter_agg_first.cu``
-with its own C interface, and ``k2 split programs``: the design before
-this one (each program in blocks of its own, per-thread sums in shared
-memory), kept as ``csrc/variants/group_filter_agg_split.cu`` with the C
-interface it had.  Each is held to the plain version summed in float64
-(counts exact, sums within 1e-4, ``sum_qty`` within 1e-6), and K2 to K1
-per slot bit for bit; each is timed one call per event pair, back to back
-and as device time, with its program already on the card.  The designs
-are also timed through their whole wrapper (the first design's packed its
-program on the host and copied it from pageable memory each call), which
-is what a caller pays, and the committed kernel is timed with its
-constants from the host by value in the launch's parameters and by a
-pinned asynchronous copy.  The variants marked "diagnostic" leave out the
-value columns, the products on the tensor cores, or every predicate,
-value and product, to show where the time goes.  Section ``k2`` times the
-split design beside the committed one, as device time a call, on the Q1,
-Q6 and Q12 serving programs at scale factor 1 and 5 and B = 1, 2, 4 and 8,
-each pair of results held together (counts equal, sums within 1e-4).
+K1/K2 (``group_filter_agg``, section ``k1``) run at TPC-H Q1 at scale
+factor 1, alone (B = 1) and as a batch of 8 programs, for the committed
+source (also at 132 and 396 blocks) and its edited copies.  Each is held
+to the plain version summed in float64 (counts exact, sums within 1e-4,
+``sum_qty`` within 1e-6), and K2 to K1 per slot bit for bit; each is
+timed one call per event pair, back to back and as device time, with its
+program and constants already on the card.  The committed kernel is also
+timed with its constants from the host by value in the launch's
+parameters and by a pinned asynchronous copy, and through its whole
+wrapper, which is what a caller pays.  The variants marked "diagnostic"
+leave out the value columns, the products on the tensor cores, or every
+predicate, value and product, to show where the time goes.
 
 K8 (``ssd_intra``, bf16, Mamba2-2.7B's 2,048-token prefill) runs the
-tensor-core kernel with 1, 2, 4 (committed) and 8 heads a block, with
-other launch bounds, with streaming (evict-first) stores, with the decay
+tensor-core kernel with 1, 2, 4 (committed) and 8 heads a block, with other
+launch bounds, with streaming (evict-first) stores, with the decay
 exp(lcum_i - lcum_j) by the fast ``__expf``, with a buffer for every head's
 x instead of a ring of two, with the state's tiles dealt to the warps in
 turn instead of by load, 128 columns wide or with their 16-step loop
-unrolled, and beside ``k8 first design``
-(``csrc/variants/ssd_intra_first.cu``: the first design's CUDA-core kernel,
-which the committed source still runs for float32).  Each is held to the
-plain version within 2e-4 and timed one call per event pair, back to back
-and as device time.  Its variants marked "diagnostic" leave out the
-products: all of them (the loads and stores alone, to show how far the
-state write sets the pace; then also without y's stores, the state's, or
-both, and without the loads), or y's or the state's; or keep the products
-and leave out the loads, the stores (gated on a flag no launch sets, so
-the products stay live) or both.  A fill of y and the
-states (``zero_``: 126 MB written, nothing read) and of the states alone
-gives the card's write floor beside them.
+unrolled.  Each is held to the plain version within 2e-4 and timed one call
+per event pair, back to back and as device time.  Its variants marked
+"diagnostic" leave out the products: all of them (the loads and stores
+alone, to show how far the state write sets the pace; then also without y's
+stores, the state's, or both, and without the loads), or y's or the
+state's; or keep the products and leave out the loads, the stores (gated on
+a flag no launch sets, so the products stay live) or both.  A fill of y and
+the states (``zero_``: 126 MB written, nothing read) and of the states
+alone gives the card's write floor beside them.
 
 K4 (``filter_agg``) and K3 (``block_compact``) run at pushdown scale 1.0:
 K4 on the fused plan's [4, N] columns at selectivity 0.5 and 0.01, K3 on
 the four scanned columns as separate tensors at selectivity 0.5 with the
-task's cap and at 0.1 with cap 1.  Beside the committed kernels run their
-first designs (``csrc/variants/filter_agg_first.cu``,
-``csrc/variants/block_compact_first.cu``, two and four launches), the
-first designs' whole wrappers as a caller paid for them (K3's with the
-``torch.stack`` the compact route made first), the committed wrappers and
-the compact route, and edited copies: other stage counts, rows a thread,
-grids and step sizes, K3's 4-byte stores from the staged rows and streaming
-stores.  The arms marked "diagnostic" leave out work to show where the time
-goes: K4's rows (the loads alone); K3's steps (the count and look-back
-alone, or with the zero tail), its ranks and stores (the loads alone) or
-its stores.  Each K4 arm is held to the float64 sum (count exact, sum
-within 2e-5) and K3's to the plain version with ``torch.equal``, on
-outputs filled with NaN first, and a repeat must be bit-equal with the
-workspace back at 0; then each is timed one call per event pair, back to
-back, and on the card with its device launches a call (torch.profiler).
+task's cap and at 0.1 with cap 1. Beside the committed kernels run the
+committed wrappers and the compact route, and edited copies: other stage
+counts, rows a thread, grids and step sizes, K3's 4-byte stores from the
+staged rows and streaming stores.  The arms marked "diagnostic" leave out
+work to show where the time goes: K4's rows (the loads alone); K3's steps
+(the count and look-back alone, or with the zero tail), its ranks and
+stores (the loads alone) or its stores.  Each K4 arm is held to the float64
+sum (count exact, sum within 2e-5) and K3's to the plain version with
+``torch.equal``, on outputs filled with NaN first, and a repeat must be
+bit-equal with the workspace back at 0; then each is timed one call per
+event pair, back to back, and on the card with its device launches a call
+(torch.profiler).
 
 K8's and K7's float32 CUDA-core kernels (``k8f32``, ``k7f32``) run at the
 full-width shapes (Mamba2-2.7B's 2,048-token prefill, Granite-3-8B's
 long-context decode) and at the float32 route check's (B 2, 128 steps; B 2,
-101 keys), beside their first designs (``csrc/variants/ssd_intra_first.cu``
-on float32 inputs, ``csrc/variants/decode_attention_f32_first.cu`` in two
-launches),
-K8 with 1, 2, 4 and 8 heads a block, other unrolling of its step loops and
-ex2.approx for the decay, K7 with other ring depths and beside SDPA in
-float32 three ways (bool ``kv_len`` mask with ``enable_gqa``, K/V expanded,
-the cache cut to ``kv_len``) with their backends.  Their arms marked
-"diagnostic" leave out work to show where the time goes: K8's loads, stores
-or products (all of them, or C B^T, y's or the state's), the M^T and x * seg
-builds or the head loop's barriers; K7's products and softmax, or the last
-block's combine.  Every other arm is held to the plain version (2e-4) with a
-repeat bit-equal, then each is timed one call per event pair, back to back
-and on the card with its device launches a call.
+101 keys), K8 with 1, 2, 4 and 8 heads a block, other unrolling of its step
+loops and ex2.approx for the decay, K7 with other ring depths and beside
+SDPA in float32 three ways (bool ``kv_len`` mask with ``enable_gqa``, K/V
+expanded, the cache cut to ``kv_len``) with their backends.  Their arms
+marked "diagnostic" leave out work to show where the time goes: K8's loads,
+stores or products (all of them, or C B^T, y's or the state's), the M^T and
+x * seg builds or the head loop's barriers; K7's products and softmax, or
+the last block's combine.  Every other arm is held to the plain version
+(2e-4) with a repeat bit-equal, then each is timed one call per event pair,
+back to back and on the card with its device launches a call.
 
 The ``QueryServer`` runs the smoke's server phase in turns over four arms
 (a batch's results demultiplexed per slot or once, and that with the heap
@@ -142,7 +122,6 @@ import subprocess
 import sys
 from pathlib import Path
 
-import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -192,18 +171,12 @@ VARIANTS = {
 K6_SHAPES = [(1, 2048, 32, 8, 128), (1, 17, 32, 8, 128), (8, 512, 32, 8, 128)]  # B, S, Hq, Hkv, dh; bf16 causal
 # f32 causal: accel_torch large and Granite-3-8B's 2,048-token prefill.
 K6_F32_SHAPES = [(1, 2048, 4, 2, 64), (1, 2048, 32, 8, 128)]
-FIRST_K6 = "variants/flash_attention_f32_first"
-PROBE_K6 = "variants/shared_load_probe"
-PROBE_MODES = ("1 address", "2 (by half-warp)", "4 (one a quarter)", "4 (half x quarter parity)", "16 (lane % 16)",
-               "8 (lane % 8)", "32 (lane)", "32 strided (8-way bank conflict)")
 _K6_STAGES = "  static constexpr int kStages = DH > 64 ? 3 : 2;          // ring chunks: K and V of a tile, or 3 halves"
 _K6_NO_SCORES = ("      scores<T, DH>(sc, qt, kc, rg, kh, cg);",
                  "      for (auto& row : sc) for (float& x : row) x = 0.0f;")
 _K6_NO_PV = ("        pv<T, DH, kOCols>(o, pw, take(0), c, rg, kh, cg);", "        (void)take(0);")
 _K6_EXP = '  float y;  // 2^x\n  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));\n  return y;'
 VARIANTS.update({
-    "k6 f32 first design": (FIRST_K6, []),
-    "k6 shared-load probe": (PROBE_K6, []),
     "k6 f32 balance off (a block a query tile)": ("flash_attention", [("  p.rows = !p.causal;", "  p.rows = 1;")]),
     "k6 f32 3 stages": ("flash_attention", [(_K6_STAGES, "  static constexpr int kStages = 3;")]),
     "k6 f32 4 stages (dh 128: one block an SM)": ("flash_attention", [(_K6_STAGES, "  static constexpr int kStages = 4;")]),
@@ -234,19 +207,14 @@ K5_SHAPE = (4, 2048, 256, 256)  # accel_torch large, f32
 K5_TC_SHAPES = [(16, 8, 4096, 28672), (16, 320, 4096, 28672), (8, 640, 6144, 65536)]
 K7_SHAPE = (8, 4096, 32, 8, 128, 2064)  # B, S, Hq, Hkv, dh, kv_len; bf16
 K7_SPLITS = (256, 512)  # keys a split: the committed split_size at S = 4096, and twice it
-FIRST = "variants/group_filter_agg_first"
-SPLIT = "variants/group_filter_agg_split"  # each program in blocks of its own
 _K1_SUMS = "if (kTiles == 1 && one) {  // one group: the programs are an m16 tile's rows"  # where a tile's products start
 _K1_NO_COLUMNS = ("const int n_groups = head[6] & 0xFFFF, n_shared = head[6] >> 16;",
                   "const int n_groups = 0, n_shared = 0;")
-#: The committed K1/K2 build, which sections k1 and k2 both time.
 GFA_COMMITTED = "k1 committed"
 VARIANTS.update({
-    "k1 first design": (FIRST, []),
     GFA_COMMITTED: ("group_filter_agg", []),
     "k1 3 stages": ("group_filter_agg", [("constexpr int kStages = 2;", "constexpr int kStages = 3;")]),
     "k1 4 rows a lane": ("group_filter_agg", [("constexpr int kRowsPerLane = 8;", "constexpr int kRowsPerLane = 4;")]),
-    "k2 split programs": (SPLIT, []),
     "k1 no value columns (diagnostic)": ("group_filter_agg", [_K1_NO_COLUMNS]),
     "k1 no products (diagnostic)": ("group_filter_agg", [(_K1_SUMS, "if (n >= 0) {} else " + _K1_SUMS)]),
     "k1 loads only (diagnostic)": ("group_filter_agg", [
@@ -256,10 +224,7 @@ VARIANTS.update({
 })
 # Another grid (MAX_BLOCKS = 264 by default, two an SM).
 K1_GRIDS = {GFA_COMMITTED: (132, 396)}
-#: The sections a variant belongs to, where not the first word of its name.
-VARIANT_SECTIONS = {GFA_COMMITTED: ("k1", "k2")}
 K2_B = 8
-FIRST_K8 = "variants/ssd_intra_first"
 K8_SHAPE = (1, 2048, 80, 64, 128, 64)  # B, S, H, P, N, Q: Mamba2-2.7B's 2,048-token prefill, bf16 x/B/C
 _K8_HEADS = "constexpr int kTcHeads = 4;"
 _K8_BOUNDS = "__launch_bounds__(kTcThreads, 3)\nssd_intra_mma_kernel"
@@ -267,7 +232,7 @@ _K8_XALL = ("constexpr int kTcXBufs = 2;", "constexpr int kTcXBufs = kTcHeads;")
 _K8_NO_LOADS = [("    load_tile(s_c, cpitch,", "    if (false) load_tile(s_c, cpitch,"),
                 ("    load_tile(s_b, cpitch,", "    if (false) load_tile(s_b, cpitch,"),
                 ("    load_tile(s_x + buf * qp * xpitch,", "    if (false) load_tile(s_x + buf * qp * xpitch,"),
-                ("? dt[(row0 + i) * h_total + h0 + hh] : 0.0f;", "? 0.0f : 0.0f;")]
+                ("hh < heads ? dt[(row0 + i) * h_total + h0 + hh] : 0.0f;", "hh < heads ? 0.0f : 0.0f;")]
 # Stores gated on a flag bit no launch sets: the products stay (their results
 # are live), the bytes are not written.
 _K8_GATED_STORES = [("          if (64 * half < pp)\n", "          if ((flags & 64) && 64 * half < pp)\n"),
@@ -278,7 +243,6 @@ _K8_NO_CB = ("  if (keep_cb) {", "  if (false) {")
 _K8_NO_Y = ("      for (int jb = 0; jb <= t; ++jb) {", "      for (int jb = 0; jb < 0; ++jb) {")
 _K8_NO_STATE = ("        for (int kt = 0; kt < rt; ++kt) {", "        for (int kt = 0; kt < 0; ++kt) {")
 VARIANTS.update({
-    "k8 first design": (FIRST_K8, []),
     "k8 committed": ("ssd_intra", []),
     "k8 1 head a block": ("ssd_intra", [(_K8_HEADS, "constexpr int kTcHeads = 1;")]),
     "k8 2 heads a block": ("ssd_intra", [(_K8_HEADS, "constexpr int kTcHeads = 2;")]),
@@ -312,7 +276,6 @@ VARIANTS.update({
     "k8 no state products (diagnostic)": ("ssd_intra", [_K8_NO_STATE]),
 })
 # float32 K8 (ssd_intra_f32_kernel) and K7 (decode_f32_kernel) at full width.
-FIRST_K7F32 = "variants/decode_attention_f32_first"
 K8F32_SHAPES = [(1, 2048, 80, 64, 128, 64), (2, 128, 80, 64, 128, 64)]  # Mamba2's prefill; the float32 route's
 K7F32_SHAPES = [(8, 4096, 32, 8, 128, 2064), (2, 256, 32, 8, 128, 101)]  # Granite's long decode; the route's
 _K8F32_HEADS = "  const int hpb = f32_block_heads(h, s / q);"
@@ -338,7 +301,6 @@ _K7F32_NO_LOADS = ("      hopper::cp_async16(dst + half * kT * DH + 4 * f32_chun
                    "      if (s < 0) hopper::cp_async16(dst + half * kT * DH + 4 * f32_chunk<DH, kG>(r, col / 4), (half ? v : k) + off,")
 VARIANTS.update({
     "k8f32 committed": ("ssd_intra", []),
-    "k8f32 first design": (FIRST_K8, []),
     **{f"k8f32 {k} heads a block": ("ssd_intra", [(_K8F32_HEADS, f"  const int hpb = min({k}, h);")])
        for k in (1, 2, 4, 5, 8)},
     "k8f32 up to 8 heads a block (5 at Mamba2's prefill)": ("ssd_intra", [
@@ -370,7 +332,6 @@ VARIANTS.update({
     "k8f32 no decay exponentials (diagnostic)": ("ssd_intra", [(
         "cb[k][kk], decay_exp(__fsub_rn(li[k], lj))", "cb[k][kk], __fsub_rn(li[k], lj)")]),
     "k7f32 committed": ("decode_attention", []),
-    "k7f32 first design": (FIRST_K7F32, []),
     "k7f32 2 stages": ("decode_attention", [("constexpr int kF32Stages = 3;", "constexpr int kF32Stages = 2;")]),
     "k7f32 4 stages": ("decode_attention", [("constexpr int kF32Stages = 3;", "constexpr int kF32Stages = 4;")]),
     "k7f32 loads only (diagnostic)": ("decode_attention", [_K7F32_NO_PRODUCTS]),
@@ -380,15 +341,12 @@ VARIANTS.update({
         "  // Arrival: the last of the sequence's valid splits combines them in split\n"
         "  // order and sets the counter back to 0.\n", "  if (s > 0) return;\n")]),
 })
-FIRST_K4 = "variants/filter_agg_first"
-FIRST_K3 = "variants/block_compact_first"
 _K4_STAGES = "constexpr int kStages = 4;"
 _K4_ROWS = "constexpr int kRowsPerThread = 8;"
 _K3_NO_STEPS = [("    for (int64_t i = 0; i < steps; ++i) {", "    for (int64_t i = 0; i < 0; ++i) {"),
                 ("  for (int64_t i = 0; i < my_steps; ++i) {", "  for (int64_t i = 0; i < 0; ++i) {")]
 _K3_NO_ZEROS = ("  for (int j = 0; j < c; ++j) zero_range(", "  for (int j = 0; j < 0; ++j) zero_range(")
 VARIANTS.update({
-    "k4 first design": (FIRST_K4, []),
     "k4 committed": ("filter_agg", []),
     "k4 2 stages": ("filter_agg", [(_K4_STAGES, "constexpr int kStages = 2;")]),
     "k4 6 stages (two blocks an SM)": ("filter_agg", [(_K4_STAGES, "constexpr int kStages = 6;")]),
@@ -402,7 +360,6 @@ VARIANTS.update({
         (_K4_ROWS, "constexpr int kRowsPerThread = 4;"), (_K4_STAGES, "constexpr int kStages = 8;")]),
     "k4 loads only (diagnostic)": ("filter_agg", [("      const bool pass = tid + local < rows && ",
                                                    "      const bool pass = false && ")]),
-    "k3 first design": (FIRST_K3, []),
     "k3 committed": ("block_compact", []),
     "k3 64 threads (1,024-row steps)": ("block_compact", [("constexpr int kThreads = 128;",
                                                             "constexpr int kThreads = 64;")]),
@@ -431,41 +388,6 @@ VARIANTS.update({
          "          if (cap < 0 && j0 + jj < j1) pk[jj * (kStepRows + 4) + shift[jj] + r] = "),
         ("        if (j0 + jj >= j1) continue;\n", "        if (true) continue;\n"), _K3_NO_ZEROS]),
 })
-_I64, _I32, _PTR = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
-_F32 = ctypes.c_float
-K4_FIRST_SIGNATURES = {
-    "filter_agg_blocks": ([_I64], _I64),
-    "filter_agg_error_string": ([_I32], ctypes.c_char_p),
-    "filter_agg_launch": ([_PTR, _I64, _F32, _F32, _F32, _F32, _PTR, _PTR, _I64, _PTR, _PTR], _I32),
-}
-K3_FIRST_SIGNATURES = {
-    "block_compact_tiles": ([_I64], _I64),
-    "block_compact_error_string": ([_I32], ctypes.c_char_p),
-    "block_compact_launch": ([_PTR, _PTR, _I64, _I32, _I64, _PTR, _PTR, _PTR, _PTR, _PTR], _I32),
-}
-K6_FIRST_SIGNATURES = {
-    "flash_attention_error_string": ([_I32], ctypes.c_char_p),
-    "flash_attention_launch": ([_PTR] * 4 + [_I32] * 8 + [_F32, _PTR], _I32),
-}
-PROBE_SIGNATURES = {"shared_load_probe": ([_I32, _I32, _I32], _F32)}
-K8_FIRST_SIGNATURES = {
-    "ssd_intra_error_string": ([_I32], ctypes.c_char_p),
-    "ssd_intra_launch": ([_PTR] * 7 + [_I32] * 7 + [_PTR], _I32),
-}
-# The C interface of the split design (and of the committed kernel before
-# its programs shared a tile).
-SPLIT_SIGNATURES = {
-    "group_filter_agg_tile_rows": ([], _I32),
-    "group_filter_agg_param_consts": ([], _I32),
-    "group_filter_agg_error_string": ([_I32], ctypes.c_char_p),
-    "group_filter_agg_launch": (
-        [_PTR, _I64, _PTR, _I64, _PTR, _PTR, _PTR, _I32, _I32, _I32, _I32, _I32, _PTR, _I64, _PTR, _PTR], _I32),
-}
-FIRST_SIGNATURES = {
-    "group_filter_agg_blocks": ([_I64, _I64], _I64),
-    "group_filter_agg_error_string": ([_I32], ctypes.c_char_p),
-    "group_filter_agg_launch": ([_PTR, _PTR, _I64, _PTR, _I32, _I32, _I32, _I32, _PTR, _I64, _PTR, _PTR], _I32),
-}
 
 
 def build_variants(out_dir: Path) -> dict[str, ctypes.CDLL]:
@@ -481,11 +403,11 @@ def build_variants(out_dir: Path) -> dict[str, ctypes.CDLL]:
         shutil.copy(header, out_dir / header.name)
     procs = {}
     for i, (name, (src, edits)) in enumerate(VARIANTS.items()):
-        if not set(VARIANT_SECTIONS.get(name, (name.split()[0],))) & set(SECTIONS):
+        if name.split()[0] not in SECTIONS:
             continue
         text = (build.CSRC / f"{src}.cu").read_text()
         for old, new in edits:
-            if old not in text or (name.startswith(("k3", "k4", "k5", "k8", "k6 f32", "k7f32")) and text.count(old) != 1):
+            if text.count(old) != 1:
                 raise RuntimeError(f"{name}: {old!r} is not in {src}.cu once")
             text = text.replace(old, new)
         cu = out_dir / f"v{i}.cu"
@@ -499,16 +421,11 @@ def build_variants(out_dir: Path) -> dict[str, ctypes.CDLL]:
             raise RuntimeError(f"{name}: nvcc failed\n{log}")
         spilled = [line.strip() for line in log.splitlines() if "spill stores" in line and " 0 bytes spill" not in line]
         print(f"[build] {name}: {len(spilled)} function(s) spill: {spilled}", flush=True)
-        if name.startswith(("k1", "k2", "k3", "k4", "k5", "k8", "k6 f32", "k7f32")):
+        if name.startswith(("k1", "k3", "k4", "k5", "k8", "k6 f32", "k7f32")):
             print(f"[build] {name}: {json.dumps(ptxas_report(log))}", flush=True)
         lib = ctypes.CDLL(str(out_dir / f"libv{i}.so"))
-        signatures = {FIRST: FIRST_SIGNATURES, SPLIT: SPLIT_SIGNATURES, FIRST_K8: K8_FIRST_SIGNATURES,
-                      FIRST_K4: K4_FIRST_SIGNATURES,
-                      FIRST_K7F32: da._SIGNATURES,
-                      FIRST_K3: K3_FIRST_SIGNATURES, FIRST_K6: K6_FIRST_SIGNATURES,
-                      PROBE_K6: PROBE_SIGNATURES}.get(src) or {
-            "flash_attention": fa, "gmm": moe_gmm, "decode_attention": da, "group_filter_agg": gfa,
-            "ssd_intra": ssd_scan, "filter_agg": filter_scan, "block_compact": bc}[src]._SIGNATURES
+        signatures = {"flash_attention": fa, "gmm": moe_gmm, "decode_attention": da, "group_filter_agg": gfa,
+                      "ssd_intra": ssd_scan, "filter_agg": filter_scan, "block_compact": bc}[src]._SIGNATURES
         for fn, (argtypes, restype) in signatures.items():
             getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, restype
         libs[name] = lib
@@ -530,44 +447,6 @@ def burst_ms(fn, calls: int = 10, reps: int = 7) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return sorted(times)[reps // 2]
-
-
-def first_prog(pred_ops, pred_consts, agg_ops, agg_consts, device):
-    """The first design's packed program: ops, then the consts' float bits."""
-    return torch.cat([pred_ops.reshape(-1), agg_ops.reshape(-1), pred_consts.reshape(-1).view(torch.int32),
-                      agg_consts.reshape(-1).view(torch.int32)]).to(device)
-
-
-def first_call(lib, cols, keys, prog, k, a, b, g):
-    """One launch of the first design (its wrapper's work after the program copy)."""
-    n = cols.shape[1]
-    blocks = int(lib.group_filter_agg_blocks(n, g * (a + 1)))
-    partials = torch.empty(blocks * b * g * (a + 1), dtype=torch.float32, device=cols.device)
-    out = torch.empty((b, g, a + 1), dtype=torch.float32, device=cols.device)
-    err = lib.group_filter_agg_launch(cols.data_ptr(), keys.data_ptr(), n, prog.data_ptr(), k, a, g, b,
-                                      partials.data_ptr(), blocks, out.data_ptr(),
-                                      torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"first design: launch failed ({err})")
-    return out
-
-
-def split_call(lib, cols, keys, prog, consts, k, a, b, g):
-    """One launch of the split design (the committed wrapper's call before
-    the programs shared a tile): grid blocks x B, the constants on the card."""
-    from repro_torch.kernels import group_filter_agg as gfa
-
-    n = cols.shape[1]
-    blocks = min(384, max(1, min(-(-n // int(lib.group_filter_agg_tile_rows())),
-                                 gfa.PARTIAL_BUDGET_BYTES // (g * (a + 1) * 4))))
-    partials = torch.empty(blocks * b * g * (a + 1), dtype=torch.float32, device=cols.device)
-    out = torch.empty((b, g, a + 1), dtype=torch.float32, device=cols.device)
-    err = lib.group_filter_agg_launch(cols.data_ptr(), cols.stride(0), keys.data_ptr(), n, prog.words.data_ptr(),
-                                      consts.data_ptr(), None, prog.used, k, a, g, b, partials.data_ptr(), blocks,
-                                      out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"split design: launch failed ({err})")
-    return out
 
 
 def with_max_blocks(blocks, fn):
@@ -598,38 +477,26 @@ def k1_k2_variants(libs, dev):
     plan = queries.make_serving_plans(datagen.lineitem(gen, scale=1.0, device=dev))["q1"]
     cols, keys, po, ao, g = plan.cols, plan.keys, plan.pred_ops, plan.agg_ops, plan.num_groups
     rng = random.Random(3)
-    consts = [plan.program({})] + [plan.program(sample_params("q1", rng)) for _ in range(K2_B - 1)]
-    pcs, acs = torch.stack([c[0] for c in consts]), torch.stack([c[1] for c in consts])
     k, a = po.shape[0], ao.shape[0]
+    packed = plan.pack([{}] + [sample_params("q1", rng) for _ in range(K2_B - 1)])
+    pcs, acs = gfa.unpack(packed, k, a)
     want64 = torch.stack([plain64(cols, keys, (po, pcs[i], ao, acs[i]), g) for i in range(K2_B)])
-    want32 = kops.group_filter_agg_multi(cols, keys, po, pcs, ao, acs, num_groups=g, use_kernel=False)
+    want32 = kops.group_filter_agg_multi(cols, keys, po, ao, packed, num_groups=g, use_kernel=False)
     progs_on_card = {bb: gfa.device_program(cols.device, cols.shape[0], po, ao, g, bb) for bb in (1, K2_B)}
-    dconsts = {bb: torch.cat([pcs[:bb].reshape(-1), acs[:bb].reshape(-1)]).to(dev) for bb in (1, K2_B)}
-    progs = {bb: first_prog(po, pcs[:bb], ao, acs[:bb], dev) for bb in (1, K2_B)}
-    singles = {i: first_prog(po, pcs[i:i + 1], ao, acs[i:i + 1], dev) for i in range(K2_B)}
+    dconsts = {bb: torch.from_numpy(gfa.pack(po, pcs[:bb], ao, acs[:bb])).to(dev) for bb in (1, K2_B)}
+    singles = [torch.from_numpy(gfa.pack(po, pcs[i:i + 1], ao, acs[i:i + 1])).to(dev) for i in range(K2_B)]
     calls = {bb: {} for bb in (1, K2_B)}
     for name, lib in libs.items():
-        if not name.startswith(("k1", "k2")):
+        if not name.startswith("k1"):
             continue
         grids = [None, *K1_GRIDS.get(name, ())]
         for blocks in grids:
             label = name if blocks is None else f"{name}, {blocks} blocks"
             for bb in (1, K2_B):
-                if name == "k1 first design":
-                    run = lambda lib=lib, bb=bb: first_call(lib, cols, keys, progs[bb], k, a, bb, g)  # noqa: E731
-                    one = lambda i, lib=lib: first_call(lib, cols, keys, singles[i], k, a, 1, g)  # noqa: E731
-                elif name == "k2 split programs":
-                    run = lambda lib=lib, bb=bb: split_call(  # noqa: E731
-                        lib, cols, keys, progs_on_card[bb], dconsts[bb], k, a, bb, g)
-                    one = lambda i, lib=lib: split_call(  # noqa: E731
-                        lib, cols, keys, progs_on_card[1], torch.cat([pcs[i].reshape(-1), acs[i].reshape(-1)]).to(dev),
-                        k, a, 1, g)
-                else:
-                    run = with_max_blocks(blocks, lambda lib=lib, bb=bb: gfa.call(
-                        lib, cols, keys, progs_on_card[bb], dconsts[bb], k, a, bb, g))
-                    one = lambda i, lib=lib, blocks=blocks: with_max_blocks(blocks, lambda: gfa.call(  # noqa: E731
-                        lib, cols, keys, progs_on_card[1], torch.cat([pcs[i].reshape(-1), acs[i].reshape(-1)]).to(dev),
-                        k, a, 1, g))()
+                run = with_max_blocks(blocks, lambda lib=lib, bb=bb: gfa.call(
+                    lib, cols, keys, progs_on_card[bb], dconsts[bb], k, a, bb, g))
+                one = lambda i, lib=lib, blocks=blocks: with_max_blocks(blocks, lambda: gfa.call(  # noqa: E731
+                    lib, cols, keys, progs_on_card[1], singles[i], k, a, 1, g))()
                 got = run()
                 calls[bb][label] = run
                 if "diagnostic" in name:  # leaves out part of the work: its output is wrong
@@ -641,28 +508,21 @@ def k1_k2_variants(libs, dev):
                     raise RuntimeError(f"{label}: K2 differs from K1 on a slot")
     # The routes of the constants from the host, at the committed kernel:
     # by value in the launch's parameters, against pinned memory and an
-    # asynchronous copy (what launch() does with a table too large to go by
-    # value).
+    # asynchronous copy (what launch() does with constants too many to go
+    # by value).
     lib = libs[GFA_COMMITTED]
     for bb in (1, K2_B):
-        p_, a_ = pcs[:bb], acs[:bb]
-        calls[bb]["constants by value"] = lambda lib=lib, p_=p_, a_=a_, bb=bb: gfa.call(
-            lib, cols, keys, progs_on_card[bb], None, k, a, bb, g,
-            host_consts=np.concatenate([p_.numpy().ravel(), a_.numpy().ravel()], dtype=np.float32))
-        calls[bb]["constants by pinned copy"] = lambda lib=lib, p_=p_, a_=a_, bb=bb: gfa.call(
-            lib, cols, keys, progs_on_card[bb], gfa._to_card(torch.cat([p_.reshape(-1), a_.reshape(-1)]), cols.device),
-            k, a, bb, g)
+        host = gfa.pack(po, pcs[:bb], ao, acs[:bb])
+        calls[bb]["constants by value"] = lambda lib=lib, host=host, bb=bb: gfa.call(
+            lib, cols, keys, progs_on_card[bb], host, k, a, bb, g)
+        calls[bb]["constants by pinned copy"] = lambda lib=lib, host=host, bb=bb: gfa.call(
+            lib, cols, keys, progs_on_card[bb], gfa._to_card(torch.from_numpy(host), cols.device), k, a, bb, g)
         for route in ("constants by value", "constants by pinned copy"):
             if not torch.equal(calls[bb][route](), calls[bb][GFA_COMMITTED]()):
                 raise RuntimeError(f"{route} B={bb}: differs from the constants on the card")
-    # Whole wrappers, as a caller pays: the committed one, and the first
-    # design's (its program packed on the host and copied from pageable
-    # memory each call).
-    first = libs["k1 first design"]
+    # The whole wrappers, as a caller pays.
     calls[1]["wrapper committed"] = lambda: kops.group_filter_agg(cols, keys, po, pcs[0], ao, acs[0], num_groups=g)
-    calls[1]["wrapper first design"] = lambda: first_call(first, cols, keys, first_prog(po, pcs[:1], ao, acs[:1], dev), k, a, 1, g)
-    calls[K2_B]["wrapper committed"] = lambda: kops.group_filter_agg_multi(cols, keys, po, pcs, ao, acs, num_groups=g)
-    calls[K2_B]["wrapper first design"] = lambda: first_call(first, cols, keys, first_prog(po, pcs, ao, acs, dev), k, a, K2_B, g)
+    calls[K2_B]["wrapper committed"] = lambda: kops.group_filter_agg_multi(cols, keys, po, ao, packed, num_groups=g)
     print(f"[variants] k1/k2 q1 sf1: every variant within {SUM_RTOL} of the float64 sums (sum_qty "
           f"{SUM_QTY_RTOL}), counts exact, K2 == K1 per slot, repeats equal", flush=True)
     for bb, fns in calls.items():
@@ -673,40 +533,6 @@ def k1_k2_variants(libs, dev):
         print(f"[variants] k1/k2 q1 sf1 B={bb}, [single-call ms, burst ms] x2: {json.dumps(res)}", flush=True)
         print(f"[variants] k1/k2 q1 sf1 B={bb} device ms a call (torch.profiler): "
               f"{json.dumps({name: kernel_device_ms(fn, GFA_KERNELS) for name, fn in fns.items()})}", flush=True)
-
-
-def k2_designs(libs, dev):
-    """The split design beside the committed one: device ms a call on the
-    Q1, Q6 and Q12 serving programs at scale factor 1 and 5, B = 1, 2, 4, 8."""
-    from chip_smoke import GFA_KERNELS, kernel_device_ms
-    from repro_torch.engine import datagen, queries
-    from repro_torch.kernels import group_filter_agg as gfa
-    from repro_torch.runtime.loadgen import sample_params
-
-    split, committed = libs["k2 split programs"], libs[GFA_COMMITTED]
-    for scale in (1.0, 5.0):
-        gen = torch.Generator(device=dev).manual_seed(0)
-        plans = queries.make_serving_plans(datagen.lineitem(gen, scale=scale, device=dev),
-                                           datagen.orders(gen, scale=scale, device=dev))
-        table = {}
-        for name, plan in plans.items():
-            cols, keys, po, ao, g = plan.cols, plan.keys, plan.pred_ops, plan.agg_ops, plan.num_groups
-            k, a = po.shape[0], ao.shape[0]
-            rng = random.Random(5)
-            consts = [plan.program(sample_params(name, rng)) for _ in range(8)]
-            for bb in (1, 2, 4, 8):
-                dc = torch.cat([torch.stack([c[0] for c in consts[:bb]]).reshape(-1),
-                                torch.stack([c[1] for c in consts[:bb]]).reshape(-1)]).to(dev)
-                prog = gfa.device_program(cols.device, cols.shape[0], po, ao, g, bb)
-                runs = {"split": lambda: split_call(split, cols, keys, prog, dc, k, a, bb, g),  # noqa: E731
-                        "committed": lambda: gfa.call(committed, cols, keys, prog, dc, k, a, bb, g)}  # noqa: E731
-                want, got = runs["split"](), runs["committed"]()
-                if not (torch.equal(want[..., -1], got[..., -1]) and torch.allclose(got, want, rtol=1e-4, atol=0)):
-                    raise RuntimeError(f"k2 designs: {name} sf {scale:g} B={bb}: the two designs disagree")
-                table[f"{name} B={bb}"] = {arm: round(kernel_device_ms(fn, GFA_KERNELS), 4) for arm, fn in runs.items()}
-        print(f"[variants] k2 split vs committed, sf {scale:g}, device ms a call: {json.dumps(table)}", flush=True)
-        del plans
-        torch.cuda.empty_cache()
 
 
 def k8_variants(libs, dev):
@@ -734,8 +560,8 @@ def k8_variants(libs, dev):
             continue
         y = torch.empty((b, s, h, p), dtype=torch.float32, device=dev)
         st = torch.empty((b, s // q, h, p, n), dtype=torch.float32, device=dev)
-        tail = [1, stream] if name == "k8 first design" else [1, ssd_scan.chunk_width(q, p, n), stream]
-        args = [t.data_ptr() for t in (x, bm, cm, dt, a, y, st)] + [b, s, h, p, n, q] + tail
+        args = [t.data_ptr() for t in (x, bm, cm, dt, a, y, st)] + [b, s, h, p, n, q, 1, ssd_scan.chunk_width(q, p, n),
+                                                                    stream]
 
         def run(lib=lib, args=args, y=y, st=st):
             err = lib.ssd_intra_launch(*args)
@@ -801,42 +627,19 @@ def k4_variants(libs, dev):
         s64, n64 = filter64(cols, lo, hi, -1.0, 1.0)
         calls = {"plain": lambda: kops.filter_agg(cols, lo, hi, -1.0, 1.0, use_kernel=False),
                  "wrapper committed": lambda: kops.filter_agg(cols, lo, hi, -1.0, 1.0)}
-        first = libs["k4 first design"]
-
-        def first_wrapper():  # the first design's wrapper: its partials and output allocated each call
-            blocks = int(first.filter_agg_blocks(n))
-            sums = torch.empty(blocks, dtype=torch.float32, device=dev)
-            cnts = torch.empty(blocks, dtype=torch.int64, device=dev)
-            out = torch.empty(2, dtype=torch.float32, device=dev)
-            checked("k4 wrapper first design", first, "filter_agg", first.filter_agg_launch(
-                cols.data_ptr(), n, lo, hi, -1.0, 1.0, sums.data_ptr(), cnts.data_ptr(), blocks, out.data_ptr(),
-                torch.cuda.current_stream().cuda_stream))
-            return out
-
-        calls["wrapper first design"] = first_wrapper
         for name, lib in libs.items():
             if not name.startswith("k4"):
                 continue
             out = torch.empty(2, dtype=torch.float32, device=dev)
-            if name == "k4 first design":
-                blocks = int(lib.filter_agg_blocks(n))
-                sums = torch.empty(blocks, dtype=torch.float32, device=dev)
-                cnts = torch.empty(blocks, dtype=torch.int64, device=dev)
+            blocks = max(1, min(-(-n // lib.filter_agg_tile_rows()), lib.filter_agg_max_blocks()))
+            ws = torch.zeros(lib.filter_agg_workspace_bytes(), dtype=torch.uint8, device=dev)
 
-                def run(lib=lib, out=out, blocks=blocks, sums=sums, cnts=cnts, name=name):
-                    checked(name, lib, "filter_agg", lib.filter_agg_launch(
-                        cols.data_ptr(), n, lo, hi, -1.0, 1.0, sums.data_ptr(), cnts.data_ptr(), blocks,
-                        out.data_ptr(), stream))
-                    return out
-            else:
-                blocks = max(1, min(-(-n // lib.filter_agg_tile_rows()), lib.filter_agg_max_blocks()))
-                ws = torch.zeros(lib.filter_agg_workspace_bytes(), dtype=torch.uint8, device=dev)
+            def run(lib=lib, out=out, blocks=blocks, ws=ws, name=name):
+                checked(name, lib, "filter_agg", lib.filter_agg_launch(
+                    cols.data_ptr(), cols.stride(0), n, lo, hi, -1.0, 1.0, ws.data_ptr(), blocks,
+                    out.data_ptr(), stream))
+                return out
 
-                def run(lib=lib, out=out, blocks=blocks, ws=ws, name=name):
-                    checked(name, lib, "filter_agg", lib.filter_agg_launch(
-                        cols.data_ptr(), cols.stride(0), n, lo, hi, -1.0, 1.0, ws.data_ptr(), blocks,
-                        out.data_ptr(), stream))
-                    return out
             calls[name] = run
             got = run().clone()
             if "diagnostic" in name:  # leaves out the rows' work: its output is wrong
@@ -871,45 +674,22 @@ def k3_variants(libs, dev):
         calls = {"plain": lambda: kops.block_compact(stacked, mask, cap, use_kernel=False),
                  "wrapper committed": lambda: kops.block_compact(own, mask, cap),
                  "compact route (engine.ops.compact)": lambda: ops.compact(table, mask, cap, use_kernel=True)}
-        first = libs["k3 first design"]
-
-        def first_route():  # the compact route as the first design ran it: a stack, then its wrapper
-            colmat = torch.stack(own)
-            tiles = int(first.block_compact_tiles(n))
-            scratch = torch.empty(2 * tiles, dtype=torch.int32, device=dev)
-            out = torch.empty((c, cap), dtype=torch.float32, device=dev)
-            cnt = torch.empty((), dtype=torch.int32, device=dev)
-            checked("k3 first route", first, "block_compact", first.block_compact_launch(
-                colmat.data_ptr(), mask.data_ptr(), n, c, cap, scratch.data_ptr(), scratch.data_ptr() + 4 * tiles,
-                out.data_ptr(), cnt.data_ptr(), torch.cuda.current_stream().cuda_stream))
-            return out, cnt
-
-        calls["compact route, first design (stack, then its wrapper)"] = first_route
         for name, lib in libs.items():
             if not name.startswith("k3"):
                 continue
             out = torch.empty((c, cap), dtype=torch.float32, device=dev)
             cnt = torch.empty((), dtype=torch.int32, device=dev)
-            if name == "k3 first design":
-                tiles = int(lib.block_compact_tiles(n))
-                scratch = torch.empty(2 * tiles, dtype=torch.int32, device=dev)
+            step = lib.block_compact_step_rows()
+            steps = -(-n // step)
+            rows = step * max(1, -(-steps // lib.block_compact_grid()))  # as bc.tile_rows
+            ws = torch.zeros(1 + steps, dtype=torch.int64, device=dev)
 
-                def run(lib=lib, out=out, cnt=cnt, scratch=scratch, tiles=tiles, name=name):
-                    checked(name, lib, "block_compact", lib.block_compact_launch(
-                        stacked.data_ptr(), mask.data_ptr(), n, c, cap, scratch.data_ptr(),
-                        scratch.data_ptr() + 4 * tiles, out.data_ptr(), cnt.data_ptr(), stream))
-                    return out, cnt
-            else:
-                step = lib.block_compact_step_rows()
-                steps = -(-n // step)
-                rows = step * max(1, -(-steps // lib.block_compact_grid()))  # as bc.tile_rows
-                ws = torch.zeros(1 + steps, dtype=torch.int64, device=dev)
+            def run(lib=lib, out=out, cnt=cnt, ws=ws, name=name, rows=rows):
+                checked(name, lib, "block_compact", lib.block_compact_launch(
+                    ptrs, None, c, mask.data_ptr(), n, cap, rows, ws.data_ptr(), out.data_ptr(), cnt.data_ptr(),
+                    stream))
+                return out, cnt
 
-                def run(lib=lib, out=out, cnt=cnt, ws=ws, name=name, rows=rows):
-                    checked(name, lib, "block_compact", lib.block_compact_launch(
-                        ptrs, None, c, mask.data_ptr(), n, cap, rows, ws.data_ptr(), out.data_ptr(), cnt.data_ptr(),
-                        stream))
-                    return out, cnt
             calls[name] = run
             out.fill_(float("nan"))  # a slot the kernel leaves unwritten shows
             got, got_cnt = (x.clone() for x in run())
@@ -920,7 +700,7 @@ def k3_variants(libs, dev):
                 continue
             if not (torch.equal(got, want) and int(got_cnt) == int(wcnt) and torch.equal(got, again)):
                 raise RuntimeError(f"{name} sel {sel} cap {cap}: differs from the plain version or a repeat")
-            if name != "k3 first design" and bool(ws.any()):
+            if bool(ws.any()):
                 raise RuntimeError(f"{name}: the workspace is not back at 0")
         print(f"[variants] k3 sel {sel} cap {cap}: every variant torch.equal to the plain version, repeats equal",
               flush=True)
@@ -967,10 +747,9 @@ def server_variants(dev):
     batch_once = queries.fused_query_batch
 
     def batch_per_slot(plan, param_list, *, use_kernel=True):
-        consts = [plan.program(p) for p in param_list]
         out = queries.kops.group_filter_agg_multi(
-            plan.cols, plan.keys, plan.pred_ops, torch.stack([c[0] for c in consts]), plan.agg_ops,
-            torch.stack([c[1] for c in consts]), num_groups=plan.num_groups, use_kernel=use_kernel)
+            plan.cols, plan.keys, plan.pred_ops, plan.agg_ops, plan.pack(param_list), num_groups=plan.num_groups,
+            use_kernel=use_kernel)
         return [plan.demux(out[b]) for b in range(len(param_list))]
 
     pauses = []
@@ -1030,7 +809,7 @@ def k6_variants(libs, dev, gen):
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         calls = {"sdpa": lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)}
         for name, lib in libs.items():
-            if name.startswith("k6") and "f32" not in name and "probe" not in name:
+            if name.startswith("k6") and "f32" not in name:
                 out = torch.empty_like(q)
                 calls[name] = lambda lib=lib, out=out: lib.flash_attention_launch(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, None, b, s, s, hq, hkv, dh, 1, 1,
@@ -1049,61 +828,10 @@ def k6_variants(libs, dev, gen):
               f"{json.dumps(res)}", flush=True)
 
 
-def accel_first_vs_committed(first, rounds=2):
-    """accel_torch's attention workload (small, medium, large; ops/s and
-    average latency) through the committed kernel and through the first
-    design, in turns: the first design takes ``kops.flash_attention``'s place
-    for its turn."""
-    from repro_torch.core.task import TaskContext
-    from repro_torch.kernels import ops as kops
-    from repro_torch.tasks import TASKS
-
-    from repro_torch.kernels import flash_attention as fa
-
-    committed = kops.flash_attention
-
-    def first_design(q, k, v, *, causal=True, use_kernel=True):
-        """The first design behind the first design's wrapper (its checks, its
-        launch, the launch counter), so the arms differ in the kernel and
-        the workspace alone."""
-        if not (q.is_cuda and use_kernel):
-            return committed(q, k, v, causal=causal, use_kernel=use_kernel)
-        if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-            raise ValueError("the kernel runs on CUDA tensors of one device")
-        if q.dtype not in fa.DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-            raise ValueError("q, k and v must all be float32 or bfloat16")
-        fa.check_shapes(q, k, v, causal)
-        b, sq, hq, dh = q.shape
-        sk, hkv = k.shape[1], k.shape[2]
-        if dh not in fa.HEAD_DIMS or min(b, sq, sk) < 1 or max(b, hq) > 65535:
-            raise ValueError("shape out of the kernel's range")
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        out = torch.empty_like(q)
-        checked("k6 f32 first design", first, "flash_attention", first.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk, hq, hkv, dh, int(causal),
-            fa.DTYPES[q.dtype], dh**-0.5, torch.cuda.current_stream(q.device).cuda_stream))
-        kops.LAUNCHES["flash_attention"] += 1
-        return out
-
-    task = TASKS["accel_torch"]()
-    ctx = TaskContext(iters=20, warmup=5, device="cuda")
-    res = {}
-    try:
-        for rnd in range(rounds):
-            for arm, fn in (("committed", committed), ("first design", first_design))[::1 if rnd % 2 == 0 else -1]:
-                kops.flash_attention = fn
-                for size in ("small", "medium", "large"):
-                    m = task.execute_test(ctx, {"workload": "attention", "size": size, "impl": "kernel"}).metrics
-                    res.setdefault(f"{arm} {size}", []).append([m["ops_per_s"], m["avg_latency_us"]])
-    finally:
-        kops.flash_attention = committed
-    print(f"[variants] accel_torch attention [ops_per_s, avg_latency_us] x{rounds}: {json.dumps(res)}", flush=True)
-
-
-def host_share(first, q, k, v, ws, tickets, stream, calls=200):
+def host_share(q, k, v, ws, tickets, stream, calls=200):
     """Host time of one call of K6 f32 (no synchronisation between calls, so
     the card runs behind): through kops.flash_attention, through its launch
-    module, and the bare library calls of both designs."""
+    module, and the bare library call."""
     import time
 
     from repro_torch.kernels import build
@@ -1120,8 +848,6 @@ def host_share(first, q, k, v, ws, tickets, stream, calls=200):
         "flash_attention.launch": lambda: fa.launch(q, k, v, True),
         "library call": lambda: lib.flash_attention_launch(*ptrs, ws.data_ptr(), tickets.data_ptr(), b, s, s, hq,
                                                              hkv, dh, 1, 0, dh**-0.5, stream),
-        "first design's library call": lambda: first.flash_attention_launch(*ptrs, b, s, s, hq, hkv, dh, 1, 0,
-                                                                               dh**-0.5, stream),
     }
     res = {}
     for name, fn in arms.items():
@@ -1136,22 +862,9 @@ def host_share(first, q, k, v, ws, tickets, stream, calls=200):
     print(f"[variants] k6 f32 host us a call at B={b} S={s} (no sync between calls): {json.dumps(res)}", flush=True)
 
 
-def shared_load_costs(lib, iters=1000):
-    """SM cycles a 16-byte shared load costs by the distinct addresses of a
-    warp (csrc/variants/shared_load_probe.cu), at 1.98 GHz."""
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    res = {}
-    for mode, label in enumerate(PROBE_MODES):
-        ms = lib.shared_load_probe(mode, iters, sms)
-        if ms < 0:
-            raise RuntimeError(f"shared-load probe mode {mode}: launch failed ({-ms:g})")
-        res[label] = ms * 1e6 / (8 * 8 * iters * 32) * 1.98
-    print(f"[variants] LDS.128 SM cycles a warp-load by distinct addresses: {json.dumps(res)}", flush=True)
-
-
 def k6_f32_variants(libs, dev, gen):
     """K6's CUDA-core kernel (f32, causal) at K6_F32_SHAPES for the committed
-    source, its first design and every "k6 f32" arm, beside SDPA with
+    source and every "k6 f32" arm, beside SDPA with
     ``enable_gqa`` and with K/V expanded to Hq heads: each non-diagnostic arm
     held to the plain version (2e-4) with a repeat bit-equal and the tickets
     back at 0, then one call per event pair, back to back and on the card."""
@@ -1174,10 +887,7 @@ def k6_f32_variants(libs, dev, gen):
             if not (name == "k6 committed" or name.startswith("k6 f32")):
                 continue
             out = torch.empty_like(q)
-            if name == "k6 f32 first design":
-                args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-            else:
-                args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ws.data_ptr(), tickets.data_ptr())
+            args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ws.data_ptr(), tickets.data_ptr())
 
             def run(lib=lib, args=args, out=out, name=name):
                 checked(name, lib, "flash_attention",
@@ -1191,9 +901,7 @@ def k6_f32_variants(libs, dev, gen):
                 if not torch.equal(got, run()) or bool(tickets.any()):
                     raise RuntimeError(f"{name}: a repeat differs or leaves a ticket set")
         if dh == 64:
-            accel_first_vs_committed(libs["k6 f32 first design"])
-            host_share(libs["k6 f32 first design"], q, k, v, ws, tickets, stream)
-            shared_load_costs(libs["k6 shared-load probe"])
+            host_share(q, k, v, ws, tickets, stream)
         print(f"[variants] k6 f32 B={b} S={s} Hq={hq} Hkv={hkv} dh={dh} causal: every arm but the diagnostics "
               f"within {ATTN_TOL[torch.float32]} of the plain version, repeats equal, tickets 0; SDPA backends "
               f"{json.dumps(backends)}", flush=True)
@@ -1323,8 +1031,7 @@ def k8f32_variants(libs, dev, gen):
                 continue
             y = torch.full((b, s, h, p), float("nan"), device=dev)
             st = torch.full((b, s // q, h, p, n), float("nan"), device=dev)
-            tail = [0, stream] if name == "k8f32 first design" else [0, 16, stream]  # the first C interface
-            args = [t.data_ptr() for t in (x, bm, cm, dt, a, y, st)] + [b, s, h, p, n, q] + tail
+            args = [t.data_ptr() for t in (x, bm, cm, dt, a, y, st)] + [b, s, h, p, n, q, 0, 16, stream]
 
             def run(lib=lib, args=args, y=y, st=st, name=name):
                 checked(name, lib, "ssd_intra", lib.ssd_intra_launch(*args))
@@ -1380,7 +1087,7 @@ def k7f32_variants(libs, dev, gen):
         timed_arms(f"k7f32 B={b} S={s} Hq={hq} Hkv={hkv} dh={dh} kv_len={kvl} f32", calls)
 
 
-SECTIONS = ("k1", "k2", "server", "k6", "k5", "k7", "k8", "k3", "k4", "k8f32", "k7f32")
+SECTIONS = ("k1", "server", "k6", "k5", "k7", "k8", "k3", "k4", "k8f32", "k7f32")
 
 
 def main() -> int:
@@ -1400,8 +1107,6 @@ def main() -> int:
     dev = "cuda"
     if "k1" in SECTIONS:
         k1_k2_variants(libs, dev)
-    if "k2" in SECTIONS:
-        k2_designs(libs, dev)
     if "server" in SECTIONS:
         server_variants(dev)
     if "k8" in SECTIONS:

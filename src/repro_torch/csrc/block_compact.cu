@@ -18,7 +18,9 @@
 // from L2), the rows of each column that can land below cap are read once,
 // and the C x cap outputs are written once, zeros included; no arithmetic
 // on the values, so the result is bit-exact by construction.  The first
-// design (csrc/variants/block_compact_first.cu) took four launches (count,
+// design (`git show 4e9f2a1:src/repro_torch/csrc/variants/
+// block_compact_first.cu`, the tree before it was removed) took four
+// launches (count,
 // a one-block scan, scatter, zero fill), read the mask a byte at a time
 // and stored each row column by column as scattered 4-byte writes.
 //

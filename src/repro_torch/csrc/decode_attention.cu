@@ -67,8 +67,9 @@
 //   no TF32; at Granite-3-8B's long-context decode (B 8, Hq 32, Hkv 8, dh
 //   128, 2,064 valid keys) the 135 MB of K and V read once take 0.040 ms
 //   at 3.35 TB/s against 0.004 ms of f32 operations: bound by bytes, at
-//   ~2 operations a byte.  The first design (csrc/variants/
-//   decode_attention_f32_first.cu) loaded each 64-key tile between
+//   ~2 operations a byte.  The first design (`git show 4e9f2a1:src/
+//   repro_torch/csrc/variants/decode_attention_f32_first.cu`, the tree
+//   before it was removed) loaded each 64-key tile between
 //   barriers, stored it to shared memory element by element, read two
 //   4-byte shared values per FMA and combined the splits in a second
 //   launch.  This design:

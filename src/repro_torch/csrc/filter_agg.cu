@@ -14,8 +14,9 @@
 //
 // Bound: memory.  One scan reads 16 bytes a row and does a few operations
 // on it, far below the card's f32 balance point (pushdown scale 1.0: 96 MB,
-// 0.0287 ms at 3.35 TB/s).  The first design (csrc/variants/
-// filter_agg_first.cu) loaded cols[2] and cols[3] only inside the
+// 0.0287 ms at 3.35 TB/s).  The first design (`git show 4e9f2a1:src/
+// repro_torch/csrc/variants/filter_agg_first.cu`, the tree before it was
+// removed) loaded cols[2] and cols[3] only inside the
 // predicate's branch, a second round trip that waited on the first, kept
 // few scalar loads in flight, and took two launches.
 //

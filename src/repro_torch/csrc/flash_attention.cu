@@ -52,8 +52,9 @@
 //   swizzle of the tensor-core path.
 //   Bound: operations at the f32 rate (accel_torch large: B 1, Hq 4, Hkv 2,
 //   S 2048, dh 64, causal is 2.15 GFLOP against 4.2 MB; Granite-3-8B's
-//   2,048-token prefill in f32 34.4 GFLOP).  The first design (csrc/
-//   variants/flash_attention_f32_first.cu) ran a block a query tile, so the
+//   2,048-token prefill in f32 34.4 GFLOP).  The first design (`git show
+//   4e9f2a1:src/repro_torch/csrc/variants/flash_attention_f32_first.cu`,
+//   the tree before it was removed) ran a block a query tile, so the
 //   last causal tile set the time (32 key tiles against a mean of 16.5),
 //   fed 4 x 4 register tiles with 4-byte shared loads, and loaded each K/V
 //   tile between two barriers.  This design:
@@ -84,8 +85,9 @@
 //     Sq and Sk are zeros from TMA and never the next sequence's; the keys
 //     are masked and the rows not stored.
 //   * Products at rate.  A 16-byte shared load costs the SM 2 cycles for up
-//     to 4 addresses a warp and 4 for 8 or more (csrc/variants/
-//     shared_load_probe.cu, run by chip_variants.py), so 8 x 4 tiles (32
+//     to 4 addresses a warp and 4 for 8 or more (a probe, `git show
+//     4e9f2a1:src/repro_torch/csrc/variants/shared_load_probe.cu`), so 8 x
+//     4 tiles (32
 //     FMA cycles of the SM a step against 32 of loads) were bound by shared
 //     memory; these tiles are 8 x 8.  4 warps own 16 query rows each; lane
 //     (rg, kh, cg) holds the scores of rows 8 rg .. 8 rg + 7 and keys cg + 8

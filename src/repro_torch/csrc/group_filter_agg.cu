@@ -32,8 +32,9 @@
 // count.  On an H100 K2 at B = 8 runs at 2.3-2.9x the bytes bound at SF 5,
 // and K1 at 1.6x at SF 1 (PERF.md).
 //
-// Why the earlier designs lost.  PR 17's (csrc/variants/group_filter_agg_split.cu)
-// ran each program in blocks of its own: every block re-read its tile (from
+// Why the earlier designs lost.  PR 17's (`git show 4e9f2a1:src/
+// repro_torch/csrc/variants/group_filter_agg_split.cu`, the tree before it
+// was removed) ran each program in blocks of its own: every block re-read its tile (from
 // L2 after the first) and re-evaluated every term, and added each row's
 // value into a per-thread sum in shared memory, a load, an add and a store
 // for every (row, program, aggregate).  At B = 8 that shared-memory traffic

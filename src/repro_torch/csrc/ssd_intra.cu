@@ -79,7 +79,9 @@
 //   (B 1, H 80, P 64, N 128, Q 64) x is 42 MB, y 42 MB and the states 84 MB
 //   (0.051 ms at 3.35 TB/s), and the products 3.41 GFLOP (0.051 ms at 67
 //   TFLOP/s), 80% of them the state's [P, Q] x [Q, N] a head.  The first
-//   design (csrc/variants/ssd_intra_first.cu, for both types) scanned the
+//   design (`git show 4e9f2a1:src/repro_torch/csrc/variants/
+//   ssd_intra_first.cu`, the tree before it was removed; for both types)
+//   scanned the
 //   cumsum on one thread a head, loaded x by scalar loads between barriers,
 //   read one shared float per FMA, read x twice from device memory and
 //   stored the states 4 bytes at a time.  This design:
@@ -110,8 +112,9 @@
 //     tiles of (rows, P), 8 x 4 a lane (3 loads, 32 FMAs), over the steps
 //     j <= the tile's last row.  The head's tasks are dealt to the warps by
 //     weight, the least loaded first.  A 16-byte shared load costs 2 SM
-//     cycles for up to 4 addresses a warp and 4 for 8 or more
-//     (csrc/variants/shared_load_probe.cu), which these tiles keep below
+//     cycles for up to 4 addresses a warp and 4 for 8 or more (a probe,
+//     `git show 4e9f2a1:src/repro_torch/csrc/variants/
+//     shared_load_probe.cu`), which these tiles keep below
 //     the FMAs' time.
 //   * Stores: a lane's columns are 4 consecutive floats at 32 (y) or 64
 //     (states) floats apart, so each 16-byte store instruction of a warp

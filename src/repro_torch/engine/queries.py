@@ -32,12 +32,6 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.group_filter_agg import MAX_TERMS, encode_aggregates, encode_predicates
 
-#: K1/K2 program rows of served requests: ``packed`` written from a plan's
-#: ``q*_consts`` into a batch's packed constants (``GroupAggPlan.pack``),
-#: ``encoded`` built as tensors through ``q*_program`` (``GroupAggPlan.program``).
-CONST_ROWS: dict[str, int] = {"packed": 0, "encoded": 0}
-
-
 def _le_bound(cutoff: float) -> float:
     """The exclusive f32 upper bound equivalent to ``col <= cutoff``."""
     return float(np.nextafter(np.float32(cutoff), np.float32(np.inf)))
@@ -119,10 +113,9 @@ def q12(lineitem: Table, orders: Table, year: int = 1994):
 # constants come from the query's ``*_consts`` alone, one flat tuple in the
 # encoders' layout (``pred_consts`` [K, 2], then ``agg_consts``
 # [A, MAX_TERMS], row-major): ``*_program`` puts it in its tables, and the
-# scan-sharing serving path (``fused_query_batch``) packs a batch's tuples
-# into the kernel's constants (``GroupAggPlan.pack``), so both carry the
-# same float32 values.  The predicate and aggregate lists give the opcodes;
-# ``*_consts`` replaces their constants.
+# serving plans (``GroupAggPlan.pack``) write a batch's tuples into the
+# kernel's layout, so both carry the same float32 values.  The predicate and
+# aggregate lists give the opcodes; ``*_consts`` replaces their constants.
 def _program(preds, aggs, consts: tuple[float, ...]):
     """(pred_ops, pred_consts, agg_ops, agg_consts): the encoders' opcodes
     of ``preds`` and ``aggs``, the tables of ``consts``."""
@@ -403,22 +396,18 @@ class ServingPlan:
     joins).
 
     ``program(params)`` is one request's constants; ``pack(param_list)``
-    those of a batch (by default ``stack`` of each request's ``program``);
-    ``launch(consts)`` the single-program kernel wrapper's pass on one
-    request's, ``launch_batch(packed)`` the batched wrapper's on a batch's;
-    ``demux(out)`` turns one output back into the query's result dict, or a
-    batch's into a dict of batched values."""
+    those of a batch; ``launch(consts)`` the single-program kernel
+    wrapper's pass on one request's, ``launch_batch(packed)`` the batched
+    wrapper's on a batch's; ``demux(out)`` turns one output back into the
+    query's result dict, or a batch's into a dict of batched values."""
 
     name: str
 
     def program(self, params: dict[str, Any]) -> Any:
         raise NotImplementedError
 
-    def stack(self, consts: list[Any]) -> Any:
-        raise NotImplementedError
-
     def pack(self, param_list: list[dict[str, Any]]) -> Any:
-        return self.stack([self.program(p) for p in param_list])
+        raise NotImplementedError
 
     def launch(self, consts: Any, *, use_kernel: bool = True) -> Any:
         raise NotImplementedError
@@ -433,10 +422,10 @@ class ServingPlan:
 @dataclasses.dataclass(frozen=True)
 class GroupAggPlan(ServingPlan):
     """A K1/K2 shape: ``cols``/``keys`` the column layout; ``pred_ops`` /
-    ``agg_ops`` the shared opcode structure; ``program_fn(**params)`` the
-    query's ``*_program``, ``consts_fn(**params)`` its ``*_consts``;
-    ``demux_fn`` turns one ``[G, A + 1]`` kernel output slot (or a
-    ``[B, G, A + 1]`` batch) into the result dict."""
+    ``agg_ops`` the shared opcode structure (the query's ``*_program``'s);
+    ``consts_fn(**params)`` the query's ``*_consts``, the only source of a
+    request's constants; ``demux_fn`` turns one ``[G, A + 1]`` kernel
+    output slot (or a ``[B, G, A + 1]`` batch) into the result dict."""
 
     name: str
     cols: torch.Tensor
@@ -444,19 +433,19 @@ class GroupAggPlan(ServingPlan):
     pred_ops: torch.Tensor
     agg_ops: torch.Tensor
     num_groups: int
-    program_fn: Callable[..., tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]]
     consts_fn: Callable[..., tuple[float, ...]]
     demux_fn: Callable[[torch.Tensor], dict[str, torch.Tensor]]
 
     def program(self, params: dict[str, Any]) -> tuple[torch.Tensor, torch.Tensor]:
-        CONST_ROWS["encoded"] += 1
-        _, pred_consts, _, agg_consts = self.program_fn(**params)
-        return pred_consts, agg_consts
+        """One request's (pred_consts [K, 2], agg_consts [A, MAX_TERMS]), as
+        the single-program wrapper takes them: views of its ``pack``."""
+        pred_consts, agg_consts = gfa.unpack(self.pack([params]), self.pred_ops.shape[0], self.agg_ops.shape[0])
+        return pred_consts[0], agg_consts[0]
 
     def pack(self, param_list: list[dict[str, Any]]) -> np.ndarray:
-        """The batch's constants as K2 reads them (``gfa.pack_rows``), each
-        request's row its ``consts_fn`` tuple: no tensor a request."""
-        CONST_ROWS["packed"] += len(param_list)
+        """The batch's constants in the kernel's format (``gfa.pack_rows``),
+        as the batched wrapper takes them: each request's row its
+        ``consts_fn`` tuple, so no tensor is built a request."""
         return gfa.pack_rows([self.consts_fn(**p) for p in param_list], self.pred_ops.shape[0])
 
     def launch(self, consts, *, use_kernel: bool = True) -> torch.Tensor:
@@ -464,7 +453,7 @@ class GroupAggPlan(ServingPlan):
                                      num_groups=self.num_groups, use_kernel=use_kernel)
 
     def launch_batch(self, packed: np.ndarray, *, use_kernel: bool = True) -> torch.Tensor:
-        return kops.group_filter_agg_multi(self.cols, self.keys, self.pred_ops, packed, self.agg_ops, None,
+        return kops.group_filter_agg_multi(self.cols, self.keys, self.pred_ops, self.agg_ops, packed,
                                            num_groups=self.num_groups, use_kernel=use_kernel)
 
     def demux(self, out: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -482,8 +471,9 @@ class TopKPlan(ServingPlan):
     def program(self, params: dict[str, Any]) -> tuple[int, float, float]:
         return q3_program(**params)
 
-    def stack(self, consts):
-        return tuple(zip(*consts))
+    def pack(self, param_list: list[dict[str, Any]]) -> tuple[tuple, tuple, tuple]:
+        """The batch's (codes, group_his, row_los): its requests' programs zipped."""
+        return tuple(zip(*(q3_program(**p) for p in param_list)))
 
     def launch(self, consts, *, use_kernel: bool = True):
         return kops.group_topk_agg(self.layout, *consts, use_kernel=use_kernel)
@@ -513,14 +503,14 @@ def make_serving_plans(lineitem: Table, orders: Table | None = None, customer: T
         if name == "q3":
             plans[name] = TopKPlan(name, _q3_layout(lineitem, orders, customer))
             continue
-        layout, program_fn, consts_fn, num_groups, demux = {
+        layout, program, consts_fn, num_groups, demux = {
             "q1": (_q1_layout, q1_program, q1_consts, 6, _q1_demux),
             "q6": (_q6_layout, q6_program, q6_consts, 1, _q6_demux),
             "q12": (_q12_layout, q12_program, q12_consts, len(datagen.SHIPMODE), _q12_demux),
         }[name]
         cols, keys = layout(lineitem, orders) if name == "q12" else layout(lineitem)
-        pred_ops, _, agg_ops, _ = program_fn()
-        plans[name] = GroupAggPlan(name, cols, keys, pred_ops, agg_ops, num_groups, program_fn, consts_fn, demux)
+        pred_ops, _, agg_ops, _ = program()
+        plans[name] = GroupAggPlan(name, cols, keys, pred_ops, agg_ops, num_groups, consts_fn, demux)
     return plans
 
 

@@ -471,22 +471,43 @@ def pack_rows(rows, num_preds: int) -> np.ndarray:
     return np.array([c for r in rows for c in r[:s]] + [c for r in rows for c in r[s:]], dtype=np.float32)
 
 
-def packed_programs(packed: np.ndarray, num_preds: int, num_aggs: int) -> int:
-    """The programs whose constants ``packed`` holds (:func:`pack_rows`'s
-    layout); raises unless it is a C-contiguous float32 numpy array of
-    whole programs, at least one."""
+def pack(pred_ops: torch.Tensor, pred_consts: torch.Tensor, agg_ops: torch.Tensor, agg_consts: torch.Tensor):
+    """The reference's constants of B programs on ``pred_ops``/``agg_ops``,
+    ``pred_consts`` [B, K, 2] and ``agg_consts`` [B, A, MAX_TERMS], joined
+    as :func:`pack_rows` lays them out: a float32 numpy array where both are
+    on the host, else a float32 tensor on their device.  The one place the
+    pair becomes the kernel's format (:func:`unpack` the one place it is
+    split again)."""
+    _check_consts(pred_ops, pred_consts, agg_ops, agg_consts)
+    if pred_consts.is_cpu and agg_consts.is_cpu:
+        return np.concatenate((pred_consts.numpy().reshape(-1), agg_consts.numpy().reshape(-1)), dtype=np.float32)
+    return torch.cat((pred_consts.reshape(-1), agg_consts.reshape(-1))).to(torch.float32)
+
+
+def packed_programs(packed, num_preds: int, num_aggs: int, device: torch.device | None = None) -> int:
+    """The programs whose constants ``packed`` holds (:func:`pack`'s
+    layout); raises unless it is a C-contiguous float32 numpy array, or,
+    given ``device``, a contiguous float32 1-D tensor on it, of whole
+    programs, at least one."""
     width = 2 * num_preds + MAX_TERMS * num_aggs
-    if (not isinstance(packed, np.ndarray) or packed.dtype != np.float32 or packed.ndim != 1
-            or not packed.flags.c_contiguous or packed.size < width or packed.size % width):
-        raise ValueError(f"packed constants must be a C-contiguous float32 array of B * {width} values, B >= 1")
-    return packed.size // width
+    if isinstance(packed, torch.Tensor):
+        ok = (packed.device == device and packed.dtype == torch.float32 and packed.dim() == 1
+              and packed.is_contiguous())
+    else:
+        ok = (isinstance(packed, np.ndarray) and packed.dtype == np.float32 and packed.ndim == 1
+              and packed.flags.c_contiguous)
+    if not ok or len(packed) < width or len(packed) % width:
+        raise ValueError(f"packed constants must be a C-contiguous float32 array, or a contiguous float32 "
+                         f"1-D tensor on the columns' device, of B * {width} values, B >= 1")
+    return len(packed) // width
 
 
-def unpack(packed: np.ndarray, num_preds: int, num_aggs: int) -> tuple[torch.Tensor, torch.Tensor]:
+def unpack(packed, num_preds: int, num_aggs: int) -> tuple[torch.Tensor, torch.Tensor]:
     """``pred_consts`` [B, K, 2] and ``agg_consts`` [B, A, MAX_TERMS] of
-    packed constants (:func:`pack_rows`), as tensors that share its memory."""
-    b = packed_programs(packed, num_preds, num_aggs)
-    flat = torch.from_numpy(packed)
+    packed constants (:func:`pack`), as tensors that share its memory."""
+    on_device = isinstance(packed, torch.Tensor)
+    b = packed_programs(packed, num_preds, num_aggs, packed.device if on_device else None)
+    flat = packed if on_device else torch.from_numpy(packed)
     split = 2 * num_preds * b
     return flat[:split].view(b, num_preds, 2), flat[split:].view(b, num_aggs, MAX_TERMS)
 
@@ -495,16 +516,15 @@ def launch(
     cols: torch.Tensor,  # [C, N] f32 on a CUDA device, rows contiguous
     keys: torch.Tensor,  # [N] or [1, N] i32
     pred_ops: torch.Tensor,  # [K, 3] i32 (host)
-    pred_consts,  # [B, K, 2] f32 (host or cols' device), or packed host constants (pack_rows)
     agg_ops: torch.Tensor,  # [A, 6] i32 (host)
-    agg_consts: torch.Tensor | None,  # [B, A, 3] f32 (host or cols' device); None with packed constants
+    consts,  # B programs' constants as pack() lays them out: host numpy array or tensor on cols' device
     num_groups: int,
 ) -> tuple[torch.Tensor, Program]:
-    """Run the CUDA kernel; returns ``[B, num_groups, A + 1]`` f32 on cols'
+    """Run the CUDA kernel on B programs' constants (:func:`pack`'s format,
+    B read from its size); returns ``[B, num_groups, A + 1]`` f32 on cols'
     device, and the :class:`Program` it ran.  Host constants travel in the
-    launch's parameters where they fit, packed as :func:`pack_rows` lays
-    them out (a serving plan's are packed already), else by one pinned copy
-    to the card."""
+    launch's parameters where they fit, else by one pinned copy to the
+    card; constants on the card by pointer."""
     if cols.device.type != "cuda":
         raise ValueError(f"the kernel runs on a CUDA tensor, got {cols.device}")
     if cols.dtype != torch.float32 or cols.dim() != 2:
@@ -516,22 +536,12 @@ def launch(
     if cols.stride(1) != 1 or (c > 1 and cols.stride(0) < n):
         cols = cols.contiguous()  # the kernel takes any row stride, not a column stride
     k, a = pred_ops.shape[0], agg_ops.shape[0]
-    if agg_consts is None:
-        consts, b = pred_consts, packed_programs(pred_consts, k, a)
-    else:
-        _check_consts(pred_ops, pred_consts, agg_ops, agg_consts)
-        b = pred_consts.shape[0]
-        if pred_consts.device.type == agg_consts.device.type == "cpu":
-            consts = np.concatenate([pred_consts.numpy().ravel(), agg_consts.numpy().ravel()], dtype=np.float32)
-        else:
-            consts = torch.cat([pred_consts.reshape(-1), agg_consts.reshape(-1)]).to(torch.float32)
+    b = packed_programs(consts, k, a, cols.device)
     prog = device_program(cols.device, c, pred_ops, agg_ops, num_groups, b)
     lib = build.bind("group_filter_agg", _SIGNATURES)
-    if isinstance(consts, np.ndarray):
-        if consts.size <= _limits(lib)[1]:
-            return call(lib, cols, keys.contiguous(), prog, None, k, a, b, num_groups, host_consts=consts), prog
-        consts = torch.from_numpy(consts)
-    return call(lib, cols, keys.contiguous(), prog, _to_card(consts, cols.device), k, a, b, num_groups), prog
+    if isinstance(consts, np.ndarray) and consts.size > _limits(lib)[1]:
+        consts = _to_card(torch.from_numpy(consts), cols.device)
+    return call(lib, cols, keys.contiguous(), prog, consts, k, a, b, num_groups), prog
 
 
 def _limits(lib) -> tuple[int, int]:
@@ -541,11 +551,11 @@ def _limits(lib) -> tuple[int, int]:
     return lib._gfa_limits
 
 
-def call(lib, cols, keys, prog: Program, consts, k, a, b, num_groups, host_consts=None) -> torch.Tensor:
+def call(lib, cols, keys, prog: Program, consts, k, a, b, num_groups) -> torch.Tensor:
     """One launch of ``lib``'s ``group_filter_agg_launch`` on inputs
     :func:`launch` has checked and put on the card (``prog`` laid out for
-    ``b`` programs), the constants either in ``consts`` (on the card) or in
-    ``host_consts`` (a float32 numpy array).  The grid is
+    ``b`` programs), the constants a float32 numpy array (by value, in the
+    launch's parameters) or a tensor on the card (by pointer).  The grid is
     :func:`grid_blocks`: the B programs share its blocks."""
     n = cols.shape[1]
     blocks = grid_blocks(n, num_groups, a, _limits(lib)[0], prog.per_sm)
@@ -553,9 +563,10 @@ def call(lib, cols, keys, prog: Program, consts, k, a, b, num_groups, host_const
     partials = torch.empty(blocks * b * slots, dtype=torch.float32, device=cols.device)
     out = torch.empty((b, num_groups, a + 1), dtype=torch.float32, device=cols.device)
     stream = torch.cuda.current_stream(cols.device).cuda_stream
+    by_value = isinstance(consts, np.ndarray)
     err = lib.group_filter_agg_launch(
         cols.data_ptr(), cols.stride(0), keys.data_ptr(), n, prog.words.data_ptr(), prog.plan.data_ptr(),
-        None if consts is None else consts.data_ptr(), None if host_consts is None else host_consts.ctypes.data,
+        None if by_value else consts.data_ptr(), consts.ctypes.data if by_value else None,
         prog.used, k, a, num_groups, b, prog.passes, prog.col_tiles, prog.slot_tiles, partials.data_ptr(), blocks,
         out.data_ptr(), stream,
     )

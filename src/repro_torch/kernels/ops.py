@@ -138,34 +138,35 @@ def group_filter_agg(
             return ref.group_filter_agg_ref(
                 cols, keys, pred_ops, pred_consts, agg_ops, agg_consts, num_groups
             )
-        out, prog = gfa.launch(cols, keys, pred_ops, pred_consts[None], agg_ops, agg_consts[None], num_groups)
+        consts = gfa.pack(pred_ops, pred_consts[None], agg_ops, agg_consts[None])
+        out, prog = gfa.launch(cols, keys, pred_ops, agg_ops, consts, num_groups)
         LAUNCHES["group_filter_agg"] += 1
         _count_shared(prog)
         return out[0]
 
 
 def group_filter_agg_multi(
-    cols, keys, pred_ops, pred_consts, agg_ops, agg_consts, *,
+    cols, keys, pred_ops, agg_ops, consts, *,
     num_groups: int, use_kernel: bool = True,
 ) -> torch.Tensor:
     """Scan-shared batch of ``group_filter_agg``: B constant sets, one pass.
 
-    ``pred_consts``/``agg_consts`` carry a leading program dimension
-    (``[B, K, 2]`` / ``[B, A, MAX_TERMS]``), or ``pred_consts`` holds the B
-    programs' constants packed on the host (``gfa.pack_rows``: a serving
-    plan's ``pack``) and ``agg_consts`` is None.  Returns
-    ``[B, num_groups, A + 1]``; slot ``b`` is bit-equal to the
+    ``consts`` holds the B programs' constants in the kernel's one format
+    (``gfa.pack`` of the reference's ``[B, K, 2]`` / ``[B, A, MAX_TERMS]``
+    pair, or a serving plan's ``pack``): a float32 numpy array on the host,
+    or a float32 tensor on the columns' device.  The kernel takes it as it
+    is; the plain route splits it back into the pair (``gfa.unpack``).
+    Returns ``[B, num_groups, A + 1]``; slot ``b`` is bit-equal to the
     single-program call with that program's constants.
     """
     with spans.span(spans.KERNELS_GROUP_FILTER_AGG_MULTI):
-        _refuse_grad("group_filter_agg_multi", use_kernel, cols, pred_consts, agg_consts)
+        _refuse_grad("group_filter_agg_multi", use_kernel, cols, consts)
         if not _route(cols, use_kernel):
-            if agg_consts is None:
-                pred_consts, agg_consts = gfa.unpack(pred_consts, pred_ops.shape[0], agg_ops.shape[0])
+            pred_consts, agg_consts = gfa.unpack(consts, pred_ops.shape[0], agg_ops.shape[0])
             return ref.group_filter_agg_multi_ref(
                 cols, keys, pred_ops, pred_consts, agg_ops, agg_consts, num_groups
             )
-        out, prog = gfa.launch(cols, keys, pred_ops, pred_consts, agg_ops, agg_consts, num_groups)
+        out, prog = gfa.launch(cols, keys, pred_ops, agg_ops, consts, num_groups)
         LAUNCHES["group_filter_agg_multi"] += 1
         _count_shared(prog)
         return out

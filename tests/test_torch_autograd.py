@@ -114,10 +114,11 @@ def test_no_gradient_wrappers_raise_on_inputs_that_require_grad():
     pred_ops, pred_consts = gfa.encode_predicates([("range", 0, 0.1, 0.5)])
     agg_ops, agg_consts = gfa.encode_aggregates([[("col", 1)]])
     keys = torch.zeros(64, dtype=torch.int32)
-    for fn, name in ((ops.group_filter_agg, "group_filter_agg"), (ops.group_filter_agg_multi, "group_filter_agg_multi")):
-        consts = (pred_consts, agg_consts) if fn is ops.group_filter_agg else (pred_consts[None], agg_consts[None])
-        with pytest.raises(ValueError, match=f"{name} has no gradient"):
-            fn(cols, keys, pred_ops, consts[0], agg_ops, consts[1], num_groups=1)
+    with pytest.raises(ValueError, match="group_filter_agg has no gradient"):
+        ops.group_filter_agg(cols, keys, pred_ops, pred_consts, agg_ops, agg_consts, num_groups=1)
+    packed = gfa.pack(pred_ops, pred_consts[None], agg_ops, agg_consts[None])
+    with pytest.raises(ValueError, match="group_filter_agg_multi has no gradient"):
+        ops.group_filter_agg_multi(cols, keys, pred_ops, agg_ops, packed, num_groups=1)
     x = torch.randn(1024, generator=gen).requires_grad_()
     with pytest.raises(ValueError, match="alu_chain has no gradient"):
         ops.alu_chain(x, "add", torch.tensor(1.0))

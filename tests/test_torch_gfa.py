@@ -125,22 +125,46 @@ def test_launch_raises_on_a_cpu_tensor_before_building(monkeypatch):
     po, pcs, ao, acs = program(3, c=4, num_preds=2, num_aggs=3)
     cols, keys = data(3, 4, 100, 5)
     with pytest.raises(ValueError, match="CUDA"):
-        gfa.launch(torch.from_numpy(cols), torch.from_numpy(keys), po, pcs, ao, acs, 5)
+        gfa.launch(torch.from_numpy(cols), torch.from_numpy(keys), po, ao, gfa.pack(po, pcs, ao, acs), 5)
 
 
 @pytest.mark.parametrize("b", [1, 3, 8])
 def test_packed_rows_are_the_stacked_programs_joined_and_unpack_to_views(b):
     """``pack_rows`` lays B flat rows out as K2 reads them (every program's
-    ``pred_consts``, then every program's ``agg_consts``); ``unpack`` gives
-    the stacked tables back as views of the packed array."""
-    _, pcs, _, acs = program(5, c=4, num_preds=2, num_aggs=3, b=b)
+    ``pred_consts``, then every program's ``agg_consts``), and ``pack`` the
+    stacked tables to the same float32 bits; ``unpack`` gives the stacked
+    tables back as views of the packed array."""
+    po, pcs, ao, acs = program(5, c=4, num_preds=2, num_aggs=3, b=b)
     rows = [tuple(pcs[i].reshape(-1).tolist()) + tuple(acs[i].reshape(-1).tolist()) for i in range(b)]
     packed = gfa.pack_rows(rows, 2)
     np.testing.assert_array_equal(packed, np.concatenate([pcs.numpy().ravel(), acs.numpy().ravel()]))
+    joined = gfa.pack(po, pcs, ao, acs)
+    assert joined.dtype == np.float32 and joined.flags.c_contiguous and gfa.packed_programs(joined, 2, 3) == b
+    np.testing.assert_array_equal(joined.view(np.int32), packed.view(np.int32))
+    with pytest.raises(ValueError, match="consts must be"):
+        gfa.pack(po, pcs, ao, acs[:, :, :2])
     pc, ac = gfa.unpack(packed, 2, 3)
     assert torch.equal(pc, pcs) and torch.equal(ac, acs)
     packed[-1] += 1.0
     assert ac.reshape(-1)[-1].item() == packed[-1]
+
+
+@pytest.mark.parametrize("route", ["pack", "kernel route"])
+def test_constants_of_another_k_and_a_of_the_same_size_are_refused(monkeypatch, route):
+    """Tables laid out for K + 3 predicates and A - 2 aggregates hold as many
+    floats as the ops' 2K + 3A: ``gfa.pack``, and so the single-program
+    wrapper's kernel route, refuses them before anything is launched."""
+    po, pcs, ao, acs = program(7, c=4, num_preds=2, num_aggs=3, b=2)
+    wrong_p, wrong_a = torch.zeros((2, 5, 2)), torch.zeros((2, 1, 3))
+    assert wrong_p.numel() + wrong_a.numel() == pcs.numel() + acs.numel()
+    with pytest.raises(ValueError, match="consts must be"):
+        if route == "pack":
+            gfa.pack(po, wrong_p, ao, wrong_a)
+        else:
+            monkeypatch.setattr(kops, "_route", lambda cols, use_kernel: True)
+            monkeypatch.setattr(gfa, "launch", lambda *a: pytest.fail("constants of another layout were launched"))
+            cols, keys = (torch.from_numpy(x) for x in data(7, 4, 100, 5))
+            kops.group_filter_agg(cols, keys, po, wrong_p[0], ao, wrong_a[0], num_groups=5)
 
 
 @pytest.mark.parametrize("case", ["float64", "two-dimensional", "strided", "part of a program", "none", "tensor"])
@@ -217,8 +241,8 @@ def test_plain_route_at_tile_and_alignment_edges_matches_reference(n):
     g = 5
     cols, keys = data(n, 4, n, g)
     po, pcs, ao, acs = program(n, c=4, num_preds=2, num_aggs=4, b=2)
-    got = kops.group_filter_agg_multi(torch.from_numpy(cols), torch.from_numpy(keys), po, pcs, ao, acs,
-                                      num_groups=g)
+    got = kops.group_filter_agg_multi(torch.from_numpy(cols), torch.from_numpy(keys), po, ao,
+                                      gfa.pack(po, pcs, ao, acs), num_groups=g)
     hold_to_reference(got, cols, keys, po, pcs, ao, acs, g)
 
 
@@ -236,8 +260,9 @@ def test_misaligned_strided_view_gives_the_contiguous_result(shift):
     view, kview = big[:, shift:shift + n], kbig[shift:shift + n]
     assert not view.is_contiguous() and view.storage_offset() == shift and view.stride(0) == n + 7
     po, pcs, ao, acs = program(shift, c=5, num_preds=3, num_aggs=5, b=3)
-    got = kops.group_filter_agg_multi(view, kview, po, pcs, ao, acs, num_groups=g)
-    want = kops.group_filter_agg_multi(torch.from_numpy(cols), torch.from_numpy(keys), po, pcs, ao, acs,
+    packed = gfa.pack(po, pcs, ao, acs)
+    got = kops.group_filter_agg_multi(view, kview, po, ao, packed, num_groups=g)
+    want = kops.group_filter_agg_multi(torch.from_numpy(cols), torch.from_numpy(keys), po, ao, packed,
                                        num_groups=g)
     assert torch.equal(got, want)
     one = kops.group_filter_agg(view, kview, po, pcs[1], ao, acs[1], num_groups=g)
@@ -289,8 +314,8 @@ def test_the_grid_is_not_multiplied_by_b(monkeypatch):
     for b in (1, 8):
         lib = FakeLib()
         prog = gfa.device_program(torch.device("cpu"), 5, po, ao, g, b)
-        out = gfa.call(lib, cols, torch.zeros(n, dtype=torch.int32), prog, None, 1, 5, b, g,
-                       host_consts=np.zeros(b * 17, dtype=np.float32))
+        out = gfa.call(lib, cols, torch.zeros(n, dtype=torch.int32), prog, np.zeros(b * 17, dtype=np.float32),
+                       1, 5, b, g)
         args = seen[-1]
         blocks = gfa.grid_blocks(n, g, 5, TILE_ROWS)
         assert blocks == 41 and args[17] == blocks and out.shape == (b, g, 6)

@@ -7,8 +7,10 @@ the same bits, the counts exact, and the launch must move the wrapper's
 launch count by one and ``kernels.ops.SHARED_TILE`` by what the host's
 layout says it shares.  Q1's sums of full-precision values must hold
 float64 within 1e-6 relative, which a sum of two bf16 pieces would not.
-A serving plan's packed constants must launch K2 to the bits of its
-requests' programs stacked as tensors."""
+A serving plan's packed host constants (by value in the launch's
+parameters, or past them by one copy to the card) must launch K2 to the
+bits of its requests' programs stacked and packed on the card (by
+pointer)."""
 from __future__ import annotations
 
 import random
@@ -53,15 +55,16 @@ def test_k2_answers_every_program_from_one_tile_as_k1_does(card, name, b, n):
     pcs, acs = torch.stack([c[0] for c in consts]), torch.stack([c[1] for c in consts])
     args = (plan.cols, plan.keys, plan.pred_ops)
     g = plan.num_groups
+    packed = gfa.pack(plan.pred_ops, pcs, plan.agg_ops, acs)
     kops.reset_launches()
-    got = kops.group_filter_agg_multi(*args, pcs, plan.agg_ops, acs, num_groups=g)
+    got = kops.group_filter_agg_multi(*args, plan.agg_ops, packed, num_groups=g)
     prog = gfa.device_program(plan.cols.device, plan.cols.shape[0], plan.pred_ops, plan.agg_ops, g, b)
     assert kops.LAUNCHES["group_filter_agg_multi"] == 1
     assert kops.SHARED_TILE == prog.shared and prog.shared["slots"] == b
-    assert torch.equal(kops.group_filter_agg_multi(*args, pcs, plan.agg_ops, acs, num_groups=g), got)
+    assert torch.equal(kops.group_filter_agg_multi(*args, plan.agg_ops, packed, num_groups=g), got)
     for i in range(b):
         assert torch.equal(kops.group_filter_agg(*args, pcs[i], plan.agg_ops, acs[i], num_groups=g), got[i])
-    want = kops.group_filter_agg_multi(*args, pcs, plan.agg_ops, acs, num_groups=g, use_kernel=False)
+    want = kops.group_filter_agg_multi(*args, plan.agg_ops, packed, num_groups=g, use_kernel=False)
     assert torch.equal(got[..., -1], want[..., -1])
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6 * float(want.abs().max()))
 
@@ -70,16 +73,20 @@ def test_k2_answers_every_program_from_one_tile_as_k1_does(card, name, b, n):
 @pytest.mark.parametrize("b", [1, 3, 8, 100])  # 100: more constants than a launch's parameters hold
 @pytest.mark.parametrize("name", ["q1", "q6", "q12"])
 def test_k2_from_a_plan_s_packed_constants_is_k2_from_stacked_tensors(card, name, b):
-    """At SF 1, one launch from a serving plan's packed constants (by value,
-    or past the launch's parameters by one copy to the card) gives the bits
-    of the launch from the requests' programs stacked as tensors."""
+    """At SF 1, one launch from a serving plan's packed constants (on the
+    host: by value, or past the launch's parameters by one copy to the
+    card) gives the bits of the launch from the requests' programs
+    (``q*_program``) stacked as tensors on the card and packed there (by
+    pointer)."""
     from repro_torch.kernels import build
 
     plan = plans(6_001_215)[name]
     params = [sample_params(name, random.Random(31 * b + i)) for i in range(b)]
-    consts = [plan.program(p) for p in params]
-    pcs, acs = torch.stack([c[0] for c in consts]), torch.stack([c[1] for c in consts])
-    want = kops.group_filter_agg_multi(plan.cols, plan.keys, plan.pred_ops, pcs, plan.agg_ops, acs,
+    progs = [getattr(queries, f"{name}_program")(**p) for p in params]
+    pcs, acs = (torch.stack([c[i] for c in progs]).cuda() for i in (1, 3))
+    on_card = gfa.pack(plan.pred_ops, pcs, plan.agg_ops, acs)
+    assert on_card.is_cuda
+    want = kops.group_filter_agg_multi(plan.cols, plan.keys, plan.pred_ops, plan.agg_ops, on_card,
                                        num_groups=plan.num_groups)
     packed = plan.pack(params)
     lib = build.bind("group_filter_agg", gfa._SIGNATURES)
@@ -111,7 +118,8 @@ def test_sums_of_full_precision_values_hold_float64(card, b):
     rng = random.Random(7 + b)
     consts = [plan.program(sample_params("q1", rng)) for _ in range(b)]
     pcs, acs = torch.stack([c[0] for c in consts]), torch.stack([c[1] for c in consts])
-    got = kops.group_filter_agg_multi(plan.cols, plan.keys, plan.pred_ops, pcs, plan.agg_ops, acs,
+    got = kops.group_filter_agg_multi(plan.cols, plan.keys, plan.pred_ops, plan.agg_ops,
+                                      gfa.pack(plan.pred_ops, pcs, plan.agg_ops, acs),
                                       num_groups=plan.num_groups).double()
     seg = plan.keys.reshape(-1).long()
     for i in range(b):

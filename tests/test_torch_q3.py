@@ -119,13 +119,17 @@ def test_cpu_routes_count_no_launch():
 
 
 def test_q3_batch_keeps_its_constants_path():
-    """Q3's batch packs through its plan's ``stack`` of each request's
-    ``program``, and writes no K1/K2 program row."""
+    """Q3's batch is its requests' ``q3_program`` triples zipped into
+    (codes, group_his, row_los), as K9's batched wrapper takes them, and a
+    request's own constants are its ``q3_program``."""
     _, _, plan = data("clustered")
-    rows = dict(queries.CONST_ROWS)
-    assert plan.pack(PARAMS[:4]) == plan.stack([queries.q3_program(**p) for p in PARAMS[:4]])
-    queries.fused_query_batch(plan, PARAMS[:4])
-    assert queries.CONST_ROWS == rows
+    progs = [queries.q3_program(**p) for p in PARAMS[:4]]
+    assert plan.pack(PARAMS[:4]) == tuple(zip(*progs))
+    assert [plan.program(p) for p in PARAMS[:4]] == progs
+    batch = queries.fused_query_batch(plan, PARAMS[:4])
+    for params, got in zip(PARAMS[:4], batch, strict=True):
+        want = queries.fused_query_serial(plan, params)
+        assert all(torch.equal(want[k], got[k]) for k in want)
 
 
 # -- K9's decomposition, emulated ----------------------------------------------

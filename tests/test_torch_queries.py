@@ -177,9 +177,9 @@ def test_k2_plain_matches_reference_and_equals_k1(b):
     n, c, g = 20_000, 4, 6
     cols, keys, po, pcs, ao, acs = random_inputs(b, n, c, g, 3, 4, b=b)
     tc, tk = torch.from_numpy(cols), torch.from_numpy(keys)
+    tpo, tao = torch.from_numpy(po), torch.from_numpy(ao)
     got = kops.group_filter_agg_multi(
-        tc, tk, torch.from_numpy(po), torch.from_numpy(pcs), torch.from_numpy(ao), torch.from_numpy(acs),
-        num_groups=g,
+        tc, tk, tpo, tao, gfa.pack(tpo, torch.from_numpy(pcs), tao, torch.from_numpy(acs)), num_groups=g,
     )
     assert got.shape == (b, g, 5)
     want_ref = np.asarray(jref.group_filter_agg_multi_ref(
@@ -228,7 +228,7 @@ def test_other_devices_raise():
     with pytest.raises(ValueError):
         kops.group_filter_agg(cols, keys, po, pc, ao, ac, num_groups=1)
     with pytest.raises(ValueError):
-        gfa.launch(torch.zeros((2, 8)), keys, po, pc[None], ao, ac[None], 1)
+        gfa.launch(torch.zeros((2, 8)), keys, po, ao, gfa.pack(po, pc[None], ao, ac[None]), 1)
 
 
 @pytest.mark.parametrize("case", ["column", "groups", "consts", "aggs"])

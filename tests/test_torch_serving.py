@@ -18,6 +18,7 @@ from repro.runtime import loadgen as jloadgen  # noqa: E402
 from repro_torch.core.metrics import compute_metrics  # noqa: E402
 from repro_torch.engine import queries  # noqa: E402
 from repro_torch.engine.table import Table  # noqa: E402
+from repro_torch.kernels import group_filter_agg as gfa  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.runtime import loadgen  # noqa: E402
 from repro_torch.runtime.requests import QueryRequest, RequestQueue  # noqa: E402
@@ -127,20 +128,25 @@ def test_a_request_s_constants_are_its_program_s_bit_for_bit(plans, name, params
 @pytest.mark.parametrize("b", range(1, 9))
 @pytest.mark.parametrize("name", ["q1", "q6", "q12"])
 def test_a_packed_batch_is_served_as_its_serial_requests(plans, name, b):
-    """A batch's packed constants are the stacked programs' as K2 reads
-    them (``pred_consts`` of every program, then ``agg_consts``); each
-    packs a row, none encodes one; on the plain route each slot equals its
-    request served alone."""
+    """A batch's constants are the stacked programs' tables (``q*_program``)
+    in one float32 array laid out as K2 reads it (``pred_consts`` of every
+    program, then ``agg_consts``), which ``gfa.unpack`` splits into views
+    of those tables; a request's ``program`` is its tables, bit for bit; on
+    the plain route each slot equals its request served alone."""
     plan = plans[name]
     param_list = [loadgen.sample_params(name, random.Random(100 * b + i)) for i in range(b)]
-    consts = [plan.program(p) for p in param_list]
-    pcs, acs = torch.stack([c[0] for c in consts]), torch.stack([c[1] for c in consts])
+    progs = [getattr(queries, f"{name}_program")(**p) for p in param_list]
+    pcs, acs = torch.stack([c[1] for c in progs]), torch.stack([c[3] for c in progs])
     packed = plan.pack(param_list)
     assert packed.dtype == np.float32 and packed.flags.c_contiguous
     np.testing.assert_array_equal(_bits(packed), _bits(np.concatenate([pcs.numpy().ravel(), acs.numpy().ravel()])))
-    rows = dict(queries.CONST_ROWS)
+    pc, ac = gfa.unpack(packed, plan.pred_ops.shape[0], plan.agg_ops.shape[0])
+    assert pc.data_ptr() == packed.ctypes.data and ac.data_ptr() == pc.data_ptr() + 4 * pc.numel()
+    for p, want_pc, want_ac in zip(param_list, pcs, acs, strict=True):
+        got_pc, got_ac = plan.program(p)
+        np.testing.assert_array_equal(_bits(got_pc.numpy()), _bits(want_pc.numpy()))
+        np.testing.assert_array_equal(_bits(got_ac.numpy()), _bits(want_ac.numpy()))
     batched = queries.fused_query_batch(plan, param_list, use_kernel=False)
-    assert queries.CONST_ROWS == {"packed": rows["packed"] + b, "encoded": rows["encoded"]}
     for params, got in zip(param_list, batched, strict=True):
         want = queries.fused_query_serial(plan, params, use_kernel=False)
         assert set(want) == set(got)
